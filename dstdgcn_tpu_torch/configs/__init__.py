@@ -1,16 +1,19 @@
 """Configs of the port as Python dicts (no PyYAML needed).
 
-``SYNTHETIC_H36M_SERVING`` equals ``synthetic_h36m_serving.yaml`` as
-``yaml.safe_load`` reads it (``!!python`` values unresolved); pass either
-to :func:`dstdgcn_tpu_torch.main.run`.  :func:`synthetic_h36m_serving`
-returns a fresh deep copy, since runners update the config in place.
+``SYNTHETIC_H36M_SERVING`` and ``SYNTHETIC_H36M_TRAIN`` equal
+``synthetic_h36m_serving.yaml`` and ``synthetic_h36m_train.yaml`` as
+``yaml.safe_load`` reads them (``!!python`` values unresolved); pass either
+form to :func:`dstdgcn_tpu_torch.main.run`.  :func:`synthetic_h36m_serving`
+and :func:`synthetic_h36m_train` return fresh deep copies, since runners
+update the config in place.
 """
 
 from __future__ import annotations
 
 import copy
 
-__all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving"]
+__all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
+           "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train"]
 
 _SYNTHETIC = dict(layout="h36m", num_sequences=256, input_n=10, output_n=25,
                   dct_used=0, mirror=False)
@@ -78,3 +81,16 @@ SYNTHETIC_H36M_SERVING = {
 
 def synthetic_h36m_serving() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_SERVING)
+
+
+#: the serving config's model at full width, trained: 256 train and 64 test
+#: sequences, 2 epochs, both DSTD-GC ops through the CUDA kernels
+SYNTHETIC_H36M_TRAIN = copy.deepcopy(SYNTHETIC_H36M_SERVING)
+SYNTHETIC_H36M_TRAIN.update(epoch=2, mode="train")
+SYNTHETIC_H36M_TRAIN["dataset"]["test"]["synthetic"]["num_sequences"] = 64
+SYNTHETIC_H36M_TRAIN["model"]["use_pallas"] = True
+del SYNTHETIC_H36M_TRAIN["engine"]["fused_inference"]
+
+
+def synthetic_h36m_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_TRAIN)

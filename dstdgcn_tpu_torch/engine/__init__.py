@@ -1,4 +1,4 @@
-from .engine import PredictionEngine
+from .engine import PredictionEngine, steplr
 from .losses import AccumLoss
 
-__all__ = ["PredictionEngine", "AccumLoss"]
+__all__ = ["PredictionEngine", "AccumLoss", "steplr"]

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "build_all", "library", "build_log"]
+__all__ = ["SOURCES", "SIGNATURES", "build_all", "library", "build_log"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -30,6 +30,8 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = {
     "dstd_spatial": "dstd_spatial.cu",
     "dstd_temporal": "dstd_temporal.cu",
+    "dstd_spatial_bwd": "dstd_spatial_bwd.cu",
+    "dstd_temporal_bwd": "dstd_temporal_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,10 +39,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# dstd_<mode>_f32(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, out,
-#                 N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
-_LAUNCH_ARGTYPES = [_PTR] * 12 + [_INT] * 10 + [_PTR]
-_SMEM_ARGTYPES = [_INT] * 7
+_SIZE = ctypes.c_longlong
+#: C functions of each library, suffix -> (argtypes, restype)
+_FORWARD = {
+    # (x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, out,
+    #  N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
+    "f32": ([_PTR] * 12 + [_INT] * 10 + [_PTR], ctypes.c_int),
+    # (T, V, Ci, Co, K, R, tile)
+    "smem_bytes": ([_INT] * 7, _SIZE),
+}
+_BACKWARD = {
+    # (x, g, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, dx, dbase,
+    #  dalpha, dwf, dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm, scratch,
+    #  N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
+    "f32": ([_PTR] * 24 + [_INT] * 10 + [_PTR], ctypes.c_int),
+    "smem_bytes": ([_INT] * 7, _SIZE),
+    # (N, T, V, Ci, Co, K, R, tile)
+    "scratch_floats": ([_INT] * 8, _SIZE),
+}
+SIGNATURES = {"dstd_spatial": _FORWARD, "dstd_temporal": _FORWARD,
+              "dstd_spatial_bwd": _BACKWARD, "dstd_temporal_bwd": _BACKWARD}
 
 
 def _nvcc() -> str:
@@ -114,12 +132,10 @@ class _Libraries:
                 return lib
             self.build([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
-            launch = getattr(lib, f"{name}_f32")
-            launch.argtypes = _LAUNCH_ARGTYPES
-            launch.restype = ctypes.c_int
-            smem = getattr(lib, f"{name}_smem_bytes")
-            smem.argtypes = _SMEM_ARGTYPES
-            smem.restype = ctypes.c_longlong
+            for suffix, (argtypes, restype) in SIGNATURES[name].items():
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = restype
             lib.dstd_error_string.argtypes = [ctypes.c_int]
             lib.dstd_error_string.restype = ctypes.c_char_p
             self.loaded[name] = lib

@@ -15,7 +15,7 @@ from typing import Any, Optional, Union
 import torch
 from torch import nn
 
-from .layers import JointBatchNorm, PReLU, STGCNNLayer, reset_all
+from .layers import Dropout, JointBatchNorm, PReLU, STGCNNLayer, reset_all
 
 __all__ = ["DSTDGCN", "get_model"]
 
@@ -29,7 +29,8 @@ class DSTDGCN(nn.Module):
     ``agg_group_*`` sizes are layout choices of the JAX package with the
     same result and change nothing here.  Parameters start from
     ``torch.Generator().manual_seed(seed)``; call :meth:`reset_parameters`
-    with another generator to draw them again.
+    with another generator to draw them again.  Dropout draws its masks from
+    ``do_in.generator`` (seeded ``seed + 1``).
     """
 
     def __init__(self, input_channels: int = 6, input_time_frame: int = 10,
@@ -60,8 +61,8 @@ class DSTDGCN(nn.Module):
                 "parallel layer, ROADMAP Queue 1 item 12")
         if remat:
             raise NotImplementedError(
-                "remat is a training-memory knob; training is not ported "
-                "yet (ROADMAP Queue 1 item 6)")
+                "model.remat (activation rematerialisation in training) is "
+                "not ported yet (ROADMAP Queue 1 item 6)")
         del pair_flat, agg_group_spatial, agg_group_temporal, auto_batch_hint
         self.input_channels = input_channels
         self.input_time_frame = input_time_frame
@@ -77,7 +78,9 @@ class DSTDGCN(nn.Module):
                                       **common)
         self.bn_in = JointBatchNorm(v, f)
         self.prelu = PReLU()
-        self.do_in = nn.Dropout(st_gcnn_dropout)
+        # the engine hands over a generator on its device, seeded seed + 1
+        self.do_in = Dropout(st_gcnn_dropout,
+                             torch.Generator().manual_seed(seed + 1))
         for i in range(num_layers):
             self.add_module(f"encoder_{i}",
                             STGCNNLayer(f, f, residual=True, **common))

@@ -24,7 +24,7 @@ from ..graphs import temporal as tg
 from ..kernels import fused as fk
 from ..ops import dstd as ops
 
-__all__ = ["Dense", "JointBatchNorm", "PReLU", "DSTDGC", "DSTDGCB",
+__all__ = ["Dense", "JointBatchNorm", "PReLU", "Dropout", "DSTDGC", "DSTDGCB",
            "STGCNNLayer", "reset_all"]
 
 #: accepted values of the ``use_pallas`` routing knob
@@ -110,6 +110,29 @@ class PReLU(nn.Module):
         return torch.where(x >= 0, x, self.negative_slope * x)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from an explicit ``generator``.
+
+    In train mode each element is kept with probability ``1 - p`` and scaled
+    by ``1 / (1 - p)``.  The mask is drawn on the generator's device and
+    moved to the input's; torch's global generator is never used.
+    """
+
+    def __init__(self, p: float, generator: torch.Generator):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        if self.p >= 1:
+            return torch.zeros_like(x)
+        g = self.generator
+        keep = torch.rand(x.shape, generator=g, device=g.device) >= self.p
+        return x * keep.to(device=x.device, dtype=x.dtype) / (1 - self.p)
+
+
 class DSTDGC(nn.Module):
     """K stacked Dynamic SpatioTemporal Decompose Graph Convolutions.
 
@@ -117,7 +140,8 @@ class DSTDGC(nn.Module):
     ``alpha``.  ``use_pallas`` routes the op through the CUDA kernel of
     :mod:`..kernels.fused`: ``True`` both ops, ``"spatial"`` /
     ``"temporal"`` one of them, ``"serving"`` both but only in eval mode.
-    A routed op in train mode raises: the backward kernels are not ported.
+    A routed op that needs a gradient runs the forward kernel and, in the
+    backward pass, the backward kernel (:class:`..kernels.fused.FusedOp`).
     """
 
     def __init__(self, in_channels: int, out_channels: int, ref_len: int,
@@ -165,12 +189,6 @@ class DSTDGC(nn.Module):
         args = (x, base_adj, alpha, self.wf, self.bf, self.wm1, self.bm1,
                 self.wm2, self.bm2, self.wrm, self.brm, mask)
         if self.routed():
-            if self.training:
-                raise NotImplementedError(
-                    f"use_pallas={self.use_pallas!r} routes the {self.mode} "
-                    "op through its CUDA kernel in train mode, but the "
-                    "backward kernels are not ported yet (ROADMAP Queue 2 "
-                    "items 5-6, kernels/fused_bwd.py)")
             fn = fk.dstd_spatial if self.mode == "spatial" else \
                 fk.dstd_temporal
         else:

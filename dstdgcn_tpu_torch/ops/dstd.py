@@ -155,7 +155,8 @@ def dstd_spatial(x, base_adj, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
     """
     del pair_flat, agg_group
     _check_agg(agg)
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = torch.as_tensor(alpha, device=x.device,
+                            dtype=torch.promote_types(x.dtype, torch.float32))
     xf = _cast(_project(x, wf, bf, dtype), dtype)             # (K,N,T,V,Co)
     dyn = dyn_adjacency_spatial(x, wm1, bm1, wm2, bm2, wrm, brm, mask, dtype)
     adj = _cast(dyn, dtype) * _cast(alpha, dtype) \
@@ -174,7 +175,8 @@ def dstd_temporal(x, base_adj, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
     """
     del pair_flat, agg_group
     _check_agg(agg)
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = torch.as_tensor(alpha, device=x.device,
+                            dtype=torch.promote_types(x.dtype, torch.float32))
     xf = _cast(_project(x, wf, bf, dtype), dtype)             # (K,N,T,V,Co)
     dyn = dyn_adjacency_temporal(x, wm1, bm1, wm2, bm2, wrm, brm, mask, dtype)
     adj = _cast(dyn, dtype) * _cast(alpha, dtype) \

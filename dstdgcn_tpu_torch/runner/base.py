@@ -66,8 +66,7 @@ class BaseRunner:
         return self.run_visualize()
 
     def run_train(self):
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP Queue 1 item 6)")
+        raise NotImplementedError
 
     def run_test(self):
         raise NotImplementedError

@@ -63,7 +63,9 @@ def test_bridged_model_matches_flax_eval(use_pallas, fast):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
     # CPU tensors never reach a kernel, whatever the routing
-    assert tfused.launch_counts() == {"dstd_spatial": 0, "dstd_temporal": 0}
+    assert tfused.launch_counts() == {
+        "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
+        "dstd_temporal_bwd": 0}
 
 
 def test_train_mode_batchnorm_matches_flax():

@@ -143,7 +143,9 @@ def test_wrapper_on_cpu_runs_plain_op_and_counts_nothing(mode):
         got = getattr(tfused, f"dstd_{mode}")(*targs, None, agg)
         want = getattr(tops, f"dstd_{mode}")(*targs, None, agg)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert tfused.launch_counts() == {"dstd_spatial": 0, "dstd_temporal": 0}
+    assert tfused.launch_counts() == {
+        "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
+        "dstd_temporal_bwd": 0}
 
 
 def test_bf16_plain_op_rounds_contraction_inputs():

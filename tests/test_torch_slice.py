@@ -134,7 +134,9 @@ def test_slice_mpjpe_matches_jax_engine(tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got_avg == pytest.approx(want_avg, rel=1e-4)
     assert len(eng.test_batch_seconds) == 2
-    assert tfused.launch_counts() == {"dstd_spatial": 0, "dstd_temporal": 0}
+    assert tfused.launch_counts() == {
+        "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
+        "dstd_temporal_bwd": 0}
 
 
 def test_run_writes_testing_loss_csv(tmp_path):
@@ -177,17 +179,30 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
+    """What the port still refuses: engine.solver, engine.callbacks,
+    engine.fused_inference, and a checkpoint of the JAX package."""
     cfg = _small_config(tmp_path)
+    for key, value in (("solver", {"name": "adam"}),
+                       ("callbacks", {"log_dir": str(tmp_path)}),
+                       ("fused_inference", True)):
+        bad = copy.deepcopy(cfg)
+        bad["engine"][key] = value
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run(bad, "cpu")
+    # a msgpack checkpoint written by the JAX engine is recognised
+    from dstdgcn_tpu.engine.checkpoint import save_checkpoint
+    mcfg = resolve(cfg)["model"]
+    jeng = JaxEngine(cfg["engine"], jax_get_model(
+        "dstdgcn", **{k: v for k, v in mcfg.items() if k != "name"}))
+    jds = jdatasets.Synthetic(**cfg["dataset"]["test"]["synthetic"])
+    state = jeng.init(jds.input_seqs[:1])
+    ckpt = tmp_path / "jax.ckpt"
+    save_checkpoint(str(ckpt), state, dict(lr=3e-3, err=1.0, epoch=0))
+    cfg["model"].update(load=True, ckpt=str(ckpt))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run(copy.deepcopy(cfg), "cpu")
     cfg["mode"] = "train"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(copy.deepcopy(cfg), "cpu")
-    cfg["mode"] = "test"
-    cfg["model"]["load"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(copy.deepcopy(cfg), "cpu")
-    cfg["model"]["load"] = False
-    cfg["engine"]["fused_inference"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="JAX package"):
         run(cfg, "cpu")
 
 
