@@ -7,23 +7,40 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every CUDA kernel from ``dstdgcn_tpu_torch/csrc`` for
-   ``sm_90a``, one ``nvcc`` per source in parallel (4 libraries: the
-   spatial and temporal forward and backward);
+   ``sm_90a``, one ``nvcc`` per source in parallel (5 libraries: the
+   spatial and temporal forward and backward, and the chain library with
+   ``dstd_chain`` and ``dstd_encoder_chain``);
 3. each kernel against its plain PyTorch version on the card, agg right and
-   left, at every (Ci, Co) the serving and training paths give it, N=32,
-   T=35, V=22, seeded inputs, TF32 off.  Forward kernels: |kernel - plain|
-   <= 1e-4 + 1e-4 |plain| elementwise.  Backward kernels (against
-   ``ops/dstd_bwd.py``, seeded cotangent): per output tensor
-   max |kernel - plain| <= 1e-4 max(max |plain|, 1), the JAX package's own
-   norm, since the weight gradients sum 24,640 rows in another order.  The
-   backward's plain time is autograd through the plain forward;
+   left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
+   every (Ci, Co) the serving and training paths give them.  Forward
+   kernels: |kernel - plain| <= 1e-4 + 1e-4 |plain| elementwise.  Backward
+   kernels (against ``ops/dstd_bwd.py``, seeded cotangent): per output
+   tensor max |kernel - plain| <= 1e-4 max(max |plain|, 1), the JAX
+   package's own norm, since the weight gradients sum 24,640 rows in
+   another order.  The backward's plain time is autograd through the plain
+   forward.  Chain kernels on the serving model's 5 encoder layers (BatchNorm
+   calibrated, ``models/infer.py::encoder_chain_params``) at C=64:
+   ``dstd_encoder_chain`` and ``dstd_chain`` (the layers' ops, each scaled
+   to an output peak of 1) against their plain versions, and the gradients
+   of ``dstd_chain`` (x and all 100 weights) against autograd through the
+   plain chain, all within 1e-4 max(max |plain|, 1) (the JAX chain test's
+   norm), the plain chain in float64 printed beside them;
 4. the serving slice: ``dstdgcn_tpu_torch.main.run`` on the config
    ``synthetic_h36m_serving`` (full-width H36M DSTD-GCN, random weights from
    seed 777) on ``cuda``: finite per-frame MPJPE, wall time per batch, and
    each forward kernel's launch count at exactly 7 per forward; then batch-1
    requests, and one full batch served through the kernels against the
    plain path (at the same 1e-4);
-5. the training slice: ``main.run`` on ``synthetic_h36m_train`` (the same
+5. the fused serving slice: ``main.run`` on ``synthetic_h36m_fused`` (the
+   same weights, ``engine.fused_inference``): per-frame MPJPE within 1e-4
+   relative of phase 4's, exactly 1 ``dstd_encoder_chain``, 2 ``dstd_spatial``
+   and 2 ``dstd_temporal`` launches per eval batch and no backward; a
+   batch-1 eval sweep, the batch-32 fused forward's wall and device time
+   beside the standard forward's, and one calibrated batch against the
+   plain path (1e-4 + 1e-4 |plain|);
+6. ``dstd_chain``'s own path (the kernel API with its gradient): one
+   forward and backward of the 5-block chain, exact launch counts;
+7. the training slice: ``main.run`` on ``synthetic_h36m_train`` (the same
    model, ``use_pallas: True``, 2 epochs of 8 steps of batch 32, an eval
    sweep of 2 batches after each): finite losses and per-frame MPJPE, the
    csv and both checkpoints written, and exact launch counts (forward
@@ -35,8 +52,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    path run in float64, within 1e-3 max(max |float64|, 1) or twice the
    plain float32 path's own distance, see GRAD_TOL), and the train step
    timed on both paths;
-6. a ``{"kernels": [...]}`` line with each kernel's launches on the
-   training path, max error, times and bound.
+8. a ``{"kernels": [...]}`` line with each of the 6 kernels' launches on
+   its main path (the training slice for the one-op kernels, the fused
+   slice for the encoder kernel, phase 6 for ``dstd_chain``), max error,
+   times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -86,9 +105,16 @@ KERNELS = {
     "dstd_temporal_bwd": dict(
         source="dstdgcn_tpu_torch/csrc/dstd_temporal_bwd.cu",
         replaces="dstdgcn_tpu/kernels/fused_bwd.py:177"),
+    "dstd_chain": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_chain.cu",
+        replaces="dstdgcn_tpu/kernels/fused.py:498"),
+    "dstd_encoder_chain": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_chain.cu",
+        replaces="dstdgcn_tpu/kernels/fused.py:654"),
 }
 FORWARD = ("dstd_spatial", "dstd_temporal")
 BACKWARD = ("dstd_spatial_bwd", "dstd_temporal_bwd")
+CHAINS = ("dstd_chain", "dstd_encoder_chain")
 
 
 class SmokeFailure(RuntimeError):
@@ -109,6 +135,38 @@ def nvidia_smi():
     return proc.stdout.strip().splitlines()[0]
 
 
+def op_weights(mode, ci, co):
+    """Weight floats of one op (base, alpha, wf, bf, wm1, bm1, wm2, bm2,
+    wrm, brm)."""
+    k, r = (2 if mode == "spatial" else 1), 2
+    ref, pair = (T, V) if mode == "spatial" else (V, T)
+    return (k * pair * pair + 1 + k * ci * co + k * co + 2 * k * ci * r
+            + 2 * k * r + k * r * ref * ref + k * ref)
+
+
+def chain_cost(n, c, layers, encoder):
+    """(flops, bytes) of one chain call of ``layers`` (spatial, temporal)
+    blocks at C channels: the ops' operations plus, for the encoder, 10
+    elementwise operations per activation element and layer (affine,
+    residual and PReLU after each op); x read and the output written once,
+    every weight read once (the encoder's affines and slopes too)."""
+    rows = n * T * V
+    flops = layers * (op_cost("spatial", n, c, c)[0]
+                      + op_cost("temporal", n, c, c)[0])
+    weights = layers * (op_weights("spatial", c, c)
+                        + op_weights("temporal", c, c))
+    if encoder:
+        flops += layers * 10 * rows * c
+        weights += layers * (4 * V * c + 2)
+    return flops, 4 * (2 * rows * c + weights)
+
+
+def bound_of(flops, nbytes):
+    """(least ms, ms of the operations, ms of the bytes)."""
+    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_mem), t_ops, t_mem
+
+
 def op_cost(mode, n, ci, co, backward=False):
     """(flops, bytes) one call needs: every input read once, every output
     written once; tanh and the pair difference count one op each.  The
@@ -126,8 +184,7 @@ def op_cost(mode, n, ci, co, backward=False):
     qk = 2 * rows * ci * 2 * r * k                  # q/k projections
     mix = 2 * scores * ref                          # frame/joint mixing
     agg = 2 * adj * co                              # aggregation
-    weights = (k * pair * pair + 1 + k * ci * co + k * co + 2 * k * ci * r
-               + 2 * k * r + k * r * ref * ref + k * ref)
+    weights = op_weights(mode, ci, co)
     if not backward:
         flops = proj + qk + 2 * scores + mix + 2 * adj + agg
         return flops, 4 * (rows * ci + rows * co + weights)
@@ -143,9 +200,7 @@ def op_cost(mode, n, ci, co, backward=False):
 
 def bound_ms(mode, n, ci, co, backward=False):
     """(least ms, ms of the operations, ms of the bytes) of one call."""
-    flops, nbytes = op_cost(mode, n, ci, co, backward)
-    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_mem), t_ops, t_mem
+    return bound_of(*op_cost(mode, n, ci, co, backward))
 
 
 def time_ms(torch, fn, iters, warmup=3):
@@ -275,6 +330,65 @@ def calibrate_batchnorm(torch, model, inputs):
     model.eval()
 
 
+def encoder_case(torch, cfg, batch, device="cuda"):
+    """The serving model (weights from seed 777, every parameter moved by
+    seeded noise, BatchNorm calibrated on ``batch``) with the encoder's
+    input for ``batch`` (the in-layer, BatchNorm and PReLU of the model)
+    and its encoder layers (``models/infer.py::encoder_chain_params``):
+    the activations the encoder kernel sees in a trained model."""
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.models import get_model, infer
+    from dstdgcn_tpu_torch.utils.config import resolve
+    opts = {k: v for k, v in resolve(cfg)["model"].items() if k != "name"}
+    engine = PredictionEngine(cfg["engine"], get_model("dstdgcn", **opts),
+                              device=device)
+    model = engine.init()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
+    x = engine.transform(engine.to_device(batch))
+    calibrate_batchnorm(torch, model, x)
+    with torch.no_grad():
+        h = torch.cat([x, x - x[:, -1:]], dim=-1)
+        h = model.prelu(model.bn_in(model.conv_st_in(h)))
+        layers = infer.encoder_chain_params(model)
+    return h, layers
+
+
+def chain_blocks(torch, plain, layers, h, agg):
+    """The encoder layers' (spatial, temporal) ops as chain blocks, each
+    op's wf and bf divided by the peak of its output on the plain chain
+    (the output is linear in them), so every op's output peaks at 1:
+    without BatchNorm and residuals the raw ops grow the activation about
+    10x per block and leave float32 nothing to compare."""
+    blocks, x = [], h
+    with torch.no_grad():
+        for sp, tm, *_ in layers:
+            ops = []
+            for fn, args in ((plain.dstd_spatial, sp),
+                             (plain.dstd_temporal, tm)):
+                y = fn(x, *args, agg=agg)
+                peak = float(y.abs().max())
+                args = args[:2] + (args[2] / peak, args[3] / peak) + args[4:]
+                x = y / peak
+                ops.append(tuple(a.detach().clone().contiguous()
+                                 for a in args))
+            blocks.append(tuple(ops))
+    return blocks
+
+
+def chain_leaves(torch, x, blocks, dtype=None):
+    """Fresh leaves requiring gradients: x and every weight, and the blocks
+    rebuilt over them."""
+    leaves = [a.detach().to(dtype or a.dtype).clone().requires_grad_()
+              for a in [x] + [w for blk in blocks for op in blk for w in op]]
+    it = iter(leaves[1:])
+    rebuilt = [tuple(tuple(next(it) for _ in op) for op in blk)
+               for blk in blocks]
+    return leaves, rebuilt
+
+
 def run_smoke():
     import numpy as np
     import torch
@@ -283,7 +397,7 @@ def run_smoke():
                            "run needs an NVIDIA GPU")
     try:
         from dstdgcn_tpu_torch import configs
-        from dstdgcn_tpu_torch.data import get_dataset
+        from dstdgcn_tpu_torch.data import Loader, get_dataset
         from dstdgcn_tpu_torch.engine import PredictionEngine
         from dstdgcn_tpu_torch.kernels import build, fused
         from dstdgcn_tpu_torch.main import run
@@ -425,6 +539,87 @@ def run_smoke():
                               "the same inputs differ")
     report["checks"] = checks
 
+    # the chain kernels against their plain versions on the serving model's
+    # encoder at realistic activations; dstd_chain's gradients (the replay
+    # through the op kernels) against autograd through the plain chain
+    serving_cfg = configs.synthetic_h36m_serving()
+    test_ds = get_dataset("synthetic",
+                          **resolve(serving_cfg)["dataset"]["test"])
+    h, layers = encoder_case(torch, serving_cfg, test_ds.input_seqs[:N])
+    packed = fused.pack_chain(layers)
+    n_layers, feat = len(layers), h.shape[-1]
+    chain_checks, grad_lines, normalized = [], [], {}
+    for agg in ("right", "left"):
+        blocks = normalized[agg] = chain_blocks(torch, plain, layers, h, agg)
+        cases = (("dstd_encoder_chain", packed, fused._encoder_oracle,
+                  layers),
+                 ("dstd_chain", fused.pack_chain(blocks),
+                  fused._chain_oracle, blocks))
+        for name, arg, ref, given in cases:
+            kernel = getattr(fused, name)
+
+            def call(kernel=kernel, arg=arg, agg=agg):
+                with torch.no_grad():
+                    return kernel(h, arg, agg)
+
+            def plain_call(ref=ref, given=given, agg=agg):
+                with torch.no_grad():
+                    return ref(h, given, agg)
+
+            before = kernel.launches
+            got = call()
+            torch.cuda.synchronize()
+            check(kernel.launches == before + 1,
+                  f"{name} did not count its launch")
+            want = plain_call()
+            abs_err = float((got - want).abs().max())
+            norm_err = abs_err / max(float(want.abs().max()), 1.0)
+            k_call = time_ms(torch, call, 20)
+            k_ms, k_by = device_ms(torch, call, 20)
+            p_ms, p_by = device_ms(torch, plain_call, 5)
+            b_ms, t_ops, t_mem = bound_of(*chain_cost(
+                N, feat, n_layers, name == "dstd_encoder_chain"))
+            timings[(name, agg)] = (k_ms, p_ms, k_call, k_by)
+            max_err[name] = max(max_err[name], abs_err)
+            line = dict(kernel=name, agg=agg, n=N, c=feat, layers=n_layers,
+                        max_abs_err=abs_err, max_norm_err=norm_err,
+                        peak=float(want.abs().max()), ok=norm_err <= TOL,
+                        ms=k_ms, plain_ms=p_ms, call_ms=k_call,
+                        timed_by=[k_by, p_by], bound_ms=b_ms,
+                        bound_by="operations" if t_ops >= t_mem
+                        else "bytes")
+            chain_checks.append(line)
+            print("check " + json.dumps(line))
+            check(norm_err <= TOL, f"{name} agg={agg} disagrees with its "
+                                   f"plain version: {norm_err} of "
+                                   "max(|plain|, 1)")
+        # gradients of x and every weight: kernel path, plain path, and the
+        # plain path in float64 beside them
+        g = torch.randn(h.shape, device=device,
+                        generator=torch.Generator(device).manual_seed(5))
+        grads = {}
+        for label, fn, dtype in (("kernel", fused.dstd_chain, None),
+                                 ("plain", fused._chain_oracle, None),
+                                 ("float64", fused._chain_oracle,
+                                  torch.float64)):
+            leaves, rebuilt = chain_leaves(torch, h, blocks, dtype)
+            out = fn(leaves[0], rebuilt, agg)
+            grads[label] = torch.autograd.grad(out, leaves,
+                                               g.to(out.dtype))
+        abs_err, norm_err, ok = grad_errors(grads["kernel"], grads["plain"])
+        _, k64, _ = grad_errors([a.double() for a in grads["kernel"]],
+                                grads["float64"])
+        _, p64, _ = grad_errors([a.double() for a in grads["plain"]],
+                                grads["float64"])
+        line = dict(kernel="dstd_chain backward", agg=agg, tensors=len(
+            grads["kernel"]), max_abs_err=abs_err, max_norm_err=norm_err,
+            kernel_vs_float64=k64, plain_vs_float64=p64, ok=ok)
+        grad_lines.append(line)
+        print("check " + json.dumps(line))
+        check(ok, f"dstd_chain agg={agg} gradients disagree with autograd "
+                  f"through the plain chain: {norm_err} of max(|plain|, 1)")
+    report["chain_checks"] = chain_checks + grad_lines
+
     # 4. the serving slice through its entry point, counts from zero
     cfg = configs.synthetic_h36m_serving()
     fused.reset_launch_counts()
@@ -534,7 +729,123 @@ def run_smoke():
           f"{paths['kernel'][1]:.3f} vs {paths['plain'][1]:.3f}")
     report["paths_ms"] = paths
 
-    # 5. the training slice through its entry point, counts from zero
+    # 5. the fused serving slice through its entry point, counts from zero:
+    # the same seed-777 weights, the eval step through the whole-encoder
+    # kernel
+    fcfg = configs.synthetic_h36m_fused()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    frunner, (favg, fper_frame) = run(fcfg, "cuda",
+                                      run_dir=os.path.join(OUT_DIR, "fused"))
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t0
+    fcounts = fused.launch_counts()
+    feng = frunner.engine
+    fbatches = feng.test_batch_seconds
+    nb = len(fbatches)
+    mpjpe_rel = float(np.max(np.abs(np.asarray(fper_frame)
+                                    - np.asarray(per_frame))
+                             / np.abs(np.asarray(per_frame))))
+    print(f"fused: main.run on cuda, {nb} batches of "
+          f"{fcfg['test_batch_size']} in {fwall:.2f} s; per-frame MPJPE "
+          f"{[float(m) for m in fper_frame]} avg {float(favg)}; against the "
+          f"serving slice max rel diff {mpjpe_rel:.3g}")
+    print(f"fused: wall ms per batch {[round(t * 1e3, 3) for t in fbatches]}"
+          f" (median {float(np.median(fbatches)) * 1e3:.3f})")
+    print(f"fused: launches {fcounts} over {nb} eval batches")
+    check(nb > 0 and np.all(np.isfinite(fper_frame)) and np.isfinite(favg),
+          "the fused slice gave no batch or a non-finite MPJPE")
+    check(mpjpe_rel <= TOL, f"fused slice MPJPE {list(fper_frame)} against "
+                            f"the serving slice {list(per_frame)}")
+    per_batch = dict(dstd_spatial=2, dstd_temporal=2, dstd_encoder_chain=1)
+    check(fcounts == {k: per_batch.get(k, 0) * nb for k in fcounts},
+          f"the fused slice launched {fcounts} over {nb} batches, expected "
+          f"{per_batch} per batch")
+    report["fused_slice"] = dict(per_frame=[float(m) for m in fper_frame],
+                                 avg=float(favg), batch_seconds=fbatches,
+                                 launches=fcounts, mpjpe_rel=mpjpe_rel,
+                                 wall=fwall)
+
+    # batch-1 requests: an eval sweep of single sequences through test()
+    ones = Loader([a[:4] for a in dataset.arrays()], 1)
+    before = fused.launch_counts()
+    frunner._test_once(ones, dataset)
+    after = fused.launch_counts()
+    freq_ms = [t * 1e3 for t in feng.test_batch_seconds]
+    print(f"fused: 4 batch-1 eval requests, ms "
+          f"{[round(m, 3) for m in freq_ms]}")
+    check({k: after[k] - before[k] for k in per_batch}
+          == {k: 4 * v for k, v in per_batch.items()},
+          f"batch-1 eval sweep launched {after} (before {before})")
+    report["fused_batch1_ms"] = freq_ms
+
+    # where the time of one batch-32 fused forward goes, beside the
+    # standard forward of this run (phase 4)
+    fforward = feng._eval_forward()
+
+    def fused_forward():
+        with torch.inference_mode():
+            return feng._serve(inputs[:N], fforward, None, None)
+
+    ffwd_call = time_ms(torch, fused_forward, 5)
+    fprof = device_profile(torch, fused_forward, 5)
+    ffwd_dev = sum(fprof.values())
+    top = sorted(fprof.items(), key=lambda kv: -kv[1])[:6]
+    fbusy = (f"{ffwd_dev:.3f} ms ({100 * ffwd_dev / ffwd_call:.1f}%)"
+             if fprof else "not measured (the profiler recorded nothing)")
+    print(f"profile: batch-{N} fused forward {ffwd_call:.3f} ms per call, "
+          f"device busy {fbusy} (standard forward {fwd_call:.3f} ms, device "
+          f"{fwd_dev:.3f} ms); top "
+          + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
+    def fused_request():
+        with torch.inference_mode():
+            return feng._serve(inputs[:1], fforward, None, None)
+
+    f1_call = time_ms(torch, fused_request, 10)
+    print(f"serve: fused forward ms per call, batch 1 {f1_call:.3f} "
+          f"(standard {paths['kernel'][1]:.3f})")
+    report["fused_profile"] = dict(call_ms=ffwd_call, device_ms=ffwd_dev,
+                                   by_kernel=fprof, batch1_call_ms=f1_call)
+
+    # one full batch with BatchNorm calibrated (phase 4's weights): the
+    # fused path against the plain path
+    feng.model.load_state_dict(plain_engine.model.state_dict())
+    before = fused.launch_counts()
+    with torch.inference_mode():
+        got = feng._serve(batch, feng._eval_forward(), None, None)
+    want = plain_engine.predict(batch)
+    torch.cuda.synchronize()
+    after = fused.launch_counts()
+    abs_err, rel_err, ok = errors(torch, got, want)
+    print(f"fused: batch {N} fused path vs plain path max_abs_err {abs_err} "
+          f"max_rel_err {rel_err} (|out| max {float(want.abs().max())})")
+    check(ok, f"fused model output disagrees with the plain path (max abs "
+              f"err {abs_err})")
+    check({k: after[k] - before[k] for k in per_batch} == per_batch,
+          "the fused forward did not launch 1 encoder, 2 spatial and 2 "
+          "temporal kernels")
+    report["fused_check"] = dict(max_abs_err=abs_err, max_rel_err=rel_err)
+
+    # 6. dstd_chain's own path (the kernel API, as bench.py calls it, with
+    # its gradient): one forward and backward of the 5-block chain at N=32,
+    # counts from zero
+    fused.reset_launch_counts()
+    leaves, rebuilt = chain_leaves(torch, h, normalized["right"])
+    torch.autograd.grad(fused.dstd_chain(leaves[0], rebuilt, "right"),
+                        leaves, torch.ones_like(h))
+    torch.cuda.synchronize()
+    ccounts = fused.launch_counts()
+    print(f"chain: one forward and backward of dstd_chain, launches "
+          f"{ccounts}")
+    check(ccounts == dict(
+        dstd_chain=1, dstd_encoder_chain=0, dstd_spatial=n_layers,
+        dstd_temporal=n_layers,
+        dstd_spatial_bwd=n_layers * fused.BWD_LAUNCHES,
+        dstd_temporal_bwd=n_layers * fused.BWD_LAUNCHES),
+        f"dstd_chain forward and backward launched {ccounts}")
+    report["chain_path"] = ccounts
+
+    # 7. the training slice through its entry point, counts from zero
     tcfg = configs.synthetic_h36m_train()
     rcfg = resolve(tcfg)
     epochs = rcfg["epoch"]
@@ -578,6 +889,7 @@ def run_smoke():
     want_counts = {name: 14 * steps + 7 * evals for name in FORWARD}
     want_counts.update({name: fused.BWD_LAUNCHES * 14 * steps
                         for name in BACKWARD})
+    want_counts.update({name: 0 for name in CHAINS})
     check(tcounts == want_counts, f"training launched {tcounts}, expected "
                                   f"{want_counts}")
     report["train"] = dict(history=rows.tolist(), step_seconds=step_s,
@@ -671,7 +983,8 @@ def run_smoke():
           f"plain float32 path {grad_errs[worst_name][2]}")
     check(step_launches == {
         **{k: 14 for k in FORWARD},
-        **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD}},
+        **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD},
+        **{k: 0 for k in CHAINS}},
         f"one train step launched {step_launches}")
     report["train_check"] = dict(loss=k_loss, plain_loss=p_loss,
                                  loss_rel=loss_rel, worst_grad=worst,
@@ -695,34 +1008,44 @@ def run_smoke():
           f"{tpaths['plain']['device_ms']:.3f}")
     report["train_paths_ms"] = tpaths
 
-    # 6. the kernels line: times summed over the 7 calls of one N=32
-    # forward (or of its backward) at their (Ci, Co), with the model's
-    # aggregation; launches are those of the training slice, the serving
-    # slice's beside them
+    # 8. the kernels line.  One-op kernels: times summed over the 7 calls
+    # of one N=32 forward (or of its backward) at their (Ci, Co), with the
+    # model's aggregation; launches those of the training slice, the
+    # serving slice's beside them.  Chain kernels: one N=32 call over the 5
+    # encoder layers; launches those of the fused slice (the encoder) and
+    # of dstd_chain's own path.
     agg = "left" if model_cfg.get("fast") else "right"
+    main_launches = dict(tcounts, dstd_encoder_chain=fcounts[
+        "dstd_encoder_chain"], dstd_chain=ccounts["dstd_chain"])
     kernels = []
     for name, meta in KERNELS.items():
-        mode = name.split("_")[1]
-        backward = name in BACKWARD
-        ms = plain_ms = call_ms = b_ms = ops_ms = mem_ms = 0.0
-        timed_by = set()
-        for m, ci, co in forward_shapes(model_cfg):
-            if m != mode:
-                continue
-            k_t, p_t, k_call, k_by = timings[(name, ci, co, agg)]
-            timed_by.add(k_by)
-            b, t_ops, t_mem = bound_ms(mode, N, ci, co, backward)
-            ms, plain_ms, b_ms = ms + k_t, plain_ms + p_t, b_ms + b
-            call_ms += k_call
-            ops_ms, mem_ms = ops_ms + t_ops, mem_ms + t_mem
+        if name in CHAINS:
+            ms, plain_ms, call_ms, k_by = timings[(name, agg)]
+            timed_by = {k_by}
+            b_ms, ops_ms, mem_ms = bound_of(*chain_cost(
+                N, feat, n_layers, name == "dstd_encoder_chain"))
+        else:
+            mode = name.split("_")[1]
+            backward = name in BACKWARD
+            ms = plain_ms = call_ms = b_ms = ops_ms = mem_ms = 0.0
+            timed_by = set()
+            for m, ci, co in forward_shapes(model_cfg):
+                if m != mode:
+                    continue
+                k_t, p_t, k_call, k_by = timings[(name, ci, co, agg)]
+                timed_by.add(k_by)
+                b, t_ops, t_mem = bound_ms(mode, N, ci, co, backward)
+                ms, plain_ms, b_ms = ms + k_t, plain_ms + p_t, b_ms + b
+                call_ms += k_call
+                ops_ms, mem_ms = ops_ms + t_ops, mem_ms + t_mem
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=tcounts[name],
+            replaces=meta["replaces"], launches=main_launches[name],
             max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms,
             bound_by="operations" if ops_ms >= mem_ms else "bytes",
             library_ms=None, call_ms=call_ms,
-            serving_launches=counts[name],
+            serving_launches=counts[name], fused_launches=fcounts[name],
             timed_by="+".join(sorted(timed_by))))
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:

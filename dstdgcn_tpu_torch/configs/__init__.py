@@ -1,11 +1,12 @@
 """Configs of the port as Python dicts (no PyYAML needed).
 
-``SYNTHETIC_H36M_SERVING`` and ``SYNTHETIC_H36M_TRAIN`` equal
-``synthetic_h36m_serving.yaml`` and ``synthetic_h36m_train.yaml`` as
+``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED`` and
+``SYNTHETIC_H36M_TRAIN`` equal ``synthetic_h36m_serving.yaml``,
+``synthetic_h36m_fused.yaml`` and ``synthetic_h36m_train.yaml`` as
 ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass either
-form to :func:`dstdgcn_tpu_torch.main.run`.  :func:`synthetic_h36m_serving`
-and :func:`synthetic_h36m_train` return fresh deep copies, since runners
-update the config in place.
+form to :func:`dstdgcn_tpu_torch.main.run`.  The functions of the same
+names in lower case return fresh deep copies, since runners update the
+config in place.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import copy
 
 __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
+           "SYNTHETIC_H36M_FUSED", "synthetic_h36m_fused",
            "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train"]
 
 _SYNTHETIC = dict(layout="h36m", num_sequences=256, input_n=10, output_n=25,
@@ -81,6 +83,15 @@ SYNTHETIC_H36M_SERVING = {
 
 def synthetic_h36m_serving() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_SERVING)
+
+
+#: the serving config with the eval step through the whole-encoder kernel
+SYNTHETIC_H36M_FUSED = copy.deepcopy(SYNTHETIC_H36M_SERVING)
+SYNTHETIC_H36M_FUSED["engine"]["fused_inference"] = True
+
+
+def synthetic_h36m_fused() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_FUSED)
 
 
 #: the serving config's model at full width, trained: 256 train and 64 test

@@ -16,163 +16,34 @@
 // memory at 3.35 TB/s, so it is operation-bound; its 2*22*1225 tanh per
 // output joint also run on the CUDA cores.
 //
-// Design: one block of 512 threads per (sample, tile of output joints), the
-// tile a template parameter.  The adjacency of an output joint mixes the
-// frame-pair scores of all V source joints, so each block projects q/k for
-// the whole sample into shared memory (the V/tile blocks of a sample each
-// recompute it: with K = 1 the projection is cheap, and sharing it through
-// a cluster measured slower here, unlike the spatial op).  Then each block
-// builds the tile's (T, T) adjacencies in shared memory, one thread per (k, t, u) pair with
-// the tile's joints in registers (tanh scores recomputed per tile, mixing
-// weights read as float4), projects the features of the tile's joints over
-// all frames (float4 register tiles, x read through L1) and aggregates over
-// frames.  The scores and the adjacency never touch device memory.  Plain
-// float32 FMA on the CUDA cores.
+// Design (the body is dstd::temporal_op in dstd_common.cuh, which the chain
+// kernels of dstd_chain.cu share): one block of 512 threads per (sample, tile
+// of output joints), the tile a template parameter.  The adjacency of an
+// output joint mixes the frame-pair scores of all V source joints, so each
+// block projects q/k for the whole sample into shared memory (the V/tile
+// blocks of a sample each recompute it: with K = 1 the projection is cheap,
+// and sharing it through a cluster measured slower here, unlike the spatial
+// op).  Then each block builds the tile's (T, T) adjacencies in shared memory,
+// one thread per (k, t, u) pair with the tile's joints in registers (tanh
+// scores recomputed per tile, mixing weights read as float4), projects the
+// features of the tile's joints over all frames (float4 register tiles, x read
+// through L1) and aggregates over frames.  The scores and the adjacency never
+// touch device memory.  Plain float32 FMA on the CUDA cores.
 #include "dstd_common.cuh"
 
 namespace {
 
-using dstd::fma4;
 using dstd::kMaxTile;
 using dstd::kThreads;
 using dstd::OpArgs;
-using dstd::round4;
-
-// Shared-memory layout of one block (offsets in floats, each a multiple
-// of 4): wqk [Ci][J], bqk [J], wmix [K][R][V][round4(tile)], qk [J][V][T],
-// adj [K][tile][T][T], xf [K][T][tile][Co].
-struct TemporalLayout {
-  long long wqk, bqk, wmix, qk, adj, xf, total;
-  __host__ __device__ TemporalLayout(int T, int V, int Ci, int Co, int K,
-                                     int R, int tile) {
-    const long long J = (long long)K * 2 * R;
-    wqk = 0;
-    bqk = wqk + round4(J * Ci);
-    wmix = bqk + round4(J);
-    qk = wmix + round4((long long)K * R * V * round4(tile));
-    adj = qk + round4(J * T * V);
-    xf = adj + round4((long long)K * tile * T * T);
-    total = xf + round4((long long)K * T * tile * Co);
-  }
-};
 
 template <int TILE>
 __global__ void __launch_bounds__(kThreads) temporal_kernel(const OpArgs a) {
-  constexpr int TP = (TILE + 3) & ~3;  // wmix row stride (float4 loads)
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int T = a.T, V = a.V, K = a.K, R = a.R, Co = a.Co;
-  const int n = blockIdx.y;
-  const int w0 = blockIdx.x * TILE;
-  const int wn = min(TILE, V - w0);
-  const int TV = T * V, TT = T * T;
-  const TemporalLayout L(T, V, a.Ci, Co, K, R, TILE);
-  float* wqk = smem + L.wqk;
-  float* bqk = smem + L.bqk;
-  float* wmix = smem + L.wmix;
-  float* qk = smem + L.qk;
-  float* adj = smem + L.adj;
-  float* xf = smem + L.xf;
-  const float alpha = __ldg(a.alpha);
-  const float* xn = a.x + (size_t)n * TV * a.Ci;
-
-  // stage the q/k weights and the tile's columns of the mixing weights
-  dstd::stage_qk_weights(wqk, bqk, a);
-  for (int i = threadIdx.x; i < K * R * V * TP; i += blockDim.x) {
-    const int j = i % TP, krv = i / TP;  // krv = (k*R + r)*V + v
-    wmix[i] = j < wn ? a.wrm[(size_t)krv * V + w0 + j] : 0.f;
-  }
-  __syncthreads();
-
-  // q/k of every (frame, joint) of the sample, stored joints-major
-  dstd::project_qk(a, xn, wqk, bqk, qk, true);
-  __syncthreads();
-
-  // dynamic adjacency of the tile's output joints: one thread per (k, t, u)
-  for (int p = threadIdx.x; p < K * TT; p += blockDim.x) {
-    const int k = p / TT, tu = p - k * TT, t = tu / T, u = tu - t * T;
-    float acc[TILE];
-#pragma unroll
-    for (int j = 0; j < TILE; ++j) acc[j] = 0.f;
-    for (int r = 0; r < R; ++r) {
-      const float* qr = qk + (k * 2 * R + r) * TV + t;
-      const float* kr = qk + (k * 2 * R + R + r) * TV + u;
-      const float4* wm =
-          reinterpret_cast<const float4*>(wmix + (k * R + r) * V * TP);
-#pragma unroll 4
-      for (int v = 0; v < V; ++v) {
-        const float sc = tanhf(qr[v * T] - kr[v * T]);
-#pragma unroll
-        for (int q = 0; q < TP / 4; ++q) {
-          const float4 m = wm[v * (TP / 4) + q];
-          if (4 * q + 0 < TILE) acc[4 * q + 0] = fmaf(sc, m.x, acc[4 * q + 0]);
-          if (4 * q + 1 < TILE) acc[4 * q + 1] = fmaf(sc, m.y, acc[4 * q + 1]);
-          if (4 * q + 2 < TILE) acc[4 * q + 2] = fmaf(sc, m.z, acc[4 * q + 2]);
-          if (4 * q + 3 < TILE) acc[4 * q + 3] = fmaf(sc, m.w, acc[4 * q + 3]);
-        }
-      }
-    }
-    const float b = __ldg(a.base + p);  // base[k][t][u]
-#pragma unroll
-    for (int j = 0; j < TILE; ++j)
-      if (j < wn)
-        adj[(k * TILE + j) * TT + tu] =
-            (acc[j] + __ldg(a.brm + k * V + w0 + j)) * alpha + b;
-  }
-
-  // feature projection of the tile's joints over all frames; row = t*wn+j
-  const int rows = T * wn;
-  dstd::project_features(
-      a, xn, xf, rows, T * TILE * Co,
-      [w0, wn, V](int row) { return (row / wn) * V + w0 + row % wn; },
-      [wn](int row) { return (row / wn) * TILE + row % wn; });
-  __syncthreads();
-
-  // per-joint aggregation over frames, summed over the K kernels
-  float* on = a.out + (size_t)n * TV * Co;
-  if ((Co & 3) == 0) {
-    const int C4 = Co >> 2;
-    const int fstride = TILE * C4;  // xf step from one frame to the next
-    for (int i = threadIdx.x; i < rows * C4; i += blockDim.x) {
-      const int row = i / C4, c4 = i - row * C4;
-      const int at = row / wn, j = row - at * wn;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = 0; k < K; ++k) {
-        const float* ak = adj + (k * TILE + j) * TT;
-        const float4* fk =
-            reinterpret_cast<const float4*>(xf + (k * T * TILE + j) * Co) +
-            c4;
-        if (a.agg_left) {
-          for (int b = 0; b < T; ++b)
-            fma4(ak[at * T + b], fk[b * fstride], acc);
-        } else {
-          for (int b = 0; b < T; ++b)
-            fma4(ak[b * T + at], fk[b * fstride], acc);
-        }
-      }
-      reinterpret_cast<float4*>(on + ((size_t)at * V + w0 + j) * Co)[c4] =
-          acc;
-    }
-  } else {
-    const int fstride = TILE * Co;
-    for (int i = threadIdx.x; i < rows * Co; i += blockDim.x) {
-      const int row = i / Co, c = i - row * Co;
-      const int at = row / wn, j = row - at * wn;
-      float acc = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float* ak = adj + (k * TILE + j) * TT;
-        const float* fk = xf + (k * T * TILE + j) * Co + c;
-        if (a.agg_left) {
-          for (int b = 0; b < T; ++b)
-            acc = fmaf(ak[at * T + b], fk[b * fstride], acc);
-        } else {
-          for (int b = 0; b < T; ++b)
-            acc = fmaf(fk[b * fstride], ak[b * T + at], acc);
-        }
-      }
-      on[((size_t)at * V + w0 + j) * Co + c] = acc;
-    }
-  }
+  const int n = blockIdx.y, w0 = blockIdx.x * TILE;
+  dstd::temporal_op<TILE, false>(
+      a, reinterpret_cast<float*>(smem4), n, w0, min(TILE, a.V - w0),
+      dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
 }
 
 template <int TILE>
@@ -193,7 +64,7 @@ extern "C" {
 
 long long dstd_temporal_smem_bytes(int T, int V, int Ci, int Co, int K,
                                    int R, int tile) {
-  return TemporalLayout(T, V, Ci, Co, K, R, tile).total *
+  return dstd::TemporalLayout(T, V, Ci, Co, K, R, tile).total *
          (long long)sizeof(float);
 }
 

@@ -11,7 +11,10 @@ Counterpart of ``dstdgcn_tpu/engine/engine.py::PredictionEngine``:
   ``clip_by_global_norm`` → ``add_decayed_weights`` → ``adam``);
 * StepLR per epoch (:func:`steplr`), written into the param groups;
 * the epoch loop with ``detect_anomaly`` and the step-timer summary;
-* the eval step of ``_build_eval_step`` inside :meth:`test`;
+* the eval step of ``_build_eval_step`` inside :meth:`test`, through the
+  model's forward or, with ``fused_inference``, through the whole-encoder
+  kernel (:func:`..models.infer.fused_eval_forward`, weights packed once
+  per :meth:`test`); :meth:`predict` always runs the model's forward;
 * ``save`` / ``recover`` through :mod:`.checkpoint`.
 
 Dropout draws from a ``torch.Generator`` on the engine's device seeded
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..data import transforms as tfm
+from ..models import infer
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer
 from . import losses as L
@@ -40,7 +44,6 @@ __all__ = ["PredictionEngine", "steplr"]
 
 #: engine keys of the JAX package that the port does not have yet
 _UNPORTED = {
-    "fused_inference": "the whole-encoder kernel, ROADMAP Queue 2 item 4",
     "solver": "engine/solver.py, ROADMAP Queue 1 item 6",
     "callbacks": "utils/callbacks.py, ROADMAP Queue 1 item 11",
     "profile": "the profiler trace hook, ROADMAP Queue 1 item 11",
@@ -98,6 +101,7 @@ class PredictionEngine:
         self.weight_decay = float(learn.get("weight_decay", 0.0))
         self.clip = float(config.get("clip", -1))
         self.inverse_training = bool(config.get("inverse", False))
+        self.fused_inference = bool(config.get("fused_inference", False))
         self.optimizer: torch.optim.Optimizer | None = None
         self.generator: torch.Generator | None = None
         self.best_err = float("inf")
@@ -149,23 +153,35 @@ class PredictionEngine:
     def predict(self, inputs, time_tsfm=None, scale_tsfm=None) \
             -> torch.Tensor:
         """Model output for flat input sequences ``(N, T, S)`` in the flat
-        exchange layout, on the engine's device."""
+        exchange layout, on the engine's device (the model's forward)."""
         self.model.eval()
+        return self._serve(inputs, self.model, time_tsfm, scale_tsfm)
+
+    def _serve(self, inputs, forward, time_tsfm, scale_tsfm):
         x = self.transform(self.to_device(inputs))
-        out = self.model(x)
+        out = forward(x)
         if isinstance(out, (list, tuple)):   # multi-output: use the last
             out = out[-1]
-        out = self.inverse(out)
-        if scale_tsfm is not None:
-            out = scale_tsfm.inverse(out)
-        if time_tsfm is not None:
-            out = time_tsfm.inverse(out)
-        return out
+        return self._inverse_out(out, time_tsfm, scale_tsfm)
 
     @torch.inference_mode()
-    def _eval_step(self, inputs, all_seqs, input_n, eval_frame, dim_used,
-                   idx_ignore, idx_equal, time_tsfm, scale_tsfm):
-        out = self.predict(inputs, time_tsfm, scale_tsfm)
+    def _eval_forward(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The eval step's forward: the model's, or with
+        ``engine.fused_inference`` the fused path, its weights derived once
+        for the sweep (eval weights do not change within one)."""
+        self.model.eval()
+        if not self.fused_inference:
+            return self.model
+        cd = getattr(self.model, "compute_dtype", None)
+        return functools.partial(
+            infer.fused_eval_forward, self.model,
+            dtype=None if cd is None else getattr(torch, cd),
+            weights=infer.fused_weights(self.model))
+
+    @torch.inference_mode()
+    def _eval_step(self, forward, inputs, all_seqs, input_n, eval_frame,
+                   dim_used, idx_ignore, idx_equal, time_tsfm, scale_tsfm):
+        out = self._serve(inputs, forward, time_tsfm, scale_tsfm)
         all_seqs = self.to_device(all_seqs)
         n, seq_len, _ = all_seqs.shape
         pred = all_seqs.clone()
@@ -351,12 +367,13 @@ class PredictionEngine:
         total_n = 0
         save_results = {"result": [], "target": []} if save_path else None
         self.test_batch_seconds = []
+        forward = self._eval_forward()
         for inputs, _, _, all_seqs in test_loader:
             t0 = time.perf_counter()
             n = inputs.shape[0]
             metric, pred_p = self._eval_step(
-                inputs, all_seqs, input_n, eval_frame, dim_used, idx_ignore,
-                idx_equal, time_tsfm, scale_tsfm)
+                forward, inputs, all_seqs, input_n, eval_frame, dim_used,
+                idx_ignore, idx_equal, time_tsfm, scale_tsfm)
             metric = metric.cpu().numpy()
             self.test_batch_seconds.append(time.perf_counter() - t0)
             t_metric += metric

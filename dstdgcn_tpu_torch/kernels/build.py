@@ -32,15 +32,17 @@ SOURCES = {
     "dstd_temporal": "dstd_temporal.cu",
     "dstd_spatial_bwd": "dstd_spatial_bwd.cu",
     "dstd_temporal_bwd": "dstd_temporal_bwd.cu",
+    "dstd_chain": "dstd_chain.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
 _INT = ctypes.c_int
 _SIZE = ctypes.c_longlong
-#: C functions of each library, suffix -> (argtypes, restype)
+#: C functions of a one-op library, suffix -> (argtypes, restype)
 _FORWARD = {
     # (x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, out,
     #  N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
@@ -57,8 +59,31 @@ _BACKWARD = {
     # (N, T, V, Ci, Co, K, R, tile)
     "scratch_floats": ([_INT] * 8, _SIZE),
 }
-SIGNATURES = {"dstd_spatial": _FORWARD, "dstd_temporal": _FORWARD,
-              "dstd_spatial_bwd": _BACKWARD, "dstd_temporal_bwd": _BACKWARD}
+
+
+def _named(lib: str, table):
+    return {f"{lib}_{suffix}": sig for suffix, sig in table.items()}
+
+
+#: C functions of each library, function name -> (argtypes, restype)
+SIGNATURES = {
+    **{lib: _named(lib, _FORWARD) for lib in ("dstd_spatial",
+                                              "dstd_temporal")},
+    **{lib: _named(lib, _BACKWARD) for lib in ("dstd_spatial_bwd",
+                                               "dstd_temporal_bwd")},
+    "dstd_chain": {
+        # (x, weights[20], out, scratch, N, T, V, C, L, Ks, Kt, R, agg_left,
+        #  tile, device, stream)
+        "dstd_chain_f32": ([_PTR, _PTRS, _PTR, _PTR] + [_INT] * 11 + [_PTR],
+                           ctypes.c_int),
+        # (x, weights[20], aff1, aff2, prelu, out, scratch, the same ints,
+        #  stream)
+        "dstd_encoder_chain_f32": ([_PTR, _PTRS] + [_PTR] * 5 + [_INT] * 11
+                                   + [_PTR], ctypes.c_int),
+        # (T, V, C, Ks, Kt, R, tile)
+        "dstd_chain_smem_bytes": ([_INT] * 7, _SIZE),
+    },
+}
 
 
 def _nvcc() -> str:
@@ -132,8 +157,8 @@ class _Libraries:
                 return lib
             self.build([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
-            for suffix, (argtypes, restype) in SIGNATURES[name].items():
-                fn = getattr(lib, f"{name}_{suffix}")
+            for fname, (argtypes, restype) in SIGNATURES[name].items():
+                fn = getattr(lib, fname)
                 fn.argtypes = argtypes
                 fn.restype = restype
             lib.dstd_error_string.argtypes = [ctypes.c_int]

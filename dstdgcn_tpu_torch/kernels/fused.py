@@ -1,4 +1,5 @@
-"""Wrappers of the whole-op DSTD-GC CUDA kernels, forward and backward.
+"""Wrappers of the DSTD-GC CUDA kernels: one op forward and backward, and
+chains of ops in one launch.
 
 ``dstd_spatial`` and ``dstd_temporal`` keep the argument order of
 ``dstdgcn_tpu/kernels/fused.py`` (``x, base, alpha, wf, bf, wm1, bm1, wm2,
@@ -18,11 +19,18 @@ hand-derived plain backward of :mod:`..ops.dstd_bwd`.  A ``mask``, or a
 card raises (bf16 kernels are not ported).  Every wrapper counts its kernel
 launches in ``.launches`` (a plain integer; :func:`reset_launch_counts`
 zeroes them); one backward call is :data:`BWD_LAUNCHES` launches.
+
+``dstd_chain`` and ``dstd_encoder_chain`` keep the argument structure of
+their JAX counterparts (``x, blocks_or_layers, agg, dtype, nb``) and run a
+whole chain of ops as one launch of ``csrc/dstd_chain.cu``; their plain
+versions (``_chain_oracle``, ``_encoder_oracle``, built on the plain ops)
+and :func:`bn_affine` live here too, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -31,8 +39,10 @@ from ..ops import dstd_bwd as plain_bwd
 from . import build
 
 __all__ = ["dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
-           "dstd_temporal_bwd", "FusedOp", "FusedBwd", "launch_counts",
-           "reset_launch_counts", "SMEM_LIMIT", "BWD_LAUNCHES"]
+           "dstd_temporal_bwd", "dstd_chain", "dstd_encoder_chain",
+           "bn_affine", "pack_chain", "ChainWeights", "FusedOp", "FusedBwd",
+           "launch_counts", "reset_launch_counts", "SMEM_LIMIT",
+           "BWD_LAUNCHES"]
 
 #: dynamic shared memory one block may use on Hopper (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
@@ -50,6 +60,42 @@ BWD_LAUNCHES = 4
 
 _WEIGHTS = ("base", "alpha", "wf", "bf", "wm1", "bm1", "wm2", "bm2", "wrm",
             "brm")
+
+
+def _op_shapes(k, ci, co, r, ref, pair, lead=()):
+    """Shapes of one op's ten weights (``lead`` prepends a layer axis;
+    alpha is then one value per layer)."""
+    shapes = dict(base=(k, pair, pair), wf=(k, ci, co), bf=(k, co),
+                  wm1=(k, ci, r), bm1=(k, r), wm2=(k, ci, r), bm2=(k, r),
+                  wrm=(k, r, ref, ref), brm=(k, ref))
+    shapes = {key: tuple(lead) + s for key, s in shapes.items()}
+    if lead:
+        shapes["alpha"] = tuple(lead) + (1,)
+    return shapes
+
+
+def _check_arrays(name: str, x: torch.Tensor, arrays: Dict, want: Dict):
+    """Raise unless every tensor of ``arrays`` lies on x's device as a
+    contiguous float32 tensor that starts on a 16-byte boundary, with the
+    shape ``want`` gives for its key (where it gives one)."""
+    for key, arr in arrays.items():
+        if not isinstance(arr, torch.Tensor):
+            raise TypeError(f"{name}: {key} must be a tensor")
+        if arr.device != x.device:
+            raise ValueError(f"{name}: {key} on {arr.device}, x on "
+                             f"{x.device}")
+        if arr.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} is {arr.dtype}; the kernel "
+                            "takes float32")
+        if not arr.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if arr.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte "
+                             "boundary (float4 loads)")
+        shape = want.get(key)
+        if shape is not None and tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(arr.shape)}, "
+                             f"expected {shape}")
 
 
 class _Kernel:
@@ -74,30 +120,12 @@ class _Kernel:
         k, co, r = wf.shape[0], wf.shape[-1], wm1.shape[-1]
         ref = t if self.mode == "spatial" else v      # wrm / brm extent
         pair = v if self.mode == "spatial" else t     # base extent
-        want = dict(base=(k, pair, pair), wf=(k, ci, co), bf=(k, co),
-                    wm1=(k, ci, r), bm1=(k, r), wm2=(k, ci, r), bm2=(k, r),
-                    wrm=(k, r, ref, ref), brm=(k, ref), g=(n, t, v, co))
+        want = _op_shapes(k, ci, co, r, ref, pair)
+        want["g"] = (n, t, v, co)
         args = dict(x=x, **weights)
         if g is not None:
             args["g"] = g
-        for key, arr in args.items():
-            if not isinstance(arr, torch.Tensor):
-                raise TypeError(f"{self.name}: {key} must be a tensor")
-            if arr.device != x.device:
-                raise ValueError(f"{self.name}: {key} on {arr.device}, x on "
-                                 f"{x.device}")
-            if arr.dtype != torch.float32:
-                raise TypeError(f"{self.name}: {key} is {arr.dtype}; the "
-                                "kernel takes float32")
-            if not arr.is_contiguous():
-                raise ValueError(f"{self.name}: {key} must be contiguous")
-            if arr.data_ptr() % 16:
-                raise ValueError(f"{self.name}: {key} must start on a "
-                                 "16-byte boundary (float4 loads)")
-            shape = want.get(key)
-            if shape is not None and tuple(arr.shape) != shape:
-                raise ValueError(f"{self.name}: {key} has shape "
-                                 f"{tuple(arr.shape)}, expected {shape}")
+        _check_arrays(self.name, x, args, want)
         if weights["alpha"].numel() != 1:
             raise ValueError(f"{self.name}: alpha must hold one value")
         if n > MAX_SAMPLES:
@@ -257,7 +285,292 @@ dstd_spatial = FusedOp("spatial", plain.dstd_spatial, default_tile=5,
 dstd_temporal = FusedOp("temporal", plain.dstd_temporal, default_tile=6,
                         clustered=False, bwd=dstd_temporal_bwd)
 
-_KERNELS = (dstd_spatial, dstd_temporal, dstd_spatial_bwd, dstd_temporal_bwd)
+# -- chains of ops in one launch ------------------------------------------
+
+
+def bn_affine(scale, bias, mean, var, eps: float = 1e-5) -> torch.Tensor:
+    """Fold eval-mode JointBatchNorm parameters ((V, C) each) into a
+    (2, V, C) multiply-add: ``x * aff[0] + aff[1]``."""
+    inv = scale * torch.rsqrt(var + eps)
+    return torch.stack([inv, bias - mean * inv])
+
+
+def _plain_op(fn, x, args, agg, dtype):
+    """One plain op of a chain; with a ``dtype`` its output goes back to
+    float32, as the chain kernels keep activations in float32."""
+    y = fn(x, *args, agg=agg, dtype=dtype)
+    return y if dtype is None else y.float()
+
+
+def _chain_oracle(x, blocks, agg, dtype=None):
+    """Plain version of :data:`dstd_chain`: the ops one by one."""
+    for sp, tm in blocks:
+        x = _plain_op(plain.dstd_spatial, x, sp, agg, dtype)
+        x = _plain_op(plain.dstd_temporal, x, tm, agg, dtype)
+    return x
+
+
+def _encoder_oracle(x, layers, agg, dtype=None):
+    """Plain version of :data:`dstd_encoder_chain`, in the JAX package's
+    order: the first affine before the residual, the second after it, both
+    residuals from the layer input."""
+    for sp, tm, aff1, aff2, pa in layers:
+        y = _plain_op(plain.dstd_spatial, x, sp, agg, dtype)
+        y = y * aff1[0] + aff1[1] + x
+        y = torch.where(y >= 0, y, pa[0] * y)
+        z = _plain_op(plain.dstd_temporal, y, tm, agg, dtype) + x
+        z = z * aff2[0] + aff2[1]
+        x = torch.where(z >= 0, z, pa[1] * z)
+    return x
+
+
+class ChainWeights(NamedTuple):
+    """The layers of a chain in the two forms its wrapper reads: as given
+    (the plain version and the backward replay use these) and with each
+    weight stacked over the layers (the kernel reads these)."""
+    layers: tuple
+    spatial: tuple    # the ten spatial weights, each (L, ...)
+    temporal: tuple   # the ten temporal weights, each (L, ...)
+    extras: tuple     # encoder: aff1, aff2 (L, 2, V, C), prelu (L, 2)
+
+
+def _as_layers(layers, device) -> tuple:
+    """Layers (or blocks) as tuples of tensors; a number (an alpha, a PReLU
+    slope) becomes a float32 tensor on ``device``."""
+    def leaf(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device) \
+            if not isinstance(a, torch.Tensor) else a
+
+    return tuple(tuple(tuple(leaf(a) for a in part)
+                       if isinstance(part, (tuple, list)) else leaf(part)
+                       for part in layer) for layer in layers)
+
+
+def pack_chain(layers) -> ChainWeights:
+    """Stack the weights of a chain's ``(spatial, temporal)`` blocks or an
+    encoder's ``(spatial, temporal, aff1, aff2, prelu)`` layers for the
+    kernel.  Pack once where the weights stay fixed (an evaluation sweep)
+    and hand the result to the wrapper in place of the list."""
+    if not layers:
+        raise ValueError("a chain needs at least one layer")
+    width = len(layers[0])
+    if width not in (2, 5) or any(len(layer) != width for layer in layers):
+        raise ValueError("chain layers are (spatial, temporal) blocks or "
+                         "(spatial, temporal, aff1, aff2, prelu) layers")
+    layers = _as_layers(layers, layers[0][0][2].device)   # the spatial wf
+
+    def stack(arrs, shape=None):
+        arrs = [a.float() if shape is None else a.float().reshape(shape)
+                for a in arrs]
+        shapes = {tuple(a.shape) for a in arrs}
+        if len(shapes) > 1:
+            raise ValueError(f"chain layers differ in shape: {shapes}")
+        return torch.stack(arrs).contiguous()
+
+    def op(i):
+        return tuple(stack([layer[i][j] for layer in layers],
+                           (1,) if j == 1 else None) for j in range(10))
+
+    extras = () if width == 2 else (
+        stack([layer[2] for layer in layers]),
+        stack([layer[3] for layer in layers]),
+        stack([layer[4] for layer in layers], (2,)))
+    return ChainWeights(layers, op(0), op(1), extras)
+
+
+def _flat(layers) -> list:
+    return [a for layer in layers for part in layer
+            for a in (part if isinstance(part, tuple) else (part,))]
+
+
+class ChainOp:
+    """Checks, tile and launch count of one entry of the chain library
+    (``csrc/dstd_chain.cu``): ``dstd_chain`` or ``dstd_encoder_chain``."""
+
+    def __init__(self, name: str, encoder: bool):
+        self.name = name
+        self.encoder = encoder
+        self.launches = 0
+        self._tiles: Dict[tuple, int] = {}
+
+    def _check(self, x, w: ChainWeights):
+        if x.dim() != 4:
+            raise ValueError(f"{self.name}: x must be (N,T,V,C), got "
+                             f"{tuple(x.shape)}")
+        n, t, v, c = x.shape
+        layers, ks, kt = len(w.layers), w.spatial[2].shape[1], \
+            w.temporal[2].shape[1]
+        r = w.spatial[4].shape[-1]
+        lead = (layers,)
+        arrays, want = {"x": x}, {}
+        for mode, ws, k, ref, pair in (("spatial", w.spatial, ks, t, v),
+                                       ("temporal", w.temporal, kt, v, t)):
+            shapes = _op_shapes(k, c, c, r, ref, pair, lead)
+            for key, arr in zip(_WEIGHTS, ws):
+                arrays[f"{mode} {key}"] = arr
+                want[f"{mode} {key}"] = shapes[key]
+        if self.encoder:
+            if len(w.extras) != 3:
+                raise ValueError(f"{self.name}: layers need aff1, aff2 and "
+                                 "the PReLU slopes")
+            for key, arr, shape in zip(("aff1", "aff2", "prelu"), w.extras,
+                                       ((layers, 2, v, c), (layers, 2, v, c),
+                                        (layers, 2))):
+                arrays[key], want[key] = arr, shape
+        _check_arrays(self.name, x, arrays, want)
+        if n > MAX_SAMPLES:
+            raise ValueError(f"{self.name}: batch {n} exceeds {MAX_SAMPLES}")
+        return n, t, v, c, layers, ks, kt, r
+
+    def _tile(self, lib, t, v, c, ks, kt, r):
+        """The smallest tile that fits a sample's ops in one cluster of
+        MAX_CLUSTER blocks, if its block fits in shared memory."""
+        key = (t, v, c, ks, kt, r)
+        tile = self._tiles.get(key)
+        if tile is None:
+            tile = -(-max(t, v) // MAX_CLUSTER)
+            if tile > MAX_TILE or lib.dstd_chain_smem_bytes(
+                    t, v, c, ks, kt, r, tile) > SMEM_LIMIT:
+                raise ValueError(
+                    f"{self.name}: T={t}, V={v}, C={c} do not fit one "
+                    f"cluster of {MAX_CLUSTER} blocks of tile <= {MAX_TILE} "
+                    f"within {SMEM_LIMIT} bytes of shared memory")
+            self._tiles[key] = tile
+        return tile
+
+    def launch(self, x, w: ChainWeights, agg: str) -> torch.Tensor:
+        """One kernel launch on the card, outside autograd."""
+        n, t, v, c, layers, ks, kt, r = self._check(x, w)
+        lib = build.library("dstd_chain")
+        tile = self._tile(lib, t, v, c, ks, kt, r)
+        out = torch.empty_like(x)
+        # mid and ping activations; freed when this call returns, handed out
+        # again only to work queued after the kernel on the same stream
+        scratch = torch.empty(2 * x.numel(), device=x.device,
+                              dtype=torch.float32)
+        weights = (ctypes.c_void_p * 20)(
+            *[a.data_ptr() for a in w.spatial + w.temporal])
+        ints = (n, t, v, c, layers, ks, kt, r, int(agg == "left"), tile,
+                x.device.index)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        extras = [a.data_ptr() for a in w.extras] if self.encoder else []
+        err = getattr(lib, f"{self.name}_f32")(
+            x.data_ptr(), weights, *extras, out.data_ptr(),
+            scratch.data_ptr(), *ints, stream)
+        if err != 0:
+            msg = lib.dstd_error_string(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: "
+                               f"cudaError {err} ({msg})")
+        self.launches += 1
+        return out
+
+    def _device(self, x, agg, dtype):
+        if agg not in ("right", "left"):
+            raise ValueError(f"agg={agg!r}: expected 'right' or 'left'")
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{self.name}: unsupported device {x.device}")
+        if dtype is not None and x.device.type == "cuda":
+            raise NotImplementedError(
+                f"{self.name}: the CUDA kernel is float32 only; compute "
+                f"dtype {dtype} is ROADMAP Queue 2 (bf16 kernels)")
+
+
+class DSTDChain(ChainOp):
+    """B alternating (spatial, temporal) DSTD-GC ops in one launch.
+
+    ``dstd_chain(x, blocks, agg, dtype, nb)``: ``blocks`` holds ``(spatial,
+    temporal)`` pairs of 10-tuples in the argument order of
+    :data:`dstd_spatial` (or is their :func:`pack_chain`); channels stay
+    ``C`` throughout.  Differentiable: the backward replays the chain under
+    autograd through :data:`dstd_spatial` / :data:`dstd_temporal`, which on
+    the card runs the forward and backward kernels of each op, on the CPU
+    the plain ops and the plain backward.  ``nb`` (samples per grid program
+    on the TPU) has no meaning here and is ignored.
+    """
+
+    def __call__(self, x, blocks, agg: str = "right", dtype=None, nb=None):
+        del nb
+        self._device(x, agg, dtype)
+        packed = blocks if isinstance(blocks, ChainWeights) else None
+        layers = _as_layers(packed.layers if packed else blocks, x.device)
+        flat = _flat(layers)
+        if torch.is_grad_enabled() and any(a.requires_grad
+                                           for a in [x] + flat):
+            return _ChainFunction.apply(self, agg, dtype, packed, x, *flat)
+        return self.forward(x, layers, agg, dtype, packed)
+
+    def forward(self, x, layers, agg, dtype=None, packed=None):
+        if x.device.type == "cpu":
+            return _chain_oracle(x, layers, agg, dtype)
+        return self.launch(x, packed or pack_chain(layers), agg)
+
+
+def _blocks(flat) -> tuple:
+    """Inverse of :func:`_flat` for (spatial, temporal) blocks."""
+    return tuple((tuple(flat[i:i + 10]), tuple(flat[i + 10:i + 20]))
+                 for i in range(0, len(flat), 20))
+
+
+class _ChainFunction(torch.autograd.Function):
+    """Chain kernel forward; backward by replaying the ops under autograd
+    (``_chain_bwd`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, op, agg, dtype, packed, x, *flat):
+        ctx.agg, ctx.dtype = agg, dtype
+        ctx.save_for_backward(x, *flat)
+        return op.forward(x, _blocks(flat), agg, dtype, packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        inputs = [a.detach().requires_grad_(need)
+                  for a, need in zip(saved, ctx.needs_input_grad[4:])]
+        with torch.enable_grad():
+            y = inputs[0]
+            for sp, tm in _blocks(inputs[1:]):
+                y = dstd_spatial(y, *sp, None, ctx.agg, ctx.dtype)
+                y = dstd_temporal(y, *tm, None, ctx.agg, ctx.dtype)
+        wanted = [a for a in inputs if a.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, g))
+        return (None,) * 4 + tuple(next(grads) if a.requires_grad else None
+                                   for a in inputs)
+
+
+class EncoderChain(ChainOp):
+    """L encoder layers of the DSTD-GCN in one launch, eval mode.
+
+    ``dstd_encoder_chain(x, layers, agg, dtype, nb)``: ``layers`` holds
+    ``(spatial, temporal, aff1, aff2, prelu)`` per layer, the 10-tuples of
+    the two ops, the folded eval BatchNorms (:func:`bn_affine`; aff1 the
+    block's, aff2 the model's) and the two PReLU slopes ``(2,)``, or is
+    their :func:`pack_chain`.  No gradient, as in the JAX package: a call
+    that would need one raises.  ``nb`` is ignored.
+    """
+
+    def __call__(self, x, layers, agg: str = "right", dtype=None, nb=None):
+        del nb
+        self._device(x, agg, dtype)
+        packed = layers if isinstance(layers, ChainWeights) else None
+        given = packed.layers if packed else layers
+        tensors = [x] + [a for a in _flat(given)
+                         if isinstance(a, torch.Tensor)]
+        if packed:
+            tensors += list(packed.spatial + packed.temporal + packed.extras)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+            raise RuntimeError(
+                f"{self.name} is inference-only and has no gradient; call "
+                "it under torch.no_grad() or torch.inference_mode()")
+        if x.device.type == "cpu":
+            return _encoder_oracle(x, _as_layers(given, x.device), agg, dtype)
+        return self.launch(x, packed or pack_chain(layers), agg)
+
+
+dstd_chain = DSTDChain("dstd_chain", encoder=False)
+dstd_encoder_chain = EncoderChain("dstd_encoder_chain", encoder=True)
+
+_KERNELS = (dstd_spatial, dstd_temporal, dstd_spatial_bwd, dstd_temporal_bwd,
+            dstd_chain, dstd_encoder_chain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -70,6 +70,7 @@ class DSTDGCN(nn.Module):
         self.joints_to_consider = joints_to_consider
         self.num_layers = num_layers
         self.fast = fast
+        self.compute_dtype = compute_dtype
         t, v, f = (input_time_frame + output_time_frame, joints_to_consider,
                    num_feature)
         common = dict(time_dim=t, joints_dim=v, layout=layout, fast=fast,

@@ -160,6 +160,7 @@ def test_backward_wrappers_on_cpu_run_the_plain_backward():
                 assert torch.equal(a, b)
         assert tfused.launch_counts() == {
             "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
-            "dstd_temporal_bwd": 0}
+            "dstd_temporal_bwd": 0, "dstd_chain": 0,
+            "dstd_encoder_chain": 0}
     with pytest.raises(ValueError):
         tbwd.dstd_spatial_bwd(*case, agg="middle")

@@ -172,3 +172,122 @@ def test_model_train_step_kernel_path_matches_plain_path(cuda):
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     _assert_grads_close([p.grad for p in engines[0].model.parameters()],
                         [p.grad for p in engines[1].model.parameters()])
+
+
+def _chain_layers(count, t, v, c, device, encoder, seed=0):
+    """Seeded chain blocks ((spatial, temporal) pairs) or encoder layers
+    (with affines and PReLU slopes), scaled by fan-in so that activations
+    stay O(1) over the chain instead of growing 10x per block."""
+    rng = np.random.RandomState(seed)
+
+    def nrm(std, *shape):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(
+            np.float32)).to(device)
+
+    layers = []
+    for _ in range(count):
+        parts = []
+        for k, ref, pair in ((2, t, v), (1, v, t)):
+            parts.append((nrm(1.0 / pair, k, pair, pair),
+                          torch.tensor([0.5], device=device),
+                          nrm(c ** -0.5, k, c, c), nrm(0.1, k, c),
+                          nrm(c ** -0.5, k, c, 2), nrm(0.1, k, 2),
+                          nrm(c ** -0.5, k, c, 2), nrm(0.1, k, 2),
+                          nrm((2 * ref * pair) ** -0.5, k, 2, ref, ref),
+                          nrm(0.1, k, ref)))
+        if encoder:
+            for _ in range(2):
+                parts.append(torch.stack([1 + nrm(0.1, v, c),
+                                          nrm(0.2, v, c)]))
+            parts.append(torch.tensor([0.25, 0.1], device=device))
+        layers.append(tuple(parts))
+    return layers
+
+
+def _assert_chain_close(got, want, tol=1e-4):
+    """The JAX chain tests' norm: max |got - want| <= tol max(|want|, 1)."""
+    assert got.shape == want.shape
+    err = float((got - want).abs().max())
+    assert err <= tol * max(float(want.abs().max()), 1.0), err
+
+
+# (N, T, C): full width, batch 1, a ragged batch, short sequences with the
+# 22 joints (T < V: the temporal op sets the cluster), and C % 4 != 0
+CHAIN_SHAPES = [(32, 35, 64), (1, 35, 64), (3, 35, 64), (3, 8, 64),
+                (2, 10, 6)]
+
+
+@pytest.mark.parametrize("n,t,c", CHAIN_SHAPES)
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_encoder_chain_kernel_matches_plain(cuda, n, t, c, agg):
+    layers = _chain_layers(5, t, 22, c, cuda, encoder=True)
+    x = torch.randn(n, t, 22, c, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(n))
+    kernel = fused.dstd_encoder_chain
+    before = kernel.launches
+    with torch.no_grad():
+        got = kernel(x, layers, agg)
+        again = kernel(x, fused.pack_chain(layers), agg)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_chain_close(got, fused._encoder_oracle(x, layers, agg))
+
+
+@pytest.mark.parametrize("n,t,c", CHAIN_SHAPES)
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_chain_kernel_matches_plain(cuda, n, t, c, agg):
+    blocks = _chain_layers(5, t, 22, c, cuda, encoder=False, seed=1)
+    x = torch.randn(n, t, 22, c, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(n))
+    before = fused.dstd_chain.launches
+    with torch.no_grad():
+        got = fused.dstd_chain(x, blocks, agg)
+    torch.cuda.synchronize()
+    assert fused.dstd_chain.launches == before + 1
+    _assert_chain_close(got, fused._chain_oracle(x, blocks, agg))
+
+
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_chain_gradient_replays_the_op_kernels(cuda, agg):
+    """dstd_chain's backward (the per-op forward and backward kernels)
+    against autograd through the plain chain, x and every weight."""
+    blocks = _chain_layers(3, 35, 22, 64, cuda, encoder=False, seed=2)
+    flat = [a.requires_grad_() for sp, tm in blocks for a in sp + tm]
+    x = torch.randn(3, 35, 22, 64, device=cuda).requires_grad_()
+    g = torch.randn(3, 35, 22, 64, device=cuda)
+    fused.reset_launch_counts()
+    got = torch.autograd.grad(fused.dstd_chain(x, blocks, agg), [x] + flat,
+                              g)
+    counts = fused.launch_counts()
+    assert counts["dstd_chain"] == 1
+    assert counts["dstd_spatial"] == counts["dstd_temporal"] == 3
+    assert counts["dstd_spatial_bwd"] == 3 * fused.BWD_LAUNCHES
+    want = torch.autograd.grad(fused._chain_oracle(x, blocks, agg),
+                               [x] + flat, g)
+    _assert_grads_close(got, want)
+
+
+def test_chain_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    layers = _chain_layers(2, 10, 7, 8, cuda, encoder=True)
+    blocks = [layer[:2] for layer in layers]
+    x = torch.randn(2, 10, 7, 8, device=cuda)
+    for fn, arg in ((fused.dstd_encoder_chain, layers),
+                    (fused.dstd_chain, blocks)):
+        with pytest.raises(NotImplementedError, match="bf16"):
+            fn(x, arg, "right", torch.bfloat16)
+        with pytest.raises(ValueError):       # 11 joints, weights for 7
+            fn(torch.randn(2, 10, 11, 8, device=cuda), arg)
+        with pytest.raises(ValueError):       # not contiguous
+            fn(x.transpose(1, 2).contiguous().transpose(1, 2), arg)
+        with pytest.raises(ValueError):       # T = 80: no cluster fits
+            fn(torch.randn(1, 80, 7, 8, device=cuda),
+               _chain_layers(1, 80, 7, 8, cuda, encoder=True)
+               if fn is fused.dstd_encoder_chain else
+               _chain_layers(1, 80, 7, 8, cuda, encoder=False))
+    bad = [list(layer) for layer in layers]     # one layer's wf 8 -> 4
+    bad[1][0] = bad[1][0][:2] + (bad[1][0][2][:, :, :4],) + bad[1][0][3:]
+    with pytest.raises(ValueError):
+        fused.dstd_encoder_chain(x, [tuple(layer) for layer in bad])
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fused.dstd_encoder_chain(x.clone().requires_grad_(), layers)

@@ -27,6 +27,7 @@ def test_scan_covers_the_port():
     names = {p.relative_to(REPO).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "dstdgcn_tpu_torch/kernels/fused.py" in names
+    assert "dstdgcn_tpu_torch/models/infer.py" in names
     assert len(names) > 20
 
 

@@ -136,7 +136,7 @@ def test_slice_mpjpe_matches_jax_engine(tmp_path):
     assert len(eng.test_batch_seconds) == 2
     assert tfused.launch_counts() == {
         "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
-        "dstd_temporal_bwd": 0}
+        "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0}
 
 
 def test_run_writes_testing_loss_csv(tmp_path):
@@ -179,12 +179,11 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What the port still refuses: engine.solver, engine.callbacks,
-    engine.fused_inference, and a checkpoint of the JAX package."""
+    """What the port still refuses: engine.solver, engine.callbacks, and a
+    checkpoint of the JAX package."""
     cfg = _small_config(tmp_path)
     for key, value in (("solver", {"name": "adam"}),
-                       ("callbacks", {"log_dir": str(tmp_path)}),
-                       ("fused_inference", True)):
+                       ("callbacks", {"log_dir": str(tmp_path)})):
         bad = copy.deepcopy(cfg)
         bad["engine"][key] = value
         with pytest.raises(NotImplementedError, match="ROADMAP"):
