@@ -7,9 +7,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every CUDA kernel from ``dstdgcn_tpu_torch/csrc`` for
-   ``sm_90a``, one ``nvcc`` per source in parallel (5 libraries: the
-   spatial and temporal forward and backward, and the chain library with
-   ``dstd_chain`` and ``dstd_encoder_chain``);
+   ``sm_90a``, one ``nvcc`` per source in parallel (6 libraries: the
+   spatial and temporal forward and backward, the chain library with
+   ``dstd_chain`` and ``dstd_encoder_chain``, and the block-sparse library
+   with ``block_spmm``, ``block_sddmm`` and ``block_sddmm_spmm``);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -52,10 +53,23 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    path run in float64, within 1e-3 max(max |float64|, 1) or twice the
    plain float32 path's own distance, see GRAD_TOL), and the train step
    timed on both paths;
-8. a ``{"kernels": [...]}`` line with each of the 6 kernels' launches on
+8. the blocked sparse surface (``kernels/sparse.py``): each of its three
+   kernels against its plain version (the masked dense form) at a small
+   pattern (V=256, block 128) and at the large graph of
+   ``bench.py::bench_sparse_kernels`` (N=4, V=4096, R=4, C=128, block 128,
+   a band of +-2 blocks plus 3% random ones: 174 active blocks), within
+   tol max(max |plain|, 1), tol 1e-5 for the SpMM and SDDMM (active blocks
+   only) and 1e-4 for the fused op, two calls bit-equal; then the main
+   path, counts from zero: the scores (``block_sddmm``, no gradient), h =
+   ``block_sddmm_spmm(q, k, w, x)`` and y = ``block_spmm(adj, h)``,
+   forward and backward, exactly one launch of each kernel, y and the
+   gradients of q, k, w, x and adj against autograd through the masked
+   dense oracle (1e-4 of max(|plain|, 1)); times, bounds, and for the SpMM
+   the dense ``torch.bmm`` of the pre-masked adjacency as ``library_ms``;
+9. a ``{"kernels": [...]}`` line with each of the 9 kernels' launches on
    its main path (the training slice for the one-op kernels, the fused
-   slice for the encoder kernel, phase 6 for ``dstd_chain``), max error,
-   times and bound.
+   slice for the encoder kernel, phase 6 for ``dstd_chain``, phase 8 for
+   the sparse kernels), max error, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -111,10 +125,26 @@ KERNELS = {
     "dstd_encoder_chain": dict(
         source="dstdgcn_tpu_torch/csrc/dstd_chain.cu",
         replaces="dstdgcn_tpu/kernels/fused.py:654"),
+    "block_spmm": dict(
+        source="dstdgcn_tpu_torch/csrc/block_sparse.cu",
+        replaces="dstdgcn_tpu/kernels/sparse.py:101"),
+    "block_sddmm": dict(
+        source="dstdgcn_tpu_torch/csrc/block_sparse.cu",
+        replaces="dstdgcn_tpu/kernels/sparse.py:162"),
+    "block_sddmm_spmm": dict(
+        source="dstdgcn_tpu_torch/csrc/block_sparse.cu",
+        replaces="dstdgcn_tpu/kernels/sparse.py:199"),
 }
 FORWARD = ("dstd_spatial", "dstd_temporal")
 BACKWARD = ("dstd_spatial_bwd", "dstd_temporal_bwd")
 CHAINS = ("dstd_chain", "dstd_encoder_chain")
+SPARSE = ("block_spmm", "block_sddmm", "block_sddmm_spmm")
+#: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
+SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C, SPARSE_BLOCK = 4, 4096, 4, 128, 128
+#: kernel against plain version, max |kernel - plain| <= tol max(|plain|, 1)
+#: per output: the JAX sparse tests' tolerances, taken against the largest
+#: magnitude since sums over up to 896 sources cancel
+SPARSE_TOL = dict(block_spmm=1e-5, block_sddmm=1e-5, block_sddmm_spmm=1e-4)
 
 
 class SmokeFailure(RuntimeError):
@@ -201,6 +231,204 @@ def op_cost(mode, n, ci, co, backward=False):
 def bound_ms(mode, n, ci, co, backward=False):
     """(least ms, ms of the operations, ms of the bytes) of one call."""
     return bound_of(*op_cost(mode, n, ci, co, backward))
+
+
+def sparse_cost(name, n, blocks, block, r, c, v, vj=None):
+    """(flops, bytes) one sparse call needs at ``blocks`` active blocks:
+    every input read once (the adjacency's active blocks only), every
+    output written once (the SDDMM's active blocks only).  Per score entry
+    and r: the difference, the tanh (counted as one operation, though
+    accurate tanhf is some 20 instructions), the multiply and the add; per
+    product term a multiply-add (2)."""
+    vj = v if vj is None else vj
+    entries = n * blocks * block * block
+    if name == "block_spmm":
+        return 2 * entries * c, 4 * (entries + n * vj * c + n * v * c)
+    if name == "block_sddmm":
+        return 4 * r * entries, 4 * (2 * n * v * r + r + entries)
+    return (4 * r + 2 * c) * entries, 4 * (2 * n * v * r + r + 2 * n * v * c)
+
+
+def large_graph(np, sparse):
+    """The large graph of ``bench.py::bench_sparse_kernels`` (seed 0): a
+    band of +-2 blocks plus 3% random blocks, then q, k, w, x."""
+    rng = np.random.RandomState(0)
+    n, v, r, c, block = (SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C,
+                         SPARSE_BLOCK)
+    nb = v // block
+    mask_b = np.zeros((nb, nb), bool)
+    bw = max(1, nb // 16)
+    for i in range(nb):
+        mask_b[i, max(0, i - bw):i + bw + 1] = True
+    mask_b |= rng.rand(nb, nb) < 0.03
+    rows, cols = sparse.active_blocks(mask_b)
+    arrs = dict(q=rng.randn(n, v, r), k=rng.randn(n, v, r), w=rng.randn(r),
+                x=rng.randn(n, v, c))
+    return rows, cols, {key: a.astype(np.float32) for key, a in arrs.items()}
+
+
+def norm_err(got, want):
+    """(max abs err, max abs err / max(max |want|, 1))."""
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1.0)
+
+
+def sparse_phase(torch, np, sparse, fused, device):
+    """The blocked sparse surface: each kernel against its plain version at
+    a small pattern and at the large graph; the main path (the scores, a
+    fused SDDMM + SpMM aggregation and an SpMM over it, forward and
+    backward through the autograd Functions) with exact launch counts and
+    its gradients against autograd through the masked dense oracle; times
+    and bounds.  Returns (report, {name: kernels-line entry})."""
+    report, max_err = {}, {name: 0.0 for name in SPARSE}
+
+    def held(name, got, want, where):
+        abs_err, rel = norm_err(got, want)
+        max_err[name] = max(max_err[name], abs_err)
+        line = dict(kernel=name, at=where, max_abs_err=abs_err,
+                    max_norm_err=rel, peak=float(want.abs().max()),
+                    ok=rel <= SPARSE_TOL[name])
+        print("check " + json.dumps(line))
+        check(line["ok"], f"{name} at {where} disagrees with its plain "
+                          f"version: {rel} of max(|plain|, 1)")
+        return line
+
+    def calls(q, k, w, x, adj, xj, rows, cols, block):
+        """(kernel call, plain call) of each op, outside autograd."""
+        m = sparse.pattern(rows, cols, block, q.shape[1],
+                           adj.shape[2]).mask(device)
+        pat = (rows, cols, block)
+        return {
+            "block_spmm": (lambda: sparse.block_spmm(adj, xj, *pat),
+                           lambda: sparse.spmm_dense(adj * m, xj)),
+            "block_sddmm": (lambda: sparse.block_sddmm(q, k, w, *pat),
+                            lambda: sparse.sddmm_dense(q, k, w, m)),
+            "block_sddmm_spmm": (
+                lambda: sparse.block_sddmm_spmm(q, k, w, x, *pat),
+                lambda: sparse.sddmm_spmm_dense(q, k, w, x, m)),
+        }, m
+
+    def held_all(ops, m, where):
+        lines = []
+        with torch.no_grad():
+            for name, (kernel, plain) in ops.items():
+                before = sparse.launch_counts()[name]
+                got = kernel()
+                again = kernel()
+                torch.cuda.synchronize()
+                check(sparse.launch_counts()[name] == before + 2,
+                      f"{name} did not count its launches")
+                want = plain()
+                if name == "block_sddmm":
+                    # inactive blocks are undefined: active blocks only
+                    sel = m.bool().expand_as(want)
+                    got, again, want = got[sel], again[sel], want[sel]
+                check(bool(torch.equal(got, again)),
+                      f"{name} at {where}: two calls differ")
+                lines.append(held(name, got, want, where))
+        return lines
+
+    # a small pattern: V = 256, block 128, one block row with one block
+    rng = np.random.RandomState(7)
+    small = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        device) for shape in ((2, 256, 4), (2, 256, 4), (4,), (2, 256, 16),
+                              (2, 256, 256), (2, 256, 16))]
+    rows_s, cols_s = sparse.active_blocks(np.array([[True, False],
+                                                    [True, True]]))
+    ops, m = calls(*small, rows_s, cols_s, 128)
+    report["small"] = held_all(ops, m, "V=256")
+
+    # the large graph
+    rows, cols, arrs = large_graph(np, sparse)
+    n, v, r, c, block = (SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C,
+                         SPARSE_BLOCK)
+    q, k, w, x = (torch.from_numpy(arrs[key]).to(device) for key in "qkwx")
+    adj = torch.randn((n, v, v), device=device,
+                      generator=torch.Generator(device).manual_seed(3))
+    nblocks = len(rows)
+    print(f"sparse: large graph N={n} V={v} R={r} C={c} block {block}: "
+          f"{nblocks} active blocks of {(v // block) ** 2} (density "
+          f"{nblocks / (v // block) ** 2:.3f}), "
+          f"{int(np.bincount(rows).min())}-{int(np.bincount(rows).max())} "
+          "a row")
+    ops, m = calls(q, k, w, x, adj, x, rows, cols, block)
+    report["large"] = held_all(ops, m, f"V={v}")
+
+    # the main path, counts from zero: the scores (no gradient), then
+    # h = S @ x fused and y = adj @ h, forward and backward
+    sparse.reset_launch_counts()
+    fused.reset_launch_counts()
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, w, x, adj)]
+    gy = torch.randn((n, v, c), device=device,
+                     generator=torch.Generator(device).manual_seed(4))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        scores = sparse.block_sddmm(q, k, w, rows, cols, block)
+    h = sparse.block_sddmm_spmm(*leaves[:4], rows, cols, block)
+    y = sparse.block_spmm(leaves[4], h, rows, cols, block)
+    grads = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = sparse.launch_counts()
+    print(f"sparse: main path (scores, fused SDDMM + SpMM, SpMM, backward) "
+          f"in {wall * 1e3:.1f} ms, launches {counts}")
+    check(counts == {name: 1 for name in SPARSE},
+          f"the sparse path launched {counts}, expected one of each")
+    check(not any(fused.launch_counts().values()),
+          "the sparse path launched a DSTD-GC kernel")
+    check(tuple(y.shape) == (n, v, c) and bool(torch.isfinite(y).all())
+          and bool(torch.isfinite(scores[m.bool().expand_as(scores)]).all()),
+          "the sparse path gave a non-finite or misshapen output")
+    # against autograd through the masked dense oracle
+    pleaves = [a.detach().clone().requires_grad_() for a in (q, k, w, x, adj)]
+    ph = sparse.sddmm_spmm_dense(*pleaves[:4], m)
+    py = sparse.spmm_dense(pleaves[4] * m, ph)
+    pgrads = torch.autograd.grad(py, pleaves, gy)
+    y_err, y_rel = norm_err(y.detach(), py.detach())
+    g_errs = {key: norm_err(a, b)
+              for key, a, b in zip(("q", "k", "w", "x", "adj"), grads,
+                                   pgrads)}
+    print(f"sparse: main path against the masked dense oracle: y {y_rel:.3g}"
+          " of max(|plain|, 1); gradients "
+          + ", ".join(f"{key} {e[1]:.3g}" for key, e in g_errs.items()))
+    check(y_rel <= SPARSE_TOL["block_sddmm_spmm"],
+          f"sparse path output: {y_rel} of max(|plain|, 1)")
+    worst = max(g_errs, key=lambda key: g_errs[key][1])
+    check(g_errs[worst][1] <= TOL, f"sparse path gradient of {worst}: "
+                                   f"{g_errs[worst][1]} of max(|plain|, 1)")
+    report["path"] = dict(launches=counts, wall_ms=wall * 1e3,
+                          y_norm_err=y_rel,
+                          grad_norm_err={key: e[1]
+                                         for key, e in g_errs.items()})
+    del leaves, pleaves, grads, pgrads, h, y, ph, py, scores
+
+    # times at the large graph: the kernel, its plain version, and for the
+    # SpMM one library call on the same inputs (a dense bmm of the
+    # pre-masked adjacency; a yardstick the port never calls)
+    entries = {}
+    adj_masked = adj * m
+    with torch.no_grad():
+        for name, (kernel, plain) in ops.items():
+            k_call = time_ms(torch, kernel, 20)
+            k_ms, k_by = device_ms(torch, kernel, 20)
+            p_ms, p_by = device_ms(torch, plain, 5)
+            lib_ms = None
+            if name == "block_spmm":
+                lib_ms, _ = device_ms(torch, lambda: torch.bmm(adj_masked, x),
+                                      10)
+            b_ms, t_ops, t_mem = bound_of(*sparse_cost(name, n, nblocks,
+                                                       block, r, c, v))
+            entries[name] = dict(
+                name=name, route="cuda", source=KERNELS[name]["source"],
+                replaces=KERNELS[name]["replaces"], launches=counts[name],
+                max_abs_err=max_err[name], ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms,
+                bound_by="operations" if t_ops >= t_mem else "bytes",
+                library_ms=lib_ms, call_ms=k_call,
+                timed_by="+".join(sorted({k_by, p_by})))
+            print("sparse: " + json.dumps(entries[name]))
+    report["kernels"] = entries
+    return report, entries
 
 
 def time_ms(torch, fn, iters, warmup=3):
@@ -965,7 +1193,7 @@ def run_smoke():
               for k, e in grad_errs.items()}
     worst_name = max(excess, key=excess.get)
     worst = grad_errs[worst_name][1]
-    step_launches = {k: after[k] - before[k] for k in KERNELS}
+    step_launches = {k: after[k] - before[k] for k in after}
     print(f"train: one step, kernel path vs plain path: loss {k_loss} vs "
           f"{p_loss} (rel {loss_rel:.3g}; float64 {total64.item()}); "
           f"launches {step_launches}")
@@ -1008,7 +1236,12 @@ def run_smoke():
           f"{tpaths['plain']['device_ms']:.3f}")
     report["train_paths_ms"] = tpaths
 
-    # 8. the kernels line.  One-op kernels: times summed over the 7 calls
+    # 8. the blocked sparse surface at the large graph
+    from dstdgcn_tpu_torch.kernels import sparse
+    report["sparse"], sparse_entries = sparse_phase(torch, np, sparse, fused,
+                                                    device)
+
+    # 9. the kernels line.  One-op kernels: times summed over the 7 calls
     # of one N=32 forward (or of its backward) at their (Ci, Co), with the
     # model's aggregation; launches those of the training slice, the
     # serving slice's beside them.  Chain kernels: one N=32 call over the 5
@@ -1019,6 +1252,9 @@ def run_smoke():
         "dstd_encoder_chain"], dstd_chain=ccounts["dstd_chain"])
     kernels = []
     for name, meta in KERNELS.items():
+        if name in SPARSE:
+            kernels.append(sparse_entries[name])
+            continue
         if name in CHAINS:
             ms, plain_ms, call_ms, k_by = timings[(name, agg)]
             timed_by = {k_by}

@@ -8,7 +8,9 @@ of the bone and semantic "part" edges plus the joints the model consumes.
 Adjacency kinds: ``self`` (identity), ``connect`` (identity + symmetric bone
 edges), ``part`` (symmetric part edges, no self loops), ``all`` (all three).
 :func:`stacked_adjacency` is the (K=2, V, V) ``[connect, part]`` stack the
-spatial DSTD-GC ops use.
+spatial DSTD-GC ops use.  :func:`edge_list` is the entry point of the sparse
+ops (``kernels/sparse.py``); the joint/bone/cross, coordinate-level and
+ST-GCN partitioned adjacencies follow it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 __all__ = ["SkeletonLayout", "LAYOUTS", "get_layout", "adjacency",
-           "stacked_adjacency", "bone_incidence"]
+           "stacked_adjacency", "edge_list", "bone_incidence",
+           "jbc_adjacency", "flattened_adjacency", "hop_distance",
+           "normalize_digraph", "normalize_undigraph", "stgcn_adjacency",
+           "joint_bone_transition", "joint_bone_flattened"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +68,12 @@ class SkeletonLayout:
     def parts(self) -> np.ndarray:
         """(E, 2) compact-index part edges."""
         return self.remap(self.part_pairs)
+
+    @property
+    def kinematic_bones(self) -> np.ndarray:
+        """(E', 2) compact-index physical bones (shortcut links dropped)."""
+        n = len(self.bone_pairs) - self.num_aux_bones
+        return self.remap(self.bone_pairs[:n])
 
 
 _H36M = SkeletonLayout(
@@ -194,6 +205,14 @@ def stacked_adjacency(layout: str | SkeletonLayout) -> np.ndarray:
     return np.stack([adjacency(layout, "connect"), adjacency(layout, "part")])
 
 
+def edge_list(adj: np.ndarray) -> np.ndarray:
+    """(E, 2) int32 directed edge list of the non-zeros of ``adj``: the
+    sparse-op entry point (large graphs go to the ops as edge or block
+    lists, not dense matrices)."""
+    src, dst = np.nonzero(adj)
+    return np.stack([src, dst], axis=-1).astype(np.int32)
+
+
 def bone_incidence(layout: str | SkeletonLayout) -> np.ndarray:
     """(V, E) signed incidence matrix over the bone edges."""
     lay = get_layout(layout) if isinstance(layout, str) else layout
@@ -203,3 +222,215 @@ def bone_incidence(layout: str | SkeletonLayout) -> np.ndarray:
         inc[a, e] = 1.0
         inc[b, e] = -1.0
     return inc
+
+
+def _layout(layout: str | SkeletonLayout) -> SkeletonLayout:
+    return get_layout(layout) if isinstance(layout, str) else layout
+
+
+def _shares_joint(bones: np.ndarray, i: int, j: int) -> bool:
+    return bool(set(bones[i]) & set(bones[j]))
+
+
+def jbc_adjacency(layout: str | SkeletonLayout, kind: str) -> np.ndarray:
+    """Joint/Bone/Cross adjacency over the kinematic-bone graph.
+
+    * ``joint``  (V, V)  identity + symmetric bone edges
+    * ``bone``   (E, E)  bones as nodes, an edge between bones that share a
+      joint (upper triangle only, not symmetrized)
+    * ``cross``  (E, V)  bone -> its two endpoint joints
+    """
+    lay = _layout(layout)
+    bones = lay.kinematic_bones
+    v, e = lay.num_joints, len(bones)
+    if kind == "joint":
+        return _symmetrize(np.eye(v, dtype=np.float32), bones)
+    if kind == "bone":
+        adj = np.eye(e, dtype=np.float32)
+        for i in range(e):
+            for j in range(i, e):
+                if _shares_joint(bones, i, j):
+                    adj[i, j] = 1.0
+        return adj
+    if kind == "cross":
+        adj = np.zeros((e, v), np.float32)
+        adj[np.arange(e), bones[:, 0]] = 1.0
+        adj[np.arange(e), bones[:, 1]] = 1.0
+        return adj
+    raise ValueError(f"invalid jbc adjacency kind {kind!r}")
+
+
+def flattened_adjacency(layout: str | SkeletonLayout, kind: str,
+                        dims: int = 3) -> np.ndarray:
+    """Coordinate-level (dims*V, dims*V) adjacency, node = (joint, coord).
+
+    * ``joint``       same-coordinate edges along kinematic bones
+    * ``coordinate``  clique among the ``dims`` coordinates of each joint
+    * ``connection``  same-coordinate complete graph across all joints,
+      minus the identity
+    """
+    lay = _layout(layout)
+    v = lay.num_joints
+    n = dims * v
+    adj = np.zeros((n, n), np.float32)
+    if kind == "joint":
+        bones = lay.kinematic_bones
+        for d in range(dims):
+            adj[bones[:, 0] * dims + d, bones[:, 1] * dims + d] = 1.0
+            adj[bones[:, 1] * dims + d, bones[:, 0] * dims + d] = 1.0
+        return adj
+    if kind == "coordinate":
+        base = np.arange(v) * dims
+        for a in range(dims):
+            for b in range(dims):
+                if a != b:
+                    adj[base + a, base + b] = 1.0
+        return adj
+    if kind == "connection":
+        base = np.arange(v) * dims
+        for d in range(dims):
+            adj[np.ix_(base + d, base + d)] = 1.0
+        return adj - np.eye(n, dtype=np.float32)
+    raise ValueError(f"invalid flattened adjacency kind {kind!r}")
+
+
+def hop_distance(edges: np.ndarray, num_node: int, max_hop: int = 1
+                 ) -> np.ndarray:
+    """(V, V) graph-hop distance, ``inf`` beyond ``max_hop``, from boolean
+    powers of the symmetrized adjacency."""
+    adj = np.zeros((num_node, num_node))
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    adj[edges[:, 0], edges[:, 1]] = 1.0
+    adj[edges[:, 1], edges[:, 0]] = 1.0
+    dist = np.full((num_node, num_node), np.inf)
+    reach = np.stack([np.linalg.matrix_power(adj, d) > 0
+                      for d in range(max_hop + 1)])
+    for d in range(max_hop, -1, -1):
+        dist[reach[d]] = d
+    return dist
+
+
+def normalize_digraph(adj: np.ndarray) -> np.ndarray:
+    """Column-normalize: ``A @ D^-1``."""
+    deg = adj.sum(0)
+    inv = np.where(deg > 0, 1.0 / np.where(deg > 0, deg, 1.0), 0.0)
+    return adj * inv[None, :]
+
+
+def normalize_undigraph(adj: np.ndarray) -> np.ndarray:
+    """Symmetric normalize: ``D^-1/2 A D^-1/2``."""
+    deg = adj.sum(0)
+    inv = np.where(deg > 0, np.where(deg > 0, deg, 1.0) ** -0.5, 0.0)
+    return inv[:, None] * adj * inv[None, :]
+
+
+def stgcn_adjacency(layout: str | SkeletonLayout | np.ndarray,
+                    strategy: str = "uniform", max_hop: int = 1,
+                    dilation: int = 1, center: int = 7,
+                    num_node: int | None = None) -> np.ndarray:
+    """(K, V, V) ST-GCN partitioned adjacency stack, of a layout (self
+    loops and kinematic bones) or an explicit (E, 2) edge list.
+
+    * ``uniform``   K=1: hop-thresholded adjacency, column-normalized
+    * ``distance``  one normalized slice per valid hop
+    * ``spatial``   root / centripetal / centrifugal partitions by distance
+      to ``center`` (hop 0 root only, then (root + closer, further) per hop)
+    """
+    if isinstance(layout, (str, SkeletonLayout)):
+        lay = _layout(layout)
+        v = lay.num_joints
+        edges = np.concatenate(
+            [np.stack([np.arange(v)] * 2, -1), lay.kinematic_bones])
+    else:
+        edges = np.asarray(layout, dtype=np.int64).reshape(-1, 2)
+        if num_node is None:
+            num_node = int(edges.max()) + 1
+        v = num_node
+    dist = hop_distance(edges, v, max_hop=max_hop)
+    valid = range(0, max_hop + 1, dilation)
+    thresh = np.zeros((v, v))
+    for h in valid:
+        thresh[dist == h] = 1.0
+    norm = normalize_digraph(thresh)
+    if strategy == "uniform":
+        return norm[None].astype(np.float32)
+    if strategy == "distance":
+        out = np.zeros((len(list(valid)), v, v))
+        for i, h in enumerate(valid):
+            out[i][dist == h] = norm[dist == h]
+        return out.astype(np.float32)
+    if strategy == "spatial":
+        to_center = dist[:, center]
+        slices = []
+        for h in valid:
+            on_hop = dist == h
+            root = on_hop & (to_center[:, None] == to_center[None, :])
+            close = on_hop & (to_center[:, None] > to_center[None, :])
+            further = on_hop & (to_center[:, None] < to_center[None, :])
+            a_root = np.where(root, norm, 0.0)
+            a_close = np.where(close, norm, 0.0)
+            a_further = np.where(further, norm, 0.0)
+            if h == 0:
+                slices.append(a_root)
+            else:
+                slices.append(a_root + a_close)
+                slices.append(a_further)
+        return np.stack(slices).astype(np.float32)
+    raise ValueError(f"invalid stgcn strategy {strategy!r}")
+
+
+def joint_bone_transition(layout: str | SkeletonLayout, dims: int = 3
+                          ) -> np.ndarray:
+    """(V*dims, E*dims) unsigned joint -> bone transition matrix: entry
+    ``[j*dims+d, e*dims+d] = 1`` iff joint ``j`` is an endpoint of bone
+    ``e``."""
+    lay = _layout(layout)
+    bones = lay.kinematic_bones
+    e = len(bones)
+    out = np.zeros((lay.num_joints * dims, e * dims), np.float32)
+    for d in range(dims):
+        out[bones[:, 0] * dims + d, np.arange(e) * dims + d] = 1.0
+        out[bones[:, 1] * dims + d, np.arange(e) * dims + d] = 1.0
+    return out
+
+
+def joint_bone_flattened(layout: str | SkeletonLayout, kind: str,
+                         dims: int = 3) -> np.ndarray:
+    """Coordinate-level clique adjacency over joints or bones: full
+    ``dims x dims`` cliques across connected node pairs plus each node's own
+    coordinate clique.
+
+    * ``joint``       (V*dims, V*dims) cliques along kinematic bones
+    * ``bone``        (E*dims, E*dims) cliques between bones sharing a joint
+    * ``joint-node``  (V, V) identity + symmetric bone edges
+    * ``bone-node``   (E, E) identity + upper-triangular shared-joint edges
+    """
+    lay = _layout(layout)
+    bones = lay.kinematic_bones
+    v, e = lay.num_joints, len(bones)
+
+    def clique(adj, a, b):
+        for i in range(dims):
+            for j in range(dims):
+                adj[a * dims + i, b * dims + j] = 1.0
+                adj[b * dims + i, a * dims + j] = 1.0
+                adj[a * dims + i, a * dims + j] = 1.0
+                adj[b * dims + i, b * dims + j] = 1.0
+
+    if kind == "joint":
+        adj = np.eye(v * dims, dtype=np.float32)
+        for a, b in bones:
+            clique(adj, a, b)
+        return adj
+    if kind == "bone":
+        adj = np.eye(e * dims, dtype=np.float32)
+        for i in range(e):
+            for j in range(i, e):
+                if _shares_joint(bones, i, j):
+                    clique(adj, i, j)
+        return adj
+    if kind == "joint-node":
+        return _symmetrize(np.eye(v, dtype=np.float32), bones)
+    if kind == "bone-node":
+        return jbc_adjacency(lay, "bone")
+    raise ValueError(f"invalid joint-bone flattened kind {kind!r}")

@@ -33,6 +33,7 @@ SOURCES = {
     "dstd_spatial_bwd": "dstd_spatial_bwd.cu",
     "dstd_temporal_bwd": "dstd_temporal_bwd.cu",
     "dstd_chain": "dstd_chain.cu",
+    "block_sparse": "block_sparse.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -82,6 +83,17 @@ SIGNATURES = {
                                    + [_PTR], ctypes.c_int),
         # (T, V, C, Ks, Kt, R, tile)
         "dstd_chain_smem_bytes": ([_INT] * 7, _SIZE),
+    },
+    "block_sparse": {
+        # (adj, x, row_ptr, cols, out, N, V, Vj, C, block, device, stream)
+        "block_spmm_f32": ([_PTR] * 5 + [_INT] * 6 + [_PTR], ctypes.c_int),
+        # (q, k, w, rows, cols, out, N, V, R, block, num_blocks, device,
+        #  stream)
+        "block_sddmm_f32": ([_PTR] * 6 + [_INT] * 6 + [_PTR], ctypes.c_int),
+        # (q, k, w, x, row_ptr, cols, out, N, V, R, C, block, device,
+        #  stream)
+        "block_sddmm_spmm_f32": ([_PTR] * 7 + [_INT] * 6 + [_PTR],
+                                 ctypes.c_int),
     },
 }
 

@@ -291,3 +291,111 @@ def test_chain_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused.dstd_encoder_chain(x, [tuple(layer) for layer in bad])
     with pytest.raises(RuntimeError, match="no gradient"):
         fused.dstd_encoder_chain(x.clone().requires_grad_(), layers)
+
+
+# -- blocked sparse kernels (csrc/block_sparse.cu) --------------------------
+
+# (n, v, vj, r, c, block, density): the JAX tests' sizes, the gradient
+# size, a non-square SpMM, a ragged channel tile (C=200), a block of 96 (a
+# ragged 64-row tile) and R=3
+SPARSE_CASES = [(2, 32, 32, 4, 16, 8, 0.4), (2, 256, 256, 4, 16, 128, 0.5),
+                (2, 256, 384, 4, 8, 128, 0.5), (3, 256, 256, 4, 200, 64, 0.3),
+                (2, 384, 384, 3, 40, 96, 0.4)]
+
+
+def _sparse_case(n, v, vj, r, c, block, density, device, seed=0):
+    from dstdgcn_tpu_torch.kernels import sparse
+    rng = np.random.RandomState(seed)
+    rows, cols = sparse.active_blocks(rng.rand(v // block, vj // block)
+                                      < density)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            device)
+
+    return dict(rows=rows, cols=cols, block=block, adj=t(n, v, vj),
+                xj=t(n, vj, c), q=t(n, v, r), k=t(n, v, r), w=t(r),
+                x=t(n, v, c),
+                mask=sparse.pattern(rows, cols, block, v, vj).mask(device))
+
+
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_sparse_kernels_match_plain(cuda, case):
+    from dstdgcn_tpu_torch.kernels import sparse
+    d = _sparse_case(*case, cuda)
+    pat = (d["rows"], d["cols"], d["block"])
+    sparse.reset_launch_counts()
+    got = sparse.block_spmm(d["adj"], d["xj"], *pat)
+    again = sparse.block_spmm(d["adj"], d["xj"], *pat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, sparse.spmm_dense(d["adj"] * d["mask"], d["xj"]), rtol=1e-5,
+        atol=1e-5)
+    assert sparse.launch_counts()["block_spmm"] == 2
+    if case[1] != case[2]:
+        return
+    qkw = (d["q"], d["k"], d["w"])
+    scores = sparse.block_sddmm(*qkw, *pat)
+    want = sparse.sddmm_dense(*qkw)
+    sel = d["mask"].bool().expand_as(want)
+    torch.testing.assert_close(scores[sel], want[sel], rtol=1e-5, atol=1e-5)
+    got = sparse.block_sddmm_spmm(*qkw, d["x"], *pat)
+    torch.testing.assert_close(
+        got, sparse.sddmm_spmm_dense(*qkw, d["x"], d["mask"]), rtol=1e-4,
+        atol=1e-4)
+    assert sparse.launch_counts() == dict(block_spmm=2, block_sddmm=1,
+                                          block_sddmm_spmm=1)
+
+
+@pytest.mark.parametrize("case", SPARSE_CASES[1:3])
+def test_sparse_autograd_functions_match_the_masked_oracle(cuda, case):
+    from dstdgcn_tpu_torch.kernels import sparse
+    d = _sparse_case(*case, cuda, seed=1)
+    pat = (d["rows"], d["cols"], d["block"])
+    leaves = [d["adj"].requires_grad_(), d["xj"].requires_grad_()]
+    g = torch.randn(case[0], case[1], case[4], device=cuda)
+    sparse.reset_launch_counts()
+    got = torch.autograd.grad(sparse.block_spmm(*leaves, *pat), leaves, g)
+    want = torch.autograd.grad(
+        sparse.spmm_dense(leaves[0] * d["mask"], leaves[1]), leaves, g)
+    _assert_grads_close(got, want)
+    if case[1] == case[2]:
+        leaves = [d[key].requires_grad_() for key in ("q", "k", "w", "x")]
+        got = torch.autograd.grad(sparse.block_sddmm_spmm(*leaves, *pat),
+                                  leaves, g)
+        want = torch.autograd.grad(
+            sparse.sddmm_spmm_dense(*leaves, d["mask"]), leaves, g)
+        _assert_grads_close(got, want)
+    counts = sparse.launch_counts()
+    assert counts["block_spmm"] == 1 and counts["block_sddmm"] == 0
+    assert counts["block_sddmm_spmm"] == int(case[1] == case[2])
+
+
+def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from dstdgcn_tpu_torch.kernels import sparse
+    d = _sparse_case(*SPARSE_CASES[0], cuda)
+    pat = (d["rows"], d["cols"], d["block"])
+    qkw = (d["q"], d["k"], d["w"])
+    with pytest.raises(TypeError):
+        sparse.block_spmm(d["adj"].double(), d["xj"], *pat)
+    with pytest.raises(TypeError):
+        sparse.block_sddmm_spmm(d["q"].half(), d["k"], d["w"], d["x"], *pat)
+    with pytest.raises(ValueError):       # not contiguous
+        sparse.block_spmm(d["adj"].transpose(1, 2), d["xj"], *pat)
+    with pytest.raises(ValueError):       # x on the CPU
+        sparse.block_sddmm_spmm(*qkw, d["x"].cpu(), *pat)
+    with pytest.raises(ValueError):       # unsorted block list
+        sparse.block_sddmm(*qkw, d["rows"][::-1], d["cols"][::-1], 8)
+    with pytest.raises(ValueError):       # V = 32 not a multiple of 12
+        sparse.block_spmm(d["adj"], d["xj"], d["rows"], d["cols"], 12)
+    rows, cols = sparse.active_blocks(np.ones((16, 16), bool))
+    with pytest.raises(ValueError, match="multiple of 4"):   # block 2
+        sparse.block_spmm(d["adj"], d["xj"], rows, cols, 2)
+    big_r = [torch.randn(2, 32, sparse.MAX_R + 1, device=cuda)] * 2 + [
+        torch.randn(sparse.MAX_R + 1, device=cuda)]
+    with pytest.raises(ValueError, match="R="):
+        sparse.block_sddmm(*big_r, *pat)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        sparse.block_sddmm(d["q"].clone().requires_grad_(), d["k"], d["w"],
+                           *pat)

@@ -29,6 +29,63 @@ def test_skeleton_matches_jax(layout):
         assert getattr(a, field) == getattr(b, field), field
 
 
+def _same(got, want, what):
+    assert got.dtype == want.dtype, what
+    assert got.shape == want.shape, what
+    assert np.array_equal(got, want), what
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_edge_list_and_kinematic_bones_match_jax(layout):
+    _same(sk.get_layout(layout).kinematic_bones,
+          jsk.get_layout(layout).kinematic_bones, "kinematic_bones")
+    for kind in ("connect", "part", "all"):
+        adj = jsk.adjacency(layout, kind)
+        _same(sk.edge_list(adj), jsk.edge_list(adj), kind)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_jbc_and_flattened_graphs_match_jax(layout):
+    for kind in ("joint", "bone", "cross"):
+        _same(sk.jbc_adjacency(layout, kind), jsk.jbc_adjacency(layout, kind),
+              f"jbc {kind}")
+    for dims in (2, 3):
+        for kind in ("joint", "coordinate", "connection"):
+            _same(sk.flattened_adjacency(layout, kind, dims),
+                  jsk.flattened_adjacency(layout, kind, dims),
+                  f"flattened {kind} dims={dims}")
+        _same(sk.joint_bone_transition(layout, dims),
+              jsk.joint_bone_transition(layout, dims), f"transition {dims}")
+        for kind in ("joint", "bone", "joint-node", "bone-node"):
+            _same(sk.joint_bone_flattened(layout, kind, dims),
+                  jsk.joint_bone_flattened(layout, kind, dims),
+                  f"joint-bone {kind} dims={dims}")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_hop_normalize_and_stgcn_graphs_match_jax(layout):
+    lay = jsk.get_layout(layout)
+    for max_hop in (1, 2, 3):
+        _same(sk.hop_distance(lay.bones, lay.num_joints, max_hop),
+              jsk.hop_distance(lay.bones, lay.num_joints, max_hop),
+              f"hop {max_hop}")
+    for kind in ("connect", "all"):
+        adj = jsk.adjacency(layout, kind)
+        _same(sk.normalize_digraph(adj), jsk.normalize_digraph(adj), kind)
+        _same(sk.normalize_undigraph(adj), jsk.normalize_undigraph(adj),
+              kind)
+    for strategy in ("uniform", "distance", "spatial"):
+        for max_hop, dilation in ((1, 1), (2, 1), (3, 2)):
+            opts = dict(strategy=strategy, max_hop=max_hop,
+                        dilation=dilation, center=3)
+            _same(sk.stgcn_adjacency(layout, **opts),
+                  jsk.stgcn_adjacency(layout, **opts),
+                  f"stgcn {opts}")
+            _same(sk.stgcn_adjacency(lay.parts, **opts),
+                  jsk.stgcn_adjacency(lay.parts, **opts),
+                  f"stgcn edges {opts}")
+
+
 @pytest.mark.parametrize("t", [20, 35, 40])
 def test_temporal_matches_jax(t):
     for kind in ("self", "neighbor", "neighboor", "tridiag", "inout", "all"):
@@ -52,3 +109,9 @@ def test_unknown_layout_and_kind_raise():
         sk.adjacency("h36m", "nope")
     with pytest.raises(ValueError):
         tg.adjacency(10, "nope")
+    for fn in (sk.jbc_adjacency, sk.flattened_adjacency,
+               sk.joint_bone_flattened):
+        with pytest.raises(ValueError):
+            fn("h36m", "nope")
+    with pytest.raises(ValueError):
+        sk.stgcn_adjacency("h36m", "nope")
