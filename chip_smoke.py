@@ -8,9 +8,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every CUDA kernel from ``dstdgcn_tpu_torch/csrc`` for
    ``sm_90a``, one ``nvcc`` per source in parallel (6 libraries: the
-   spatial and temporal forward and backward, the chain library with
-   ``dstd_chain`` and ``dstd_encoder_chain``, and the block-sparse library
-   with ``block_spmm``, ``block_sddmm`` and ``block_sddmm_spmm``);
+   spatial and temporal forward and backward, each with its float32 and
+   bf16 variant, the chain library with ``dstd_chain`` and
+   ``dstd_encoder_chain``, and the block-sparse library with
+   ``block_spmm``, ``block_sddmm`` and ``block_sddmm_spmm``: 13 kernels);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -25,7 +26,13 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    to an output peak of 1) against their plain versions, and the gradients
    of ``dstd_chain`` (x and all 100 weights) against autograd through the
    plain chain, all within 1e-4 max(max |plain|, 1) (the JAX chain test's
-   norm), the plain chain in float64 printed beside them;
+   norm), the plain chain in float64 printed beside them.  The bf16
+   variants of the one-op kernels at the bf16 slice's batch (N=128) and
+   every (Ci, Co) its model gives them, both aggregations, against the
+   plain versions of their contract (``ops/dstd.py::kernel_spatial`` /
+   ``kernel_temporal``, ``ops/dstd_bwd.py`` with the dtype): the error
+   within BF16_TOL and BF16_TOL below half of the check's own
+   bf16-versus-float32 gap, all three printed;
 4. the serving slice: ``dstdgcn_tpu_torch.main.run`` on the config
    ``synthetic_h36m_serving`` (full-width H36M DSTD-GCN, random weights from
    seed 777) on ``cuda``: finite per-frame MPJPE, wall time per batch, and
@@ -66,10 +73,22 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    gradients of q, k, w, x and adj against autograd through the masked
    dense oracle (1e-4 of max(|plain|, 1)); times, bounds, and for the SpMM
    the dense ``torch.bmm`` of the pre-masked adjacency as ``library_ms``;
-9. a ``{"kernels": [...]}`` line with each of the 9 kernels' launches on
-   its main path (the training slice for the one-op kernels, the fused
-   slice for the encoder kernel, phase 6 for ``dstd_chain``, phase 8 for
-   the sparse kernels), max error, times and bound.
+9. the bf16 slice: ``main.run`` on ``synthetic_h36m_tpu_train`` (the
+   flagship TPU configuration's model and engine blocks, "auto" knobs,
+   batch 128, 2 epochs of 4 steps and an eval batch after each): the
+   knobs resolve to bf16, exact launch counts of the four bf16 kernels and
+   none of the float32 DSTD-GC kernels, finite losses and MPJPE, step wall
+   times and one step's device time by kernel; then one bf16 train step
+   (dropout 0, BatchNorm calibrated) against the plain path of the same
+   contract on the card: the loss within BF16_LOSS_RTOL, the worst
+   gradient within a quarter of the step's bf16-versus-float32 gap, the
+   gate gradients against a float64 run of the same rounding;
+10. a ``{"kernels": [...]}`` line with each of the 13 kernels' launches on
+   its main path (the training slice for the float32 one-op kernels, the
+   bf16 slice for their bf16 variants, the fused slice for the encoder
+   kernel, phase 6 for ``dstd_chain``, phase 8 for the sparse kernels),
+   max error, times and bound (bf16 contractions at the dense bf16
+   tensor-core rate, the rest at the float32 rate).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -102,8 +121,34 @@ TOL = 1e-4
 #: or tighter separates a kernel fault from rounding.
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-3
-#: published H100 SXM peaks (float32 outside the tensor cores, HBM3)
+#: bf16 variants against the plain versions of their contract
+#: (``ops/dstd.py::kernel_spatial``, ``ops/dstd_bwd.py`` with the dtype):
+#: forward over the peak |plain float32 output|, backward per gradient over
+#: max(max |plain|, 1).  Two right implementations that sum in another
+#: order can round an intermediate to neighbouring bf16 values, so these
+#: are set from the measured spread (at N=128 on the H100: forward up to
+#: 6.8e-4, backward up to 1.49e-3), and each check holds them below half
+#: of its own bf16-versus-float32 gap (printed beside it; 3.4e-3 to 6.1e-3
+#: forward, 9.2e-3 to 7.9e-2 backward).
+BF16_TOL = dict(forward=1.2e-3, backward=2.5e-3)
+#: the bf16 train step, kernel path against the plain path of the same
+#: contract: the loss (relative), and the worst parameter gradient over
+#: max(max |plain|, 1) within BF16_STEP_FRAC of the step's own
+#: bf16-versus-float32 gap (the largest such distance over the gradients:
+#: a rounding flip in one implementation moves a few elements, bf16
+#: rounding all of them).  The gate gradients (alpha) sum about a million
+#: cancelling products dA * dyn, so each bf16 run's flips move them by
+#: up to a tenth of max(|g|, 1): no run is their reference, the float64 run
+#: of the same rounding included (it rounds its own intermediates).  They
+#: are held as a group: the kernel path's largest distance to the float64
+#: run within BF16_STEP_FRAC of the gates' largest bf16-versus-float32 gap,
+#: the plain path's distance printed beside it.
+BF16_LOSS_RTOL = 1e-3
+BF16_STEP_FRAC = 0.4
+#: published H100 SXM peaks (float32 outside the tensor cores, dense bf16
+#: on the tensor cores, HBM3)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 #: file:line of the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -117,6 +162,18 @@ KERNELS = {
         source="dstdgcn_tpu_torch/csrc/dstd_spatial_bwd.cu",
         replaces="dstdgcn_tpu/kernels/fused_bwd.py:85"),
     "dstd_temporal_bwd": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_temporal_bwd.cu",
+        replaces="dstdgcn_tpu/kernels/fused_bwd.py:177"),
+    "dstd_spatial_bf16": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_spatial.cu",
+        replaces="dstdgcn_tpu/kernels/fused.py:137"),
+    "dstd_temporal_bf16": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_temporal.cu",
+        replaces="dstdgcn_tpu/kernels/fused.py:193"),
+    "dstd_spatial_bwd_bf16": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_spatial_bwd.cu",
+        replaces="dstdgcn_tpu/kernels/fused_bwd.py:85"),
+    "dstd_temporal_bwd_bf16": dict(
         source="dstdgcn_tpu_torch/csrc/dstd_temporal_bwd.cu",
         replaces="dstdgcn_tpu/kernels/fused_bwd.py:177"),
     "dstd_chain": dict(
@@ -138,6 +195,9 @@ KERNELS = {
 FORWARD = ("dstd_spatial", "dstd_temporal")
 BACKWARD = ("dstd_spatial_bwd", "dstd_temporal_bwd")
 CHAINS = ("dstd_chain", "dstd_encoder_chain")
+#: the bf16 variants of the one-op kernels (launch counters ``<name>_bf16``)
+BF16_FORWARD = ("dstd_spatial_bf16", "dstd_temporal_bf16")
+BF16_BACKWARD = ("dstd_spatial_bwd_bf16", "dstd_temporal_bwd_bf16")
 SPARSE = ("block_spmm", "block_sddmm", "block_sddmm_spmm")
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
 SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C, SPARSE_BLOCK = 4, 4096, 4, 128, 128
@@ -191,19 +251,26 @@ def chain_cost(n, c, layers, encoder):
     return flops, 4 * (2 * rows * c + weights)
 
 
-def bound_of(flops, nbytes):
-    """(least ms, ms of the operations, ms of the bytes)."""
-    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_of(flops, nbytes, tensor_flops=0.0):
+    """(least ms, ms of the operations, ms of the bytes): ``flops`` at the
+    float32 rate, ``tensor_flops`` (bf16 contractions) at the dense bf16
+    tensor-core rate."""
+    t_ops = (flops / PEAK_F32_FLOPS + tensor_flops / PEAK_BF16_FLOPS) * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), t_ops, t_mem
 
 
-def op_cost(mode, n, ci, co, backward=False):
-    """(flops, bytes) one call needs: every input read once, every output
-    written once; tanh and the pair difference count one op each.  The
-    backward recomputes the forward up to the adjacency, then does the
-    dA and dxf products, dalpha / dbase / dbrm, dx from dxf, dwf / dbf,
-    dwrm, ds, du, the dq / dk sums, dx from dq / dk and dwqk / dbqk; it
-    reads x, g and the weights and writes dx and the weight gradients."""
+def op_cost(mode, n, ci, co, backward=False, dtype=None):
+    """(flops, bytes, tensor flops) one call needs: every input read once,
+    every output written once; tanh and the pair difference count one op
+    each.  The backward recomputes the forward up to the adjacency, then
+    does the dA and dxf products, dalpha / dbase / dbrm, dx from dxf,
+    dwf / dbf, dwrm, ds, du, the dq / dk sums, dx from dq / dk and
+    dwqk / dbqk; it reads x, g and the weights and writes dx and the
+    weight gradients.  With a bf16 ``dtype`` the contractions (the
+    projections, the mixing, the aggregation and their backward products)
+    are tensor flops, the rest float32 flops; the bytes are those the
+    kernel moves, float32 inputs and outputs as in the float32 kernel."""
     k = 2 if mode == "spatial" else 1
     r = 2
     ref, pair = (T, V) if mode == "spatial" else (V, T)
@@ -216,21 +283,29 @@ def op_cost(mode, n, ci, co, backward=False):
     agg = 2 * adj * co                              # aggregation
     weights = op_weights(mode, ci, co)
     if not backward:
-        flops = proj + qk + 2 * scores + mix + 2 * adj + agg
-        return flops, 4 * (rows * ci + rows * co + weights)
-    flops = (proj + qk + 2 * scores + mix + 2 * adj   # recompute
-             + 2 * agg                                # dA, dxf
-             + 3 * adj                                # dalpha, dbase, dbrm
-             + 2 * proj + rows * co * k               # dx(dxf), dwf, dbf
-             + 2 * mix                                # dwrm, ds
-             + 3 * scores + 2 * scores                # du, dq / dk sums
-             + 2 * qk + rows * 2 * r * k)             # dx(dqk), dwqk, dbqk
-    return flops, 4 * (2 * rows * ci + rows * co + 2 * weights)
+        dots = proj + qk + mix + agg
+        rest = 2 * scores + 2 * adj
+        nbytes = 4 * (rows * ci + rows * co + weights)
+    else:
+        dots = (proj + qk + mix                      # recompute
+                + 2 * agg                            # dA, dxf
+                + 2 * proj                           # dx(dxf), dwf
+                + 2 * mix                            # dwrm, ds
+                + 2 * qk)                            # dx(dqk), dwqk
+        rest = (2 * scores + 2 * adj                 # recompute
+                + 3 * adj                            # dalpha, dbase, dbrm
+                + rows * co * k                      # dbf
+                + 3 * scores + 2 * scores            # du, dq / dk sums
+                + rows * 2 * r * k)                  # dbqk
+        nbytes = 4 * (2 * rows * ci + rows * co + 2 * weights)
+    if dtype is None:
+        return dots + rest, nbytes, 0.0
+    return rest, nbytes, dots
 
 
-def bound_ms(mode, n, ci, co, backward=False):
+def bound_ms(mode, n, ci, co, backward=False, dtype=None):
     """(least ms, ms of the operations, ms of the bytes) of one call."""
-    return bound_of(*op_cost(mode, n, ci, co, backward))
+    return bound_of(*op_cost(mode, n, ci, co, backward, dtype))
 
 
 def sparse_cost(name, n, blocks, block, r, c, v, vj=None):
@@ -510,7 +585,7 @@ def grad_errors(got, want):
     return abs_err, norm_err, norm_err <= TOL
 
 
-def op_inputs(torch, np, mode, ci, co, device, seed):
+def op_inputs(torch, np, mode, ci, co, device, seed, n=N):
     """Seeded inputs at the model's initialization scales, with the gates
     and biases that initialize at zero made non-zero."""
     rng = np.random.RandomState(seed)
@@ -520,7 +595,7 @@ def op_inputs(torch, np, mode, ci, co, device, seed):
     def nrm(std, *shape):
         return (rng.randn(*shape) * std).astype(np.float32)
 
-    arrs = [nrm(1.0, N, T, V, ci), nrm(0.3, k, pair, pair),
+    arrs = [nrm(1.0, n, T, V, ci), nrm(0.3, k, pair, pair),
             np.asarray([0.7], np.float32), nrm((2 / co) ** 0.5, k, ci, co),
             nrm(0.1, k, co), nrm(1.0, k, ci, 2), nrm(0.1, k, 2),
             nrm(1.0, k, ci, 2), nrm(0.1, k, 2),
@@ -615,6 +690,368 @@ def chain_leaves(torch, x, blocks, dtype=None):
     rebuilt = [tuple(tuple(next(it) for _ in op) for op in blk)
                for blk in blocks]
     return leaves, rebuilt
+
+
+def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
+                       timings, max_err):
+    """Each bf16 kernel (forward, and the 11 gradients of the backward)
+    against the plain version of its contract at batch ``n`` and every
+    (Ci, Co) of ``shapes``, both aggregations: the error, the tolerance and
+    the bf16-versus-float32 gap of the plain versions, the error within
+    BF16_TOL and BF16_TOL below half the gap.  The forward compares the
+    kernel's float32 output before the wrapper's cast (``FusedOp.launch``).
+    Times (the model's aggregation, right): the kernel, its plain version
+    (the plain forward; the hand-derived plain backward), and the float32
+    kernel at the same shape."""
+    bf16, lines = torch.bfloat16, []
+    for mode in ("spatial", "temporal"):
+        op, bwd = getattr(fused, f"dstd_{mode}"), getattr(fused,
+                                                          f"dstd_{mode}_bwd")
+        kplain, fplain = (getattr(plain, f"kernel_{mode}"),
+                          getattr(plain, f"dstd_{mode}"))
+        pbwd = getattr(plain_bwd, f"dstd_{mode}_bwd")
+        for ci, co in sorted({(ci, co) for m, ci, co in shapes
+                              if m == mode}):
+            args = op_inputs(torch, np, mode, ci, co, device, seed=ci + co,
+                             n=n)
+            g = torch.randn((n, T, V, co), device=device, generator=torch
+                            .Generator(device).manual_seed(ci * co))
+            for agg in ("right", "left"):
+                before = fused.launch_counts()
+                with torch.no_grad():
+                    got = op.launch(*args, agg=agg, dtype=bf16)
+                    grads = bwd(args[0], g, *args[1:], agg=agg, dtype=bf16)
+                torch.cuda.synchronize()
+                after = fused.launch_counts()
+                check(after[f"dstd_{mode}_bf16"] == before[
+                    f"dstd_{mode}_bf16"] + 1 and after[
+                    f"dstd_{mode}_bwd_bf16"] == before[
+                    f"dstd_{mode}_bwd_bf16"] + fused.BWD_LAUNCHES,
+                    f"the bf16 {mode} kernels did not count their launches")
+                with torch.no_grad():
+                    want = kplain(*args, agg, bf16)
+                    want32 = fplain(*args, None, agg)
+                    gwant = pbwd(args[0], g, *args[1:], agg=agg, dtype=bf16)
+                    gwant32 = pbwd(args[0], g, *args[1:], agg=agg)
+                peak = float(want32.abs().max())
+                results = {}
+                fwd_err = float((got - want).abs().max())
+                results["forward"] = (
+                    fwd_err, fwd_err / peak,
+                    float((want - want32).abs().max()) / peak)
+                norms = [max(float(b.abs().max()), 1.0) for b in gwant]
+                g_abs = max(float((a - b).abs().max())
+                            for a, b in zip(grads, gwant))
+                results["backward"] = (
+                    g_abs,
+                    max(float((a - b).abs().max()) / nrm
+                        for a, b, nrm in zip(grads, gwant, norms)),
+                    max(float((b - c).abs().max()) / nrm
+                        for b, c, nrm in zip(gwant, gwant32, norms)))
+                for part, (abs_err, err, gap) in results.items():
+                    name = (f"dstd_{mode}_bf16" if part == "forward"
+                            else f"dstd_{mode}_bwd_bf16")
+                    tol = BF16_TOL[part]
+                    line = dict(kernel=name, agg=agg, ci=ci, co=co, n=n,
+                                max_abs_err=abs_err, norm_err=err, tol=tol,
+                                bf16_vs_f32_gap=gap,
+                                ok=err <= tol < gap / 2)
+                    max_err[name] = max(max_err[name], abs_err)
+                    if agg == "right":
+                        if part == "forward":
+                            def call(args=args):
+                                with torch.no_grad():
+                                    return op.launch(*args, dtype=bf16)
+
+                            def plain_call(args=args):
+                                with torch.no_grad():
+                                    return kplain(*args, "right", bf16)
+                        else:
+                            def call(args=args, g=g):
+                                return bwd(args[0], g, *args[1:], dtype=bf16)
+
+                            def plain_call(args=args, g=g):
+                                return pbwd(args[0], g, *args[1:], dtype=bf16)
+                        if part == "forward":
+                            def f32_call(args=args):
+                                with torch.no_grad():
+                                    return op.launch(*args)
+                        else:
+                            def f32_call(args=args, g=g):
+                                return bwd(args[0], g, *args[1:])
+                        k_call = time_ms(torch, call, 10)
+                        k_ms, k_by = device_ms(torch, call, 10)
+                        p_ms, p_by = device_ms(torch, plain_call, 3)
+                        f32_ms, _ = device_ms(torch, f32_call, 10)
+                        b_ms, t_ops, t_mem = bound_ms(
+                            mode, n, ci, co, part == "backward", bf16)
+                        timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call,
+                                                        k_by)
+                        line.update(ms=k_ms, plain_ms=p_ms, call_ms=k_call,
+                                    f32_kernel_ms=f32_ms,
+                                    timed_by=[k_by, p_by], bound_ms=b_ms,
+                                    bound_by="operations" if t_ops >= t_mem
+                                    else "bytes")
+                    lines.append(line)
+                    print("check " + json.dumps(line))
+                    check(line["ok"], f"{name} agg={agg} {ci}->{co}: "
+                                      f"{err} against its plain version, "
+                                      f"tolerance {tol}, bf16-versus-float32 "
+                                      f"gap {gap}")
+    return lines
+
+
+def dstd_kernel_of(key, bf16_reduce):
+    """The launch-counter name of a DSTD-GC kernel from its profiler key
+    (``spatial_kernel<5, dstd::Bf16>``, ``dstd_bwd::out_kernel<false, 5,
+    dstd::Exact>``, ...), else None.  The backward's reduction kernel has
+    no rounding policy; ``bf16_reduce`` says which variant it belongs to."""
+    bwd = "dstd_bwd::" in key
+    if bwd:
+        mode = "temporal" if "<true" in key else "spatial"
+        bf16 = "Bf16" in key or ("reduce_kernel" in key and bf16_reduce)
+        return f"dstd_{mode}_bwd" + ("_bf16" if bf16 else "")
+    for mode in ("spatial", "temporal"):
+        if f"{mode}_kernel<" in key:
+            return f"dstd_{mode}" + ("_bf16" if "Bf16" in key else "")
+    return None
+
+
+def plain_contract(torch, model):
+    """Route every DSTD-GC op of ``model`` through the plain version of the
+    kernels' contract (``ops/dstd.py::kernel_spatial`` forward, the
+    ``ops/dstd_bwd.py`` backward, each at the op's compute dtype) on the
+    device its tensors lie on: the plain path of the bf16 train-step check
+    on the card (the package's wrappers launch the kernels there)."""
+    import types
+
+    from dstdgcn_tpu_torch.models.layers import DSTDGC
+    from dstdgcn_tpu_torch.ops import dstd as plain
+    from dstdgcn_tpu_torch.ops import dstd_bwd as plain_bwd
+
+    class PlainOp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, mode, agg, dtype, *args):
+            ctx.mode, ctx.agg, ctx.dtype = mode, agg, dtype
+            ctx.save_for_backward(*args)
+            out = getattr(plain, f"kernel_{mode}")(*args, agg, dtype)
+            return out if dtype is None else out.to(dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            saved = ctx.saved_tensors
+            grads = getattr(plain_bwd, f"dstd_{ctx.mode}_bwd")(
+                saved[0], g.contiguous(), *saved[1:], agg=ctx.agg,
+                dtype=ctx.dtype)
+            return (None,) * 3 + tuple(gr.to(a.dtype)
+                                       for gr, a in zip(grads, saved))
+
+    def forward(self, x, base_adj, alpha, mask=None):
+        dtype = (None if self.compute_dtype is None
+                 else getattr(torch, self.compute_dtype))
+        return PlainOp.apply(self.mode, self.agg, dtype, x, base_adj, alpha,
+                             self.wf, self.bf, self.wm1, self.bm1, self.wm2,
+                             self.bm2, self.wrm, self.brm)
+
+    for m in model.modules():
+        if isinstance(m, DSTDGC):
+            m.forward = types.MethodType(forward, m)
+    return model
+
+
+def bf16_phase(torch, np, fused, device):
+    """The bf16 training slice through ``main.run`` on ``cuda``, counts
+    from zero: the resolved knobs, exact launch counts of the four bf16
+    kernels and none of the float32 ones, finite losses and MPJPE, the csv
+    and checkpoints, step wall times, and one step's device time by kernel;
+    then one bf16 train step on one batch (dropout 0, BatchNorm calibrated)
+    against the plain path of the same contract on the card: the loss, every
+    gradient (below half of the step's bf16-versus-float32 gap), and the
+    gate gradients against a float64 run of the same rounding.  Returns
+    (report, the slice's launch counts)."""
+    from dstdgcn_tpu_torch import configs
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.models import get_model
+    from dstdgcn_tpu_torch.utils.config import resolve
+    report = {}
+    cfg = configs.synthetic_h36m_tpu_train()
+    rcfg = resolve(cfg)
+    bs, epochs = rcfg["train_batch_size"], rcfg["epoch"]
+    steps = epochs * -(-rcfg["dataset"]["train"]["synthetic"][
+        "num_sequences"] // bs)
+    evals = epochs * -(-rcfg["dataset"]["test"]["synthetic"][
+        "num_sequences"] // rcfg["test_batch_size"])
+    # each forward runs the in-layer, the encoder layers and the out-layer,
+    # one spatial and one temporal op each; a train step two forwards
+    per_fwd = rcfg["model"]["dstdgcn"]["num_layers"] + 2
+    run_dir = os.path.join(OUT_DIR, "train_bf16")
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner, history = run(cfg, "cuda", run_dir=run_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused.launch_counts()
+    eng = runner.engine
+    model = eng.model
+    knobs = model.resolve_knobs(bs)
+    print(f"bf16: resolved knobs at batch {bs} (hint "
+          f"{model.auto_batch_hint}): {knobs}; the blocks run "
+          f"{model.active_dtype}")
+    check(knobs["compute_dtype"] == "bfloat16"
+          and model.active_dtype == "bfloat16",
+          f"the bf16 slice resolved {knobs}, running {model.active_dtype}")
+    step_s = eng.train_step_seconds
+    rows = np.asarray(history, dtype=np.float64)
+    print(f"bf16: main.run on cuda, {len(step_s)} steps of {bs} and {evals} "
+          f"eval batches in {wall:.2f} s; per epoch (epoch, lr, train loss, "
+          f"test loss, per-frame MPJPE) {rows.tolist()}")
+    print(f"bf16: wall ms per step, first {step_s[0] * 1e3:.3f}, then "
+          f"median {float(np.median(step_s[1:])) * 1e3:.3f} (min "
+          f"{min(step_s[1:]) * 1e3:.3f}, max {max(step_s[1:]) * 1e3:.3f})")
+    print(f"bf16: launches {counts} over {steps} steps and {evals} eval "
+          "batches")
+    check(len(step_s) == steps, f"{len(step_s)} bf16 train steps, expected "
+                                f"{steps}")
+    check(rows.shape == (epochs, 4 + len(rcfg["setting"]["eval_frame"]))
+          and bool(np.all(np.isfinite(rows))),
+          "non-finite losses or MPJPE in bf16 training")
+    with open(os.path.join(run_dir, "training_loss.csv")) as f:
+        csv_rows = [line.strip().split(",") for line in f if line.strip()]
+    check(len(csv_rows) == epochs + 2, f"training_loss.csv holds {csv_rows}")
+    for ckpt in ("last.ckpt", "best.ckpt"):
+        check(os.path.isfile(os.path.join(run_dir, "checkpoints", ckpt)),
+              f"{ckpt} was not written")
+    want = {name: 0 for name in counts}
+    want.update({name: 2 * per_fwd * steps + per_fwd * evals
+                 for name in BF16_FORWARD})
+    want.update({name: fused.BWD_LAUNCHES * 2 * per_fwd * steps
+                 for name in BF16_BACKWARD})
+    check(counts == want, f"the bf16 slice launched {counts}, expected "
+                          f"{want}")
+    report.update(knobs=knobs, history=rows.tolist(), step_seconds=step_s,
+                  launches=counts, steps=steps, evals=evals, wall=wall)
+
+    # where the time of one bf16 train step goes on the card
+    train_ds = get_dataset("synthetic", **rcfg["dataset"]["train"])
+    batch = [a[:bs] for a in train_ds.arrays()[:3]]
+
+    def step():
+        return eng.train_step(*batch)
+
+    step_call = time_ms(torch, step, 5)
+    host = {}
+    prof = device_profile(torch, step, 3, host=host)
+    step_dev = sum(prof.values())
+    by_kernel = {}
+    for key, ms in prof.items():
+        name = dstd_kernel_of(key, bf16_reduce=True)
+        if name is not None:
+            by_kernel[name] = by_kernel.get(name, 0.0) + ms
+    check(not prof or set(by_kernel) <= set(BF16_FORWARD + BF16_BACKWARD),
+          f"a float32 DSTD-GC kernel ran in the bf16 step: {by_kernel}")
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:8]
+    busy = (f"{step_dev:.3f} ms ({100 * step_dev / step_call:.1f}%)"
+            if prof else "not measured (the profiler recorded nothing)")
+    print(f"profile: batch-{bs} bf16 train step {step_call:.3f} ms per "
+          f"call, device busy {busy}; DSTD-GC kernels "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_kernel.items()))
+          + "; top " + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
+    print(f"profile: bf16 train step host self time {sum(host.values()):.3f}"
+          " ms per call (under the profiler)")
+    report["profile"] = dict(call_ms=step_call, device_ms=step_dev,
+                             by_kernel=prof, dstd_ms=by_kernel,
+                             host_ms=sum(host.values()))
+
+    # one bf16 train step: kernel path against the plain path of the same
+    # contract, the plain path at float32 beside it (the gap bf16 makes),
+    # and the gate gradients against a float64 run of the same rounding
+    opts = dict({k: v for k, v in rcfg["model"].items() if k != "name"},
+                auto_batch_hint=bs)
+    engines = {"kernel": eng}
+    for label, extra, dtype in (("plain", {}, None),
+                                ("plain_f32", dict(compute_dtype=None), None),
+                                ("float64", {}, torch.float64)):
+        m = plain_contract(torch, get_model("dstdgcn", **dict(opts, **extra)))
+        if dtype is not None:
+            m = m.to(dtype)
+        engines[label] = PredictionEngine(rcfg["engine"], m, device=device)
+        engines[label].init()
+    pmodel = engines["plain"].model
+    pmodel.load_state_dict(model.state_dict())
+    calibrate_batchnorm(torch, pmodel, engines["plain"].transform(
+        engines["plain"].to_device(batch[0])))
+    for label, e in engines.items():
+        if label != "plain":
+            e.model.load_state_dict(pmodel.state_dict())
+        e.model.do_in.p = 0.0
+    before = fused.launch_counts()
+    losses = {"kernel": float(eng.compute_gradients(*batch)["total"])}
+    after = fused.launch_counts()
+    for label in ("plain", "plain_f32"):
+        losses[label] = float(engines[label].compute_gradients(*batch)[
+            "total"])
+    m64, e64 = engines["float64"].model, engines["float64"]
+    b64 = [torch.as_tensor(a, dtype=torch.float64, device=device)
+           for a in batch]
+    m64.train()
+    total64 = (sum(e64._one_pass(b64[0], b64[2], None, None, None).values())
+               + sum(e64._one_pass(b64[1], b64[2].flip(1), None, None,
+                                   None).values())) / 2
+    total64.backward()
+    losses["float64"] = float(total64)
+    grads = {label: {n: p.grad.double() for n, p in e.model
+                     .named_parameters()} for label, e in engines.items()}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+    step_launches = {k: after[k] - before[k] for k in after}
+    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    errs = {n: (rel(g, grads["plain"][n]),
+                rel(grads["plain_f32"][n], grads["plain"][n]),
+                rel(g, grads["float64"][n]),
+                rel(grads["plain"][n], grads["float64"][n]))
+            for n, g in grads["kernel"].items()}
+    gates = [n for n in errs if n.endswith(("alpha_sm", "alpha_tm"))]
+    others = [n for n in errs if n not in gates]
+    worst = max(others, key=lambda n: errs[n][0])
+    gap = max(errs[n][1] for n in others)
+    gate_k64 = max(errs[n][2] for n in gates)
+    gate_p64 = max(errs[n][3] for n in gates)
+    gate_gap = max(errs[n][1] for n in gates)
+    print(f"bf16: one step, kernel path vs plain path: loss {losses} (rel "
+          f"{loss_rel:.3g}); launches {step_launches}")
+    for n in sorted(errs, key=lambda n: -errs[n][0])[:4] + gates:
+        print(f"bf16: gradient {n}: kernel vs plain {errs[n][0]:.3g}, "
+              f"plain bf16 vs plain float32 {errs[n][1]:.3g}, kernel vs "
+              f"float64 {errs[n][2]:.3g}, plain vs float64 "
+              f"{errs[n][3]:.3g} of max(|reference|, 1)")
+    print(f"bf16: worst gradient {worst} {errs[worst][0]:.3g}, tolerance "
+          f"{BF16_STEP_FRAC * gap:.3g} ({BF16_STEP_FRAC} of the step's "
+          f"bf16-versus-float32 gap {gap:.3g})")
+    print(f"bf16: gate gradients: kernel path at most {gate_k64:.3g} from "
+          f"the float64 run (plain path {gate_p64:.3g}), tolerance "
+          f"{BF16_STEP_FRAC * gate_gap:.3g} ({BF16_STEP_FRAC} of their "
+          f"bf16-versus-float32 gap {gate_gap:.3g})")
+    check(loss_rel <= BF16_LOSS_RTOL, f"bf16 train loss: {losses}")
+    check(errs[worst][0] <= BF16_STEP_FRAC * gap,
+          f"bf16 gradient of {worst}: {errs[worst][0]} of max(|plain|, 1), "
+          f"gap {gap}")
+    check(gate_k64 <= BF16_STEP_FRAC * gate_gap,
+          f"bf16 gate gradients: {gate_k64} from float64 (plain path "
+          f"{gate_p64}), gap {gate_gap}")
+    check(step_launches == {
+        **{k: 0 for k in step_launches},
+        **{k: 2 * per_fwd for k in BF16_FORWARD},
+        **{k: 2 * per_fwd * fused.BWD_LAUNCHES for k in BF16_BACKWARD}},
+        f"one bf16 train step launched {step_launches}")
+    report["step_check"] = dict(losses=losses, loss_rel=loss_rel,
+                                worst=worst, gap=gap, gate_k64=gate_k64,
+                                gate_p64=gate_p64, gate_gap=gate_gap,
+                                grad_errs=errs)
+    return report, counts
 
 
 def run_smoke():
@@ -765,6 +1202,14 @@ def run_smoke():
                           f"plain backward: {norm_err} of max(|plain|, 1)")
                 check(repeat, f"{name} agg={agg} {ci}->{co}: two calls on "
                               "the same inputs differ")
+    # the bf16 variants against the plain versions of their contract at the
+    # batch and channel widths of the bf16 training slice, both aggregations
+    bcfg = resolve(configs.SYNTHETIC_H36M_TPU_TRAIN)
+    bmodel_cfg = bcfg["model"]["dstdgcn"]
+    nb16 = bcfg["train_batch_size"]
+    checks += bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device,
+                                 nb16, forward_shapes(bmodel_cfg), timings,
+                                 max_err)
     report["checks"] = checks
 
     # the chain kernels against their plain versions on the serving model's
@@ -1069,7 +1514,8 @@ def run_smoke():
         dstd_chain=1, dstd_encoder_chain=0, dstd_spatial=n_layers,
         dstd_temporal=n_layers,
         dstd_spatial_bwd=n_layers * fused.BWD_LAUNCHES,
-        dstd_temporal_bwd=n_layers * fused.BWD_LAUNCHES),
+        dstd_temporal_bwd=n_layers * fused.BWD_LAUNCHES,
+        **{k: 0 for k in BF16_FORWARD + BF16_BACKWARD}),
         f"dstd_chain forward and backward launched {ccounts}")
     report["chain_path"] = ccounts
 
@@ -1117,7 +1563,8 @@ def run_smoke():
     want_counts = {name: 14 * steps + 7 * evals for name in FORWARD}
     want_counts.update({name: fused.BWD_LAUNCHES * 14 * steps
                         for name in BACKWARD})
-    want_counts.update({name: 0 for name in CHAINS})
+    want_counts.update({name: 0 for name in CHAINS + BF16_FORWARD
+                        + BF16_BACKWARD})
     check(tcounts == want_counts, f"training launched {tcounts}, expected "
                                   f"{want_counts}")
     report["train"] = dict(history=rows.tolist(), step_seconds=step_s,
@@ -1212,7 +1659,7 @@ def run_smoke():
     check(step_launches == {
         **{k: 14 for k in FORWARD},
         **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD},
-        **{k: 0 for k in CHAINS}},
+        **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD}},
         f"one train step launched {step_launches}")
     report["train_check"] = dict(loss=k_loss, plain_loss=p_loss,
                                  loss_rel=loss_rel, worst_grad=worst,
@@ -1241,15 +1688,21 @@ def run_smoke():
     report["sparse"], sparse_entries = sparse_phase(torch, np, sparse, fused,
                                                     device)
 
-    # 9. the kernels line.  One-op kernels: times summed over the 7 calls
-    # of one N=32 forward (or of its backward) at their (Ci, Co), with the
-    # model's aggregation; launches those of the training slice, the
-    # serving slice's beside them.  Chain kernels: one N=32 call over the 5
-    # encoder layers; launches those of the fused slice (the encoder) and
-    # of dstd_chain's own path.
+    # 9. the bf16 training slice and one bf16 train step against the plain
+    # path of the same contract
+    report["bf16"], bcounts = bf16_phase(torch, np, fused, device)
+
+    # 10. the kernels line.  One-op kernels: times summed over the 7 calls
+    # of one forward (or of its backward) at their (Ci, Co), with the
+    # model's aggregation, N=32 for the float32 kernels and N=128 (the bf16
+    # slice's batch) for the bf16 variants; launches those of the training
+    # slice (float32) or the bf16 slice, the serving slice's beside them.
+    # Chain kernels: one N=32 call over the 5 encoder layers; launches
+    # those of the fused slice (the encoder) and of dstd_chain's own path.
     agg = "left" if model_cfg.get("fast") else "right"
     main_launches = dict(tcounts, dstd_encoder_chain=fcounts[
-        "dstd_encoder_chain"], dstd_chain=ccounts["dstd_chain"])
+        "dstd_encoder_chain"], dstd_chain=ccounts["dstd_chain"],
+        **{k: bcounts[k] for k in BF16_FORWARD + BF16_BACKWARD})
     kernels = []
     for name, meta in KERNELS.items():
         if name in SPARSE:
@@ -1262,15 +1715,18 @@ def run_smoke():
                 N, feat, n_layers, name == "dstd_encoder_chain"))
         else:
             mode = name.split("_")[1]
-            backward = name in BACKWARD
+            backward = "_bwd" in name
+            bf16 = name.endswith("_bf16")
+            n, dtype = (nb16, torch.bfloat16) if bf16 else (N, None)
             ms = plain_ms = call_ms = b_ms = ops_ms = mem_ms = 0.0
             timed_by = set()
-            for m, ci, co in forward_shapes(model_cfg):
+            for m, ci, co in forward_shapes(bmodel_cfg if bf16
+                                            else model_cfg):
                 if m != mode:
                     continue
                 k_t, p_t, k_call, k_by = timings[(name, ci, co, agg)]
                 timed_by.add(k_by)
-                b, t_ops, t_mem = bound_ms(mode, N, ci, co, backward)
+                b, t_ops, t_mem = bound_ms(mode, n, ci, co, backward, dtype)
                 ms, plain_ms, b_ms = ms + k_t, plain_ms + p_t, b_ms + b
                 call_ms += k_call
                 ops_ms, mem_ms = ops_ms + t_ops, mem_ms + t_mem
@@ -1283,6 +1739,8 @@ def run_smoke():
             library_ms=None, call_ms=call_ms,
             serving_launches=counts[name], fused_launches=fcounts[name],
             timed_by="+".join(sorted(timed_by))))
+        if name.endswith("_bf16"):
+            kernels[-1].update(n=nb16)
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

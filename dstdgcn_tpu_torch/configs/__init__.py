@@ -1,8 +1,9 @@
 """Configs of the port as Python dicts (no PyYAML needed).
 
-``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED`` and
-``SYNTHETIC_H36M_TRAIN`` equal ``synthetic_h36m_serving.yaml``,
-``synthetic_h36m_fused.yaml`` and ``synthetic_h36m_train.yaml`` as
+``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED``,
+``SYNTHETIC_H36M_TRAIN`` and ``SYNTHETIC_H36M_TPU_TRAIN`` equal
+``synthetic_h36m_serving.yaml``, ``synthetic_h36m_fused.yaml``,
+``synthetic_h36m_train.yaml`` and ``synthetic_h36m_tpu_train.yaml`` as
 ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass either
 form to :func:`dstdgcn_tpu_torch.main.run`.  The functions of the same
 names in lower case return fresh deep copies, since runners update the
@@ -15,7 +16,8 @@ import copy
 
 __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
            "SYNTHETIC_H36M_FUSED", "synthetic_h36m_fused",
-           "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train"]
+           "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train",
+           "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train"]
 
 _SYNTHETIC = dict(layout="h36m", num_sequences=256, input_n=10, output_n=25,
                   dct_used=0, mirror=False)
@@ -105,3 +107,24 @@ del SYNTHETIC_H36M_TRAIN["engine"]["fused_inference"]
 
 def synthetic_h36m_train() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+
+
+#: the flagship TPU configuration's model and engine blocks
+#: (configs/dstdgcn_h36m_tpu.yaml) trained at batch 128, where the "auto"
+#: knobs resolve to bf16: 512 train and 128 test sequences, 2 epochs
+SYNTHETIC_H36M_TPU_TRAIN = copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+SYNTHETIC_H36M_TPU_TRAIN.update(train_batch_size=128, test_batch_size=128)
+SYNTHETIC_H36M_TPU_TRAIN["dataset"]["train"]["synthetic"][
+    "num_sequences"] = 512
+SYNTHETIC_H36M_TPU_TRAIN["dataset"]["test"]["synthetic"][
+    "num_sequences"] = 128
+SYNTHETIC_H36M_TPU_TRAIN["model"]["dstdgcn"].update(
+    compute_dtype="auto", agg_group_spatial="auto", agg_group_temporal="auto",
+    pair_flat=False, remat=False)
+SYNTHETIC_H36M_TPU_TRAIN["engine"] = dict(
+    prng_impl="rbg", **SYNTHETIC_H36M_TPU_TRAIN["engine"],
+    fused_inference=False)
+
+
+def synthetic_h36m_tpu_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_TPU_TRAIN)

@@ -1,5 +1,5 @@
-// Whole-op backward of the DSTD-GC ops (float32), shared by
-// dstd_spatial_bwd.cu and dstd_temporal_bwd.cu.
+// Whole-op backward of the DSTD-GC ops (float32, and bf16 contraction
+// operands), shared by dstd_spatial_bwd.cu and dstd_temporal_bwd.cu.
 //
 // Both ops are one computation over two axes: the mixing axis of length REF
 // (frames T for the spatial op, joints V for the temporal op) and the pair
@@ -36,12 +36,24 @@
 // block of pass 3 reads all of it back (135 KB spatial, 108 KB temporal at
 // V = 22, T = 35); at N = 32 the whole scratch (about 14 MB) stays in the
 // 50 MB L2 between the launches.
+//
+// Every kernel takes a rounding policy Rnd (dstd_common.cuh): Exact for the
+// float32 backward, Bf16 for the TPU kernel's bf16 dtype
+// (fused_bwd.py::_contract_rows_fn), which rounds the operands of its 11
+// contractions (the q/k and feature projections, the mixing, dxf, dwf, dx
+// from dxf, dA, dwrm, ds, dwqk and dx from dq/dk) and keeps everything else
+// float32.  An operand that feeds products alone is rounded once where it is
+// stored (x, g, wf, wrm, wqk, the features, the adjacency, ddyn); one that
+// also feeds a float32 sum is rounded where a product loads it (dxf, whose
+// sum is dbf; the scores, which du reads; dq/dk, whose sum is dbqk).
 #pragma once
 
 #include "dstd_common.cuh"
 
 namespace dstd_bwd {
 
+using dstd::Bf16;
+using dstd::Exact;
 using dstd::kMaxTile;
 using dstd::kThreads;
 using dstd::round4;
@@ -204,7 +216,7 @@ __device__ inline int xrow(int s, int i, int V) {
 
 // Pass 1: q/k of every row, qk[n][j][s][i], column j = k*2R + r (query) or
 // k*2R + R + r (key).
-template <bool TEMPORAL>
+template <bool TEMPORAL, typename Rnd>
 __global__ void __launch_bounds__(kSmallThreads) qk_kernel(const BwdArgs a) {
   const int T = a.T, V = a.V, Ci = a.Ci, R = a.R, J = 2 * a.K * a.R;
   const int REF = TEMPORAL ? V : T, P = TEMPORAL ? T : V, rows = T * V;
@@ -224,7 +236,8 @@ __global__ void __launch_bounds__(kSmallThreads) qk_kernel(const BwdArgs a) {
     const float* xr = a.x + ((size_t)n * rows + row) * Ci;
     float acc = 0.f;
     for (int ci = 0; ci < Ci; ++ci)
-      acc = fmaf(__ldg(xr + ci), __ldg(w + (size_t)ci * R), acc);
+      acc = fmaf(Rnd::r(__ldg(xr + ci)), Rnd::r(__ldg(w + (size_t)ci * R)),
+                 acc);
     const int t = row / V, v = row - t * V;
     const int s = TEMPORAL ? v : t, i = TEMPORAL ? t : v;
     qk[(((size_t)n * J + j) * REF + s) * P + i] = acc + b;
@@ -232,7 +245,7 @@ __global__ void __launch_bounds__(kSmallThreads) qk_kernel(const BwdArgs a) {
 }
 
 // Pass 2: one block per (tile of output indices o, sample n).
-template <bool TEMPORAL, int TILE>
+template <bool TEMPORAL, int TILE, typename Rnd>
 __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -264,7 +277,8 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   // g and the feature weights; project the tile's features
   for (int i = tid; i < K * R * REF * TILE; i += kThreads) {
     const int tt = i % TILE, krs = i / TILE;  // krs = (k*R + r)*REF + s
-    wmix[i] = tt < tn ? __ldg(a.wrm + (size_t)krs * REF + o0 + tt) : 0.f;
+    wmix[i] =
+        tt < tn ? Rnd::r(__ldg(a.wrm + (size_t)krs * REF + o0 + tt)) : 0.f;
   }
   const float* qkn = a.scratch + S.qk + (size_t)n * J * REF * P;
   for (int i = tid; i < J * REF * P; i += kThreads) qk[i] = qkn[i];
@@ -272,16 +286,16 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   for (int i = tid; i < rows * Co; i += kThreads) {
     const int lr = i / Co, c = i - lr * Co, tt = lr / P, b = lr - tt * P;
     gs[lr * CS + c] =
-        __ldg(gn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Co + c);
+        Rnd::r(__ldg(gn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Co + c));
   }
   for (int i = tid; i < rows * Ci; i += kThreads) {
     const int lr = i / Ci, ci = i - lr * Ci, tt = lr / P, b = lr - tt * P;
     xs[lr * XS + ci] =
-        __ldg(xn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Ci + ci);
+        Rnd::r(__ldg(xn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Ci + ci));
   }
   for (int i = tid; i < K * Ci * Co; i += kThreads) {
     const int kc = i / Co, c = i - kc * Co;
-    wfs[kc * CS + c] = __ldg(a.wf + i);
+    wfs[kc * CS + c] = Rnd::r(__ldg(a.wf + i));
   }
   __syncthreads();
   // the tile's features: xf[k] = x wf[k] + bf[k]
@@ -290,7 +304,8 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       [&](int, int m, int, int q) { return xs[m * XS + q]; },
       [&](int k, int, int q, int n) { return wfs[(k * Ci + q) * CS + n]; },
       [&](int k, int m, int n, float v) {
-        xf[(k * TILE * P + m) * CS + n] = v + __ldg(a.bf + k * Co + n);
+        xf[(k * TILE * P + m) * CS + n] =
+            Rnd::r(v + __ldg(a.bf + k * Co + n));
       });
 
   // dyn (brm included) of the tile's outputs: one thread per (k, i, j)
@@ -304,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       const float* kr = qk + (size_t)(k * 2 * R + R + r) * REF * P + j;
       const float* wm = wmix + (k * R + r) * REF * TILE;
       for (int s = 0; s < REF; ++s) {
-        const float sc = tanhf(qr[s * P] - kr[s * P]);
+        const float sc = Rnd::r(tanhf(qr[s * P] - kr[s * P]));
 #pragma unroll
         for (int tt = 0; tt < TILE; ++tt)
           acc[tt] = fmaf(sc, wm[s * TILE + tt], acc[tt]);
@@ -363,8 +378,8 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
     const int k = idx / (tn * PP), rem = idx - k * tn * PP;
     const int tt = rem / PP, ij = rem - tt * PP;
     const int e = (k * TILE + tt) * PP + ij;
-    ddyn[((size_t)k * REF + o0 + tt) * PP + ij] = alpha * dd[e];
-    dyn[e] = dyn[e] * alpha + __ldg(a.base + k * PP + ij);
+    ddyn[((size_t)k * REF + o0 + tt) * PP + ij] = Rnd::r(alpha * dd[e]);
+    dyn[e] = Rnd::r(dyn[e] * alpha + __ldg(a.base + k * PP + ij));
   }
   float* pbrm = a.scratch + S.pbrm + (size_t)n * K * REF;
   for (int kt = warp; kt < K * tn; kt += kWarps) {
@@ -400,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   block_gemm(
       1, rows, Ci, K, Co,
       [&](int, int m, int k, int c) {
-        return xf[(k * TILE * P + m) * CS + c];
+        return Rnd::r(xf[(k * TILE * P + m) * CS + c]);
       },
       [&](int, int k, int c, int ci) { return wfs[(k * Ci + ci) * CS + c]; },
       [&](int, int m, int ci, float v) {
@@ -413,7 +428,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       K, Ci, Co, 1, rows,
       [&](int, int ci, int, int m) { return xs[m * XS + ci]; },
       [&](int k, int, int m, int c) {
-        return xf[(k * TILE * P + m) * CS + c];
+        return Rnd::r(xf[(k * TILE * P + m) * CS + c]);
       },
       [&](int k, int ci, int c, float v) { pwf[(k * Ci + ci) * Co + c] = v; });
   float* pbf = a.scratch + S.pbf + (size_t)blk * K * Co;
@@ -426,7 +441,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
 }
 
 // Pass 3: one block per (tile of source indices s, sample n).
-template <bool TEMPORAL, int TILE>
+template <bool TEMPORAL, int TILE, typename Rnd>
 __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -460,13 +475,14 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
     const int kr = i / (tn * REF), rem = i - kr * tn * REF;
     const int st = rem / REF, o = rem - st * REF;
     wrow[(kr * TILE + st) * REF + o] =
-        __ldg(a.wrm + ((size_t)kr * REF + s0 + st) * REF + o);
+        Rnd::r(__ldg(a.wrm + ((size_t)kr * REF + s0 + st) * REF + o));
   }
   for (int i = tid; i < Ci * J; i += kThreads) {
     const int ci = i / J, j = i - ci * J;
     const int k = j / (2 * R), jr = j - k * 2 * R;
-    wqk[ci * JS + j] = jr < R ? __ldg(a.wm1 + (k * Ci + ci) * R + jr)
-                              : __ldg(a.wm2 + (k * Ci + ci) * R + jr - R);
+    wqk[ci * JS + j] =
+        Rnd::r(jr < R ? __ldg(a.wm1 + (k * Ci + ci) * R + jr)
+                      : __ldg(a.wm2 + (k * Ci + ci) * R + jr - R));
   }
   __syncthreads();
 
@@ -488,7 +504,8 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
     const float* sv = su + (kr * TILE + st) * PP;
     const float* dv = ddn + ((size_t)k * REF + o) * PP;
     float acc = 0.f;
-    for (int ij = lane; ij < PP; ij += 32) acc = fmaf(sv[ij], dv[ij], acc);
+    for (int ij = lane; ij < PP; ij += 32)
+      acc = fmaf(Rnd::r(sv[ij]), dv[ij], acc);
     acc = warp_sum(acc);
     if (lane == 0) pwrm[((size_t)kr * REF + s0 + st) * REF + o] = acc;
   }
@@ -541,7 +558,7 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
     const int lr = i / Ci, ci = i - lr * Ci, st = lr / P, b = lr - st * P;
     float acc = 0.f;
     for (int j = 0; j < J; ++j)
-      acc = fmaf(dqk[lr * J + j], wqk[ci * JS + j], acc);
+      acc = fmaf(Rnd::r(dqk[lr * J + j]), wqk[ci * JS + j], acc);
     dxn[(size_t)xrow<TEMPORAL>(s0 + st, b, V) * Ci + ci] += acc;
   }
   // dwqk / dbqk partials over the tile's rows
@@ -551,8 +568,9 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
     float acc = 0.f;
     for (int lr = 0; lr < rows; ++lr) {
       const int st = lr / P, b = lr - st * P;
-      acc = fmaf(__ldg(xn + (size_t)xrow<TEMPORAL>(s0 + st, b, V) * Ci + ci),
-                 dqk[lr * J + j], acc);
+      acc = fmaf(
+          Rnd::r(__ldg(xn + (size_t)xrow<TEMPORAL>(s0 + st, b, V) * Ci + ci)),
+          Rnd::r(dqk[lr * J + j]), acc);
     }
     pwqk[i] = acc;
   }
@@ -636,7 +654,7 @@ long long smem_bytes(int T, int V, int Ci, int Co, int K, int R, int tile) {
   return (out > src ? out : src) * (long long)sizeof(float);
 }
 
-template <bool TEMPORAL, int TILE>
+template <bool TEMPORAL, int TILE, typename Rnd>
 cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   const int REF = TEMPORAL ? a.V : a.T;
   const dim3 grid((REF + TILE - 1) / TILE, a.N);
@@ -647,10 +665,10 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
       LayoutSrc(a.T, a.V, a.Ci, a.K, a.R, TILE, TEMPORAL).total *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      out_kernel<TEMPORAL, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)out_bytes);
+      out_kernel<TEMPORAL, TILE, Rnd>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(src_kernel<TEMPORAL, TILE>,
+  err = cudaFuncSetAttribute(src_kernel<TEMPORAL, TILE, Rnd>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)src_bytes);
   if (err != cudaSuccess) return err;
@@ -658,13 +676,13 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   const long long qk_items = (long long)a.N * a.T * a.V * 2 * a.K * a.R;
   const int qk_blocks =
       (int)((qk_items + kSmallThreads - 1) / kSmallThreads);
-  qk_kernel<TEMPORAL><<<qk_blocks, kSmallThreads, 0, stream>>>(a);
+  qk_kernel<TEMPORAL, Rnd><<<qk_blocks, kSmallThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  out_kernel<TEMPORAL, TILE><<<grid, kThreads, out_bytes, stream>>>(a);
+  out_kernel<TEMPORAL, TILE, Rnd><<<grid, kThreads, out_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  src_kernel<TEMPORAL, TILE><<<grid, kThreads, src_bytes, stream>>>(a);
+  src_kernel<TEMPORAL, TILE, Rnd><<<grid, kThreads, src_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total =
@@ -677,7 +695,7 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
 
 // The four launches of one backward call on `stream`; returns the
 // cudaError_t of the first that failed (0 = success).
-template <bool TEMPORAL>
+template <bool TEMPORAL, typename Rnd>
 int run(const BwdArgs& a, int device, void* stream) {
   if (a.N == 0) return 0;
   if (a.tile < 1 || a.tile > kMaxTile) return (int)cudaErrorInvalidValue;
@@ -685,24 +703,42 @@ int run(const BwdArgs& a, int device, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (a.tile) {
-    case 1: return (int)launch<TEMPORAL, 1>(a, st);
-    case 2: return (int)launch<TEMPORAL, 2>(a, st);
-    case 3: return (int)launch<TEMPORAL, 3>(a, st);
-    case 4: return (int)launch<TEMPORAL, 4>(a, st);
-    case 5: return (int)launch<TEMPORAL, 5>(a, st);
-    case 6: return (int)launch<TEMPORAL, 6>(a, st);
-    case 7: return (int)launch<TEMPORAL, 7>(a, st);
-    default: return (int)launch<TEMPORAL, 8>(a, st);
+    case 1: return (int)launch<TEMPORAL, 1, Rnd>(a, st);
+    case 2: return (int)launch<TEMPORAL, 2, Rnd>(a, st);
+    case 3: return (int)launch<TEMPORAL, 3, Rnd>(a, st);
+    case 4: return (int)launch<TEMPORAL, 4, Rnd>(a, st);
+    case 5: return (int)launch<TEMPORAL, 5, Rnd>(a, st);
+    case 6: return (int)launch<TEMPORAL, 6, Rnd>(a, st);
+    case 7: return (int)launch<TEMPORAL, 7, Rnd>(a, st);
+    default: return (int)launch<TEMPORAL, 8, Rnd>(a, st);
   }
 }
 
 }  // namespace dstd_bwd
 
 // The C interface of one op's backward library: scratch and shared-memory
-// sizes, error strings, and the launch.  Argument order: x, g, base, alpha,
-// wf, bf, wm1, bm1, wm2, bm2, wrm, brm, then the 11 gradients dx, dbase,
-// dalpha, dwf, dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm, the scratch buffer,
-// N, T, V, Ci, Co, K, R, agg_left, tile, device, stream.
+// sizes, error strings, and the launches (NAME_f32 float32, NAME_bf16 bf16
+// contraction operands).  Argument order: x, g, base, alpha, wf, bf, wm1,
+// bm1, wm2, bm2, wrm, brm, then the 11 gradients dx, dbase, dalpha, dwf,
+// dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm, the scratch buffer, N, T, V, Ci,
+// Co, K, R, agg_left, tile, device, stream.
+#define DSTD_BWD_ENTRY(NAME, TEMPORAL, RND)                                   \
+  int NAME(const float* x, const float* g, const float* base,                 \
+           const float* alpha, const float* wf, const float* bf,              \
+           const float* wm1, const float* bm1, const float* wm2,              \
+           const float* bm2, const float* wrm, const float* brm, float* dx,   \
+           float* dbase, float* dalpha, float* dwf, float* dbf, float* dwm1,  \
+           float* dbm1, float* dwm2, float* dbm2, float* dwrm, float* dbrm,   \
+           float* scratch, int N, int T, int V, int Ci, int Co, int K, int R, \
+           int agg_left, int tile, int device, void* stream) {                \
+    const dstd_bwd::BwdArgs a{x,     g,     base,  alpha,   wf,   bf,   wm1,  \
+                              bm1,   wm2,   bm2,   wrm,     brm,  dx,   dbase,\
+                              dalpha, dwf,  dbf,   dwm1,    dbm1, dwm2, dbm2, \
+                              dwrm,  dbrm,  scratch, N,     T,    V,    Ci,   \
+                              Co,    K,     R,     agg_left, tile};           \
+    return dstd_bwd::run<TEMPORAL, dstd_bwd::RND>(a, device, stream);         \
+  }
+
 #define DSTD_BWD_C_API(NAME, TEMPORAL)                                        \
   extern "C" {                                                                \
   long long NAME##_smem_bytes(int T, int V, int Ci, int Co, int K, int R,     \
@@ -716,20 +752,6 @@ int run(const BwdArgs& a, int device, void* stream) {
   const char* dstd_error_string(int err) {                                    \
     return cudaGetErrorString((cudaError_t)err);                              \
   }                                                                           \
-  int NAME##_f32(const float* x, const float* g, const float* base,           \
-                 const float* alpha, const float* wf, const float* bf,        \
-                 const float* wm1, const float* bm1, const float* wm2,        \
-                 const float* bm2, const float* wrm, const float* brm,        \
-                 float* dx, float* dbase, float* dalpha, float* dwf,          \
-                 float* dbf, float* dwm1, float* dbm1, float* dwm2,           \
-                 float* dbm2, float* dwrm, float* dbrm, float* scratch,       \
-                 int N, int T, int V, int Ci, int Co, int K, int R,           \
-                 int agg_left, int tile, int device, void* stream) {          \
-    const dstd_bwd::BwdArgs a{x,     g,     base,  alpha,   wf,   bf,   wm1,  \
-                              bm1,   wm2,   bm2,   wrm,     brm,  dx,   dbase,\
-                              dalpha, dwf,  dbf,   dwm1,    dbm1, dwm2, dbm2, \
-                              dwrm,  dbrm,  scratch, N,     T,    V,    Ci,   \
-                              Co,    K,     R,     agg_left, tile};           \
-    return dstd_bwd::run<TEMPORAL>(a, device, stream);                        \
-  }                                                                           \
+  DSTD_BWD_ENTRY(NAME##_f32, TEMPORAL, Exact)                                 \
+  DSTD_BWD_ENTRY(NAME##_bf16, TEMPORAL, Bf16)                                 \
   }

@@ -1,12 +1,14 @@
 // Shared pieces of the DSTD-GC forward kernels (dstd_spatial.cu,
 // dstd_temporal.cu, dstd_chain.cu): launch constants, the argument block,
-// the stacked q/k projection, float4 helpers and the body of each op, which
-// the one-op kernels run once and the chain kernels once per layer.  Each
-// kernel source includes this header and is built into its own shared
-// library with a plain C interface (dstdgcn_tpu_torch/kernels/build.py).
+// the rounding policies, the stacked q/k projection, float4 helpers and the
+// body of each op, which the one-op kernels run once and the chain kernels
+// once per layer.  Each kernel source includes this header and is built into
+// its own shared library with a plain C interface
+// (dstdgcn_tpu_torch/kernels/build.py).
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -39,6 +41,28 @@ struct OpArgs {
   float* out;
   int T, V, Ci, Co, K, R, agg_left;
 };
+
+// Rounding policies of the contraction operands, the TPU kernels' compute
+// dtype (dstdgcn_tpu/kernels/fused.py::_dot_fn).  Exact keeps float32 (the
+// float32 kernels).  Bf16 rounds an operand to the nearest bfloat16 (ties to
+// even) and widens it back: the product of two bf16 values is exact in
+// float32, so float32 FMAs over rounded operands compute the bf16 kernels'
+// function, bf16 inputs with float32 products and sums.  The op bodies
+// apply the policy where an operand is loaded into a product, or once where
+// it is stored for products alone.
+struct Exact {
+  __device__ static float r(float v) { return v; }
+};
+struct Bf16 {
+  __device__ static float r(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
+
+template <typename Rnd>
+__device__ inline float4 round4f(const float4& v) {
+  return make_float4(Rnd::r(v.x), Rnd::r(v.y), Rnd::r(v.z), Rnd::r(v.w));
+}
 
 // shared-memory sub-buffers start at multiples of 4 floats (float4 access)
 __host__ __device__ inline long long round4(long long n) {
@@ -111,16 +135,18 @@ struct PlainStore {
   }
 };
 
-// q/k projection weights staged as wqk[ci][j] and biases as bqk[j], column
-// j = k*2R + r for the query side and k*2R + R + r for the key side.
+// q/k projection weights staged as wqk[ci][j] (rounded: they feed the
+// projection alone) and biases as bqk[j], column j = k*2R + r for the query
+// side and k*2R + R + r for the key side.
+template <typename Rnd = Exact>
 __device__ inline void stage_qk_weights(float* wqk, float* bqk,
                                         const OpArgs& a) {
   const int Ci = a.Ci, R = a.R, J = a.K * 2 * a.R;
   for (int i = threadIdx.x; i < Ci * J; i += blockDim.x) {
     const int ci = i / J, j = i - ci * J;
     const int k = j / (2 * R), jr = j - k * 2 * R;
-    wqk[i] = jr < R ? a.wm1[(k * Ci + ci) * R + jr]
-                    : a.wm2[(k * Ci + ci) * R + jr - R];
+    wqk[i] = Rnd::r(jr < R ? a.wm1[(k * Ci + ci) * R + jr]
+                           : a.wm2[(k * Ci + ci) * R + jr - R]);
   }
   for (int j = threadIdx.x; j < J; j += blockDim.x) {
     const int k = j / (2 * R), jr = j - k * 2 * R;
@@ -136,8 +162,9 @@ __device__ inline void stage_qk_weights(float* wqk, float* bqk,
 // of a row share each x load), then copies the other shares from the other
 // blocks' shared memory; the barrier after the copy keeps every block's
 // rows alive until all have read them.  Launched without a cluster (one
-// block per cluster) a block projects every row.
-template <bool kCoherent = false>
+// block per cluster) a block projects every row.  q/k stay float32 (x is
+// rounded here, the weights when they were staged).
+template <bool kCoherent = false, typename Rnd = Exact>
 __device__ inline void project_qk(const OpArgs& a, const float* xn,
                                   const float* wqk, const float* bqk,
                                   float* qk, bool joints_major) {
@@ -153,7 +180,7 @@ __device__ inline void project_qk(const OpArgs& a, const float* xn,
     const float* xr = xn + (size_t)row * Ci;
     float acc = 0.f;
     for (int ci = 0; ci < Ci; ++ci)
-      acc = fmaf(load_x<kCoherent>(xr + ci), wqk[ci * J + j], acc);
+      acc = fmaf(Rnd::r(load_x<kCoherent>(xr + ci)), wqk[ci * J + j], acc);
     const int slot = joints_major ? (row % V) * T + row / V : row;
     qk[j * rows + slot] = acc + bqk[j];
   }
@@ -174,8 +201,10 @@ __device__ inline void project_qk(const OpArgs& a, const float* xn,
 // Feature projection of `rows` input rows: xf[k][dst(row)][c] =
 // x_row @ wf[k] + bf[k], rows read from device memory (L1/L2).  src(row)
 // and dst(row) give a row's offset in x (in rows) and in xf (in rows).
-// With Co % 4 == 0 each thread produces 4 channels from float4 weights.
-template <bool kCoherent = false, typename SrcRow, typename DstRow>
+// With Co % 4 == 0 each thread produces 4 channels from float4 weights.  The
+// features feed the aggregation alone, so they are stored rounded.
+template <bool kCoherent = false, typename Rnd = Exact, typename SrcRow,
+          typename DstRow>
 __device__ inline void project_features(const OpArgs& a, const float* xn,
                                         float* xf, int rows, int xf_kstride,
                                         SrcRow src, DstRow dst) {
@@ -190,7 +219,8 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
           reinterpret_cast<const float4*>(a.wf + (size_t)k * Ci * Co) + c4;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int ci = 0; ci < Ci; ++ci)
-        fma4(load_x<kCoherent>(xr + ci), __ldg(wk + (size_t)ci * C4), acc);
+        fma4(Rnd::r(load_x<kCoherent>(xr + ci)),
+             round4f<Rnd>(__ldg(wk + (size_t)ci * C4)), acc);
       const float4 b = __ldg(reinterpret_cast<const float4*>(a.bf + k * Co) +
                              c4);
       acc.x += b.x;
@@ -198,7 +228,7 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
       acc.z += b.z;
       acc.w += b.w;
       reinterpret_cast<float4*>(xf + (size_t)k * xf_kstride +
-                                (size_t)dst(row) * Co)[c4] = acc;
+                                (size_t)dst(row) * Co)[c4] = round4f<Rnd>(acc);
     }
   } else {
     for (int i = threadIdx.x; i < a.K * rows * Co; i += blockDim.x) {
@@ -208,10 +238,10 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
       const float* wk = a.wf + (size_t)k * Ci * Co + c;
       float acc = 0.f;
       for (int ci = 0; ci < Ci; ++ci)
-        acc = fmaf(load_x<kCoherent>(xr + ci), __ldg(wk + (size_t)ci * Co),
-                   acc);
+        acc = fmaf(Rnd::r(load_x<kCoherent>(xr + ci)),
+                   Rnd::r(__ldg(wk + (size_t)ci * Co)), acc);
       xf[(size_t)k * xf_kstride + (size_t)dst(row) * Co + c] =
-          acc + __ldg(a.bf + k * Co + c);
+          Rnd::r(acc + __ldg(a.bf + k * Co + c));
     }
   }
 }
@@ -223,8 +253,10 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
 // the whole sample's q/k (project_qk).  Then it builds the tile's adjacency
 // in shared memory, one thread per (k, v, w) pair with the tile's output
 // frames in registers (tanh scores recomputed per tile, mixing weights read
-// as float4), projects the tile's features and aggregates.
-template <int TILE, bool kCoherent, typename Store>
+// as float4), projects the tile's features and aggregates.  Rnd rounds the
+// contraction operands (x, wqk, wf, the scores, wrm, the features and the
+// adjacency); q/k, the mixing sums and the output stay float32.
+template <int TILE, bool kCoherent, typename Rnd = Exact, typename Store>
 __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
                            int tn, const Store& store) {
   constexpr int TP = (TILE + 3) & ~3;  // wmix row stride (float4 loads)
@@ -241,15 +273,15 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
   const float* xn = a.x + (size_t)n * TV * a.Ci;
 
   // stage the q/k weights and the tile's columns of the mixing weights
-  stage_qk_weights(wqk, bqk, a);
+  stage_qk_weights<Rnd>(wqk, bqk, a);
   for (int i = threadIdx.x; i < K * R * T * TP; i += blockDim.x) {
     const int tt = i % TP, krs = i / TP;  // krs = (k*R + r)*T + s
-    wmix[i] = tt < tn ? a.wrm[(size_t)krs * T + t0 + tt] : 0.f;
+    wmix[i] = tt < tn ? Rnd::r(a.wrm[(size_t)krs * T + t0 + tt]) : 0.f;
   }
   __syncthreads();
 
   // q/k of every source frame of the sample
-  project_qk<kCoherent>(a, xn, wqk, bqk, qk, false);
+  project_qk<kCoherent, Rnd>(a, xn, wqk, bqk, qk, false);
   __syncthreads();
 
   // dynamic adjacency of the tile's output frames: one thread per (k, v, w)
@@ -265,7 +297,7 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
           reinterpret_cast<const float4*>(wmix + (k * R + r) * T * TP);
 #pragma unroll 4
       for (int s = 0; s < T; ++s) {
-        const float sc = tanhf(qr[s * V] - kr[s * V]);
+        const float sc = Rnd::r(tanhf(qr[s * V] - kr[s * V]));
 #pragma unroll
         for (int q = 0; q < TP / 4; ++q) {
           const float4 m = wm[s * (TP / 4) + q];
@@ -281,12 +313,12 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
     for (int tt = 0; tt < TILE; ++tt)
       if (tt < tn)
         adj[(k * TILE + tt) * VV + vw] =
-            (acc[tt] + __ldg(a.brm + k * T + t0 + tt)) * alpha + b;
+            Rnd::r((acc[tt] + __ldg(a.brm + k * T + t0 + tt)) * alpha + b);
   }
 
   // feature projection of the tile's rows (contiguous in x)
   const int rows = tn * V;
-  project_features<kCoherent>(
+  project_features<kCoherent, Rnd>(
       a, xn, xf, rows, TILE * V * Co,
       [t0, V](int row) { return t0 * V + row; }, [](int row) { return row; });
   __syncthreads();
@@ -339,8 +371,8 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
 // joints, so the block needs the whole sample's q/k.  Then it builds the
 // tile's (T, T) adjacencies in shared memory, one thread per (k, t, u) pair
 // with the tile's joints in registers, projects the features of the tile's
-// joints over all frames and aggregates over frames.
-template <int TILE, bool kCoherent, typename Store>
+// joints over all frames and aggregates over frames.  Rnd as in spatial_op.
+template <int TILE, bool kCoherent, typename Rnd = Exact, typename Store>
 __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
                             int wn, const Store& store) {
   constexpr int TP = (TILE + 3) & ~3;  // wmix row stride (float4 loads)
@@ -357,15 +389,15 @@ __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
   const float* xn = a.x + (size_t)n * TV * a.Ci;
 
   // stage the q/k weights and the tile's columns of the mixing weights
-  stage_qk_weights(wqk, bqk, a);
+  stage_qk_weights<Rnd>(wqk, bqk, a);
   for (int i = threadIdx.x; i < K * R * V * TP; i += blockDim.x) {
     const int j = i % TP, krv = i / TP;  // krv = (k*R + r)*V + v
-    wmix[i] = j < wn ? a.wrm[(size_t)krv * V + w0 + j] : 0.f;
+    wmix[i] = j < wn ? Rnd::r(a.wrm[(size_t)krv * V + w0 + j]) : 0.f;
   }
   __syncthreads();
 
   // q/k of every (frame, joint) of the sample, stored joints-major
-  project_qk<kCoherent>(a, xn, wqk, bqk, qk, true);
+  project_qk<kCoherent, Rnd>(a, xn, wqk, bqk, qk, true);
   __syncthreads();
 
   // dynamic adjacency of the tile's output joints: one thread per (k, t, u)
@@ -381,7 +413,7 @@ __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
           reinterpret_cast<const float4*>(wmix + (k * R + r) * V * TP);
 #pragma unroll 4
       for (int v = 0; v < V; ++v) {
-        const float sc = tanhf(qr[v * T] - kr[v * T]);
+        const float sc = Rnd::r(tanhf(qr[v * T] - kr[v * T]));
 #pragma unroll
         for (int q = 0; q < TP / 4; ++q) {
           const float4 m = wm[v * (TP / 4) + q];
@@ -397,12 +429,12 @@ __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
     for (int j = 0; j < TILE; ++j)
       if (j < wn)
         adj[(k * TILE + j) * TT + tu] =
-            (acc[j] + __ldg(a.brm + k * V + w0 + j)) * alpha + b;
+            Rnd::r((acc[j] + __ldg(a.brm + k * V + w0 + j)) * alpha + b);
   }
 
   // feature projection of the tile's joints over all frames; row = t*wn+j
   const int rows = T * wn;
-  project_features<kCoherent>(
+  project_features<kCoherent, Rnd>(
       a, xn, xf, rows, T * TILE * Co,
       [w0, wn, V](int row) { return (row / wn) * V + w0 + row % wn; },
       [wn](int row) { return (row / wn) * TILE + row % wn; });

@@ -1,4 +1,5 @@
-// Spatial DSTD-GC forward, whole op in one kernel (float32).
+// Spatial DSTD-GC forward, whole op in one kernel (float32, and bf16
+// contraction operands).
 //
 // Replaces the TPU kernel dstdgcn_tpu/kernels/fused.py::_spatial_kernel
 // (entry dstd_spatial).  Same contract as the plain op
@@ -31,6 +32,16 @@
 // memory.  Everything is plain float32 FMA on the CUDA cores; no tensor cores
 // yet (the projections and the aggregation are small GEMMs that would fit
 // mma/wgmma tiles, in a later step).
+//
+// bf16 variant (dstd_spatial_bf16): the TPU kernel's compute dtype, which
+// rounds the operands of its four contractions (x wqk, x wf, s wrm,
+// adj xf) to bf16 and accumulates in float32.  The same body with the Bf16
+// rounding policy (dstd_common.cuh): x is rounded as it is loaded, the
+// weights as they are staged, the scores before the mixing FMAs, the
+// features and the adjacency once where they are stored in shared memory;
+// q/k, the sums and the output stay float32, and the products are float32
+// FMAs over the rounded operands (exact), so the variant costs a few
+// conversions more than the float32 kernel and moves the same bytes.
 #include "dstd_common.cuh"
 
 namespace {
@@ -39,22 +50,53 @@ using dstd::kMaxTile;
 using dstd::kThreads;
 using dstd::OpArgs;
 
-template <int TILE>
+template <int TILE, typename Rnd>
 __global__ void __launch_bounds__(kThreads) spatial_kernel(const OpArgs a) {
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, t0 = blockIdx.x * TILE;
-  dstd::spatial_op<TILE, false>(
+  dstd::spatial_op<TILE, false, Rnd>(
       a, reinterpret_cast<float*>(smem4), n, t0, min(TILE, a.T - t0),
       dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
 }
 
-template <int TILE>
+template <int TILE, typename Rnd>
 cudaError_t launch(const OpArgs& a, int N, size_t bytes,
                    cudaStream_t stream) {
   const int nblk = (a.T + TILE - 1) / TILE;
   if (nblk > dstd::kMaxCluster) return cudaErrorInvalidValue;
-  return dstd::launch_clustered(spatial_kernel<TILE>, a, nblk, N, bytes,
+  return dstd::launch_clustered(spatial_kernel<TILE, Rnd>, a, nblk, N, bytes,
                                 stream);
+}
+
+// One launch of the op on `stream` with rounding policy Rnd; returns the
+// cudaError_t of the launch (0 = success).
+template <typename Rnd>
+int run(const float* x, const float* base, const float* alpha,
+        const float* wf, const float* bf, const float* wm1,
+        const float* bm1, const float* wm2, const float* bm2,
+        const float* wrm, const float* brm, float* out, int N,
+        int T, int V, int Ci, int Co, int K, int R, int agg_left,
+        int tile, int device, void* stream) {
+  if (N == 0) return 0;
+  if (tile < 1 || tile > kMaxTile)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
+                 wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
+  const size_t bytes =
+      dstd::SpatialLayout(T, V, Ci, Co, K, R, tile).total * sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (tile) {
+    case 1: return (int)launch<1, Rnd>(a, N, bytes, st);
+    case 2: return (int)launch<2, Rnd>(a, N, bytes, st);
+    case 3: return (int)launch<3, Rnd>(a, N, bytes, st);
+    case 4: return (int)launch<4, Rnd>(a, N, bytes, st);
+    case 5: return (int)launch<5, Rnd>(a, N, bytes, st);
+    case 6: return (int)launch<6, Rnd>(a, N, bytes, st);
+    case 7: return (int)launch<7, Rnd>(a, N, bytes, st);
+    default: return (int)launch<8, Rnd>(a, N, bytes, st);
+  }
 }
 
 }  // namespace
@@ -71,33 +113,29 @@ const char* dstd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launch on `stream` and return the cudaError_t of the launch (0 =
+// success).  Float32:
 int dstd_spatial_f32(const float* x, const float* base, const float* alpha,
                      const float* wf, const float* bf, const float* wm1,
                      const float* bm1, const float* wm2, const float* bm2,
                      const float* wrm, const float* brm, float* out, int N,
                      int T, int V, int Ci, int Co, int K, int R, int agg_left,
                      int tile, int device, void* stream) {
-  if (N == 0) return 0;
-  if (tile < 1 || tile > kMaxTile)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
-                 wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
-  const size_t bytes =
-      (size_t)dstd_spatial_smem_bytes(T, V, Ci, Co, K, R, tile);
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (tile) {
-    case 1: return (int)launch<1>(a, N, bytes, st);
-    case 2: return (int)launch<2>(a, N, bytes, st);
-    case 3: return (int)launch<3>(a, N, bytes, st);
-    case 4: return (int)launch<4>(a, N, bytes, st);
-    case 5: return (int)launch<5>(a, N, bytes, st);
-    case 6: return (int)launch<6>(a, N, bytes, st);
-    case 7: return (int)launch<7>(a, N, bytes, st);
-    default: return (int)launch<8>(a, N, bytes, st);
-  }
+  return run<dstd::Exact>(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
+                          brm, out, N, T, V, Ci, Co, K, R, agg_left, tile,
+                          device, stream);
+}
+
+// bf16 contraction operands, float32 sums (the TPU kernel's bf16 dtype):
+int dstd_spatial_bf16(const float* x, const float* base, const float* alpha,
+                      const float* wf, const float* bf, const float* wm1,
+                      const float* bm1, const float* wm2, const float* bm2,
+                      const float* wrm, const float* brm, float* out, int N,
+                      int T, int V, int Ci, int Co, int K, int R, int agg_left,
+                      int tile, int device, void* stream) {
+  return run<dstd::Bf16>(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
+                         brm, out, N, T, V, Ci, Co, K, R, agg_left, tile,
+                         device, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Temporal DSTD-GC forward, whole op in one kernel (float32).
+// Temporal DSTD-GC forward, whole op in one kernel (float32, and bf16
+// contraction operands).
 //
 // Replaces the TPU kernel dstdgcn_tpu/kernels/fused.py::_temporal_kernel
 // (entry dstd_temporal).  Same contract as the plain op
@@ -29,6 +30,10 @@
 // features of the tile's joints over all frames (float4 register tiles, x read
 // through L1) and aggregates over frames.  The scores and the adjacency never
 // touch device memory.  Plain float32 FMA on the CUDA cores.
+//
+// bf16 variant (dstd_temporal_bf16): the TPU kernel's compute dtype, bf16
+// operands of the four contractions with float32 sums, through the Bf16
+// rounding policy of the shared body, as in dstd_spatial.cu.
 #include "dstd_common.cuh"
 
 namespace {
@@ -37,25 +42,56 @@ using dstd::kMaxTile;
 using dstd::kThreads;
 using dstd::OpArgs;
 
-template <int TILE>
+template <int TILE, typename Rnd>
 __global__ void __launch_bounds__(kThreads) temporal_kernel(const OpArgs a) {
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, w0 = blockIdx.x * TILE;
-  dstd::temporal_op<TILE, false>(
+  dstd::temporal_op<TILE, false, Rnd>(
       a, reinterpret_cast<float*>(smem4), n, w0, min(TILE, a.V - w0),
       dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
 }
 
-template <int TILE>
+template <int TILE, typename Rnd>
 cudaError_t launch(const OpArgs& a, int N, size_t bytes,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      temporal_kernel<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      temporal_kernel<TILE, Rnd>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.V + TILE - 1) / TILE, N);
-  temporal_kernel<TILE><<<grid, kThreads, bytes, stream>>>(a);
+  temporal_kernel<TILE, Rnd><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// One launch of the op on `stream` with rounding policy Rnd; returns the
+// cudaError_t of the launch (0 = success).
+template <typename Rnd>
+int run(const float* x, const float* base, const float* alpha,
+        const float* wf, const float* bf, const float* wm1,
+        const float* bm1, const float* wm2, const float* bm2,
+        const float* wrm, const float* brm, float* out, int N,
+        int T, int V, int Ci, int Co, int K, int R,
+        int agg_left, int tile, int device, void* stream) {
+  if (N == 0) return 0;
+  if (tile < 1 || tile > kMaxTile)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
+                 wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
+  const size_t bytes =
+      dstd::TemporalLayout(T, V, Ci, Co, K, R, tile).total * sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (tile) {
+    case 1: return (int)launch<1, Rnd>(a, N, bytes, st);
+    case 2: return (int)launch<2, Rnd>(a, N, bytes, st);
+    case 3: return (int)launch<3, Rnd>(a, N, bytes, st);
+    case 4: return (int)launch<4, Rnd>(a, N, bytes, st);
+    case 5: return (int)launch<5, Rnd>(a, N, bytes, st);
+    case 6: return (int)launch<6, Rnd>(a, N, bytes, st);
+    case 7: return (int)launch<7, Rnd>(a, N, bytes, st);
+    default: return (int)launch<8, Rnd>(a, N, bytes, st);
+  }
 }
 
 }  // namespace
@@ -72,33 +108,29 @@ const char* dstd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launch on `stream` and return the cudaError_t of the launch (0 =
+// success).  Float32:
 int dstd_temporal_f32(const float* x, const float* base, const float* alpha,
                       const float* wf, const float* bf, const float* wm1,
                       const float* bm1, const float* wm2, const float* bm2,
                       const float* wrm, const float* brm, float* out, int N,
                       int T, int V, int Ci, int Co, int K, int R,
                       int agg_left, int tile, int device, void* stream) {
-  if (N == 0) return 0;
-  if (tile < 1 || tile > kMaxTile)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
-                 wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
-  const size_t bytes =
-      (size_t)dstd_temporal_smem_bytes(T, V, Ci, Co, K, R, tile);
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (tile) {
-    case 1: return (int)launch<1>(a, N, bytes, st);
-    case 2: return (int)launch<2>(a, N, bytes, st);
-    case 3: return (int)launch<3>(a, N, bytes, st);
-    case 4: return (int)launch<4>(a, N, bytes, st);
-    case 5: return (int)launch<5>(a, N, bytes, st);
-    case 6: return (int)launch<6>(a, N, bytes, st);
-    case 7: return (int)launch<7>(a, N, bytes, st);
-    default: return (int)launch<8>(a, N, bytes, st);
-  }
+  return run<dstd::Exact>(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
+                          brm, out, N, T, V, Ci, Co, K, R, agg_left, tile,
+                          device, stream);
+}
+
+// bf16 contraction operands, float32 sums (the TPU kernel's bf16 dtype):
+int dstd_temporal_bf16(const float* x, const float* base, const float* alpha,
+                       const float* wf, const float* bf, const float* wm1,
+                       const float* bm1, const float* wm2, const float* bm2,
+                       const float* wrm, const float* brm, float* out, int N,
+                       int T, int V, int Ci, int Co, int K, int R,
+                       int agg_left, int tile, int device, void* stream) {
+  return run<dstd::Bf16>(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
+                         brm, out, N, T, V, Ci, Co, K, R, agg_left, tile,
+                         device, stream);
 }
 
 }  // extern "C"

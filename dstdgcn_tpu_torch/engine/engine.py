@@ -8,7 +8,10 @@ Counterpart of ``dstdgcn_tpu/engine/engine.py::PredictionEngine``:
   updated twice, in order), the total halved over the two directions, one
   backward pass, then clipping by global norm (``clip``), L2 weight decay
   added to the gradient and an Adam step (optax's chain
-  ``clip_by_global_norm`` → ``add_decayed_weights`` → ``adam``);
+  ``clip_by_global_norm`` → ``add_decayed_weights`` → ``adam``); under a
+  bf16 compute dtype the activations inside the model flow in bf16 while
+  its output, the losses, the parameters, their gradients and the Adam
+  state stay float32, as in the JAX engine;
 * StepLR per epoch (:func:`steplr`), written into the param groups;
 * the epoch loop with ``detect_anomaly`` and the step-timer summary;
 * the eval step of ``_build_eval_step`` inside :meth:`test`, through the
@@ -168,15 +171,21 @@ class PredictionEngine:
     def _eval_forward(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """The eval step's forward: the model's, or with
         ``engine.fused_inference`` the fused path, its weights derived once
-        for the sweep (eval weights do not change within one)."""
-        self.model.eval()
+        for the sweep (eval weights do not change within one) and its
+        compute dtype resolved per batch as the model resolves it ("auto"
+        at the model's batch hint)."""
+        model = self.model.eval()
         if not self.fused_inference:
-            return self.model
-        cd = getattr(self.model, "compute_dtype", None)
-        return functools.partial(
-            infer.fused_eval_forward, self.model,
-            dtype=None if cd is None else getattr(torch, cd),
-            weights=infer.fused_weights(self.model))
+            return model
+        weights = infer.fused_weights(model)
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            cd = model.resolve_knobs(x.shape[0])["compute_dtype"]
+            return infer.fused_eval_forward(
+                model, x, dtype=None if cd is None else getattr(torch, cd),
+                weights=weights)
+
+        return forward
 
     @torch.inference_mode()
     def _eval_step(self, forward, inputs, all_seqs, input_n, eval_frame,

@@ -43,19 +43,24 @@ _PTR = ctypes.c_void_p
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _INT = ctypes.c_int
 _SIZE = ctypes.c_longlong
-#: C functions of a one-op library, suffix -> (argtypes, restype)
+#: (x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, out,
+#:  N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
+_OP_LAUNCH = ([_PTR] * 12 + [_INT] * 10 + [_PTR], ctypes.c_int)
+#: (x, g, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, dx, dbase,
+#:  dalpha, dwf, dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm, scratch,
+#:  N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
+_BWD_LAUNCH = ([_PTR] * 24 + [_INT] * 10 + [_PTR], ctypes.c_int)
+#: C functions of a one-op library, suffix -> (argtypes, restype); ``f32``
+#: computes in float32, ``bf16`` with bf16 contraction operands
 _FORWARD = {
-    # (x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, out,
-    #  N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
-    "f32": ([_PTR] * 12 + [_INT] * 10 + [_PTR], ctypes.c_int),
+    "f32": _OP_LAUNCH,
+    "bf16": _OP_LAUNCH,
     # (T, V, Ci, Co, K, R, tile)
     "smem_bytes": ([_INT] * 7, _SIZE),
 }
 _BACKWARD = {
-    # (x, g, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm, dx, dbase,
-    #  dalpha, dwf, dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm, scratch,
-    #  N, T, V, Ci, Co, K, R, agg_left, tile, device, stream)
-    "f32": ([_PTR] * 24 + [_INT] * 10 + [_PTR], ctypes.c_int),
+    "f32": _BWD_LAUNCH,
+    "bf16": _BWD_LAUNCH,
     "smem_bytes": ([_INT] * 7, _SIZE),
     # (N, T, V, Ci, Co, K, R, tile)
     "scratch_floats": ([_INT] * 8, _SIZE),

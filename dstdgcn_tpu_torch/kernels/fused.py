@@ -14,11 +14,18 @@ call is a single forward launch.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor the same Function runs the plain op of :mod:`..ops.dstd` and the
-hand-derived plain backward of :mod:`..ops.dstd_bwd`.  A ``mask``, or a
-``dtype`` on the CPU, takes the plain op under autograd; a ``dtype`` on the
-card raises (bf16 kernels are not ported).  Every wrapper counts its kernel
-launches in ``.launches`` (a plain integer; :func:`reset_launch_counts`
-zeroes them); one backward call is :data:`BWD_LAUNCHES` launches.
+hand-derived plain backward of :mod:`..ops.dstd_bwd`.  A ``mask`` takes the
+plain op under autograd, as in the JAX package.  ``dtype=torch.bfloat16``
+selects the kernels' bf16 variants (``dstd_*_bf16``): the operands of every
+in-kernel contraction rounded to bf16, sums in float32, as the TPU kernels'
+``dtype`` does; on the CPU their plain version is
+:func:`..ops.dstd.kernel_spatial` / ``kernel_temporal`` and the plain
+backward with the same ``dtype``.  ``x`` (and the cotangent) may then be
+bf16 and go to the kernels as float32; the output is cast to ``dtype`` and
+the gradients come back in the primals' dtypes.  Every wrapper counts its
+kernel launches, float32 in ``.launches`` and bf16 in ``.launches_bf16``
+(plain integers; :func:`reset_launch_counts` zeroes them); one backward
+call is :data:`BWD_LAUNCHES` launches.
 
 ``dstd_chain`` and ``dstd_encoder_chain`` keep the argument structure of
 their JAX counterparts (``x, blocks_or_layers, agg, dtype, nb``) and run a
@@ -74,17 +81,20 @@ def _op_shapes(k, ci, co, r, ref, pair, lead=()):
     return shapes
 
 
-def _check_arrays(name: str, x: torch.Tensor, arrays: Dict, want: Dict):
+def _check_arrays(name: str, x: torch.Tensor, arrays: Dict, want: Dict,
+                  low=()):
     """Raise unless every tensor of ``arrays`` lies on x's device as a
-    contiguous float32 tensor that starts on a 16-byte boundary, with the
-    shape ``want`` gives for its key (where it gives one)."""
+    contiguous float32 tensor (bf16 too for the keys in ``low``, which the
+    wrapper converts) that starts on a 16-byte boundary, with the shape
+    ``want`` gives for its key (where it gives one)."""
     for key, arr in arrays.items():
         if not isinstance(arr, torch.Tensor):
             raise TypeError(f"{name}: {key} must be a tensor")
         if arr.device != x.device:
             raise ValueError(f"{name}: {key} on {arr.device}, x on "
                              f"{x.device}")
-        if arr.dtype != torch.float32:
+        if arr.dtype != torch.float32 and not (
+                key in low and arr.dtype == torch.bfloat16):
             raise TypeError(f"{name}: {key} is {arr.dtype}; the kernel "
                             "takes float32")
         if not arr.is_contiguous():
@@ -109,7 +119,26 @@ class _Kernel:
         self.default_tile = default_tile
         self.clustered = clustered
         self.launches = 0
+        self.launches_bf16 = 0
         self._plans: Dict[tuple, tuple] = {}
+
+    def _variant(self, dtype) -> str:
+        """The C function suffix of a compute dtype (``f32`` or ``bf16``);
+        raises for a dtype that has no kernel."""
+        if dtype is None:
+            return "f32"
+        if dtype == torch.bfloat16:
+            return "bf16"
+        raise NotImplementedError(
+            f"{self.name}: the CUDA kernels compute in float32 or with "
+            f"bfloat16 contraction operands; compute dtype {dtype} has no "
+            "kernel")
+
+    def _count(self, variant: str, launches: int) -> None:
+        if variant == "bf16":
+            self.launches_bf16 += launches
+        else:
+            self.launches += launches
 
     def _check(self, x, weights, g=None):
         if x.dim() != 4:
@@ -125,7 +154,7 @@ class _Kernel:
         args = dict(x=x, **weights)
         if g is not None:
             args["g"] = g
-        _check_arrays(self.name, x, args, want)
+        _check_arrays(self.name, x, args, want, low=("x", "g"))
         if weights["alpha"].numel() != 1:
             raise ValueError(f"{self.name}: alpha must hold one value")
         if n > MAX_SAMPLES:
@@ -180,17 +209,21 @@ class FusedBwd(_Kernel):
         self.plain = plain_fn
 
     def __call__(self, x, g, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
-                 brm, agg: str = "right", *, tile: int | None = None):
+                 brm, agg: str = "right", dtype=None, *,
+                 tile: int | None = None):
+        dtype = _compute_dtype(dtype)
         if x.device.type == "cpu":
             return self.plain(x, g, base, alpha, wf, bf, wm1, bm1, wm2, bm2,
-                              wrm, brm, agg=agg)
+                              wrm, brm, agg=agg, dtype=dtype)
         if x.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {x.device}")
         if agg not in ("right", "left"):
             raise ValueError(f"agg={agg!r}: expected 'right' or 'left'")
+        variant = self._variant(dtype)
         weights = dict(zip(_WEIGHTS, (base, alpha, wf, bf, wm1, bm1, wm2,
                                       bm2, wrm, brm)))
         n, t, v, ci, co, k, r = self._check(x, weights, g)
+        x, g = x.float(), g.float()
         lib, tile, floats = self._plan(n, t, v, ci, co, k, r, tile)
         grads = [torch.empty_like(x)] + [torch.empty_like(weights[key])
                                          for key in _WEIGHTS]
@@ -200,11 +233,11 @@ class FusedBwd(_Kernel):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [a.data_ptr() for a in [x, g] + list(weights.values())
                 + grads + [scratch]]
-        err = getattr(lib, f"{self.name}_f32")(
+        err = getattr(lib, f"{self.name}_{variant}")(
             *ptrs, n, t, v, ci, co, k, r, int(agg == "left"), tile,
             x.device.index, stream)
         self._raise_on(lib, err)
-        self.launches += BWD_LAUNCHES
+        self._count(variant, BWD_LAUNCHES)
         return tuple(grads)
 
 
@@ -212,77 +245,105 @@ class FusedOp(_Kernel):
     """One DSTD-GC op: CUDA kernels on the card, plain ops on the CPU,
     differentiable through :class:`_DSTDFunction`."""
 
-    def __init__(self, mode: str, plain_fn, default_tile: int,
+    def __init__(self, mode: str, plain_fn, kernel_fn, default_tile: int,
                  clustered: bool, bwd: FusedBwd):
         super().__init__(f"dstd_{mode}", mode, default_tile, clustered)
         self.plain = plain_fn
+        self.kernel_plain = kernel_fn
         self.bwd = bwd
 
     def __call__(self, x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
                  mask=None, agg: str = "right", dtype=None, *,
                  tile: int | None = None) -> torch.Tensor:
-        if mask is not None or (dtype is not None and x.device.type == "cpu"):
+        if mask is not None:
             return self.plain(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2,
                               wrm, brm, mask, agg, dtype)
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{self.name}: unsupported device {x.device}")
-        if dtype is not None:
-            raise NotImplementedError(
-                f"{self.name}: the CUDA kernel is float32 only; compute "
-                f"dtype {dtype} is ROADMAP Queue 2 (bf16 kernels)")
         if agg not in ("right", "left"):
             raise ValueError(f"agg={agg!r}: expected 'right' or 'left'")
-        alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+        dtype = _compute_dtype(dtype)
+        if x.device.type == "cuda":
+            self._variant(dtype)
+        alpha = torch.as_tensor(alpha, device=x.device, dtype=torch
+                                .promote_types(x.dtype, torch.float32))
         args = (x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm)
         if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-            return _DSTDFunction.apply(self, agg, tile, *args)
-        return self.forward(*args, agg=agg, tile=tile)
+            return _DSTDFunction.apply(self, agg, dtype, tile, *args)
+        return self.forward(*args, agg=agg, dtype=dtype, tile=tile)
 
     def forward(self, x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
-                agg: str = "right", tile: int | None = None) -> torch.Tensor:
+                agg: str = "right", dtype=None,
+                tile: int | None = None) -> torch.Tensor:
         """One forward call, outside autograd."""
         if x.device.type == "cpu":
-            return self.plain(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2,
-                              wrm, brm, None, agg)
+            if dtype is None:
+                return self.plain(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2,
+                                  wrm, brm, None, agg)
+            return self.kernel_plain(x, base, alpha, wf, bf, wm1, bm1, wm2,
+                                     bm2, wrm, brm, agg, dtype).to(dtype)
+        out = self.launch(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
+                          brm, agg=agg, dtype=dtype, tile=tile)
+        return out if dtype is None else out.to(dtype)
+
+    def launch(self, x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
+               agg: str = "right", dtype=None,
+               tile: int | None = None) -> torch.Tensor:
+        """One kernel launch on the card, outside autograd: the float32
+        variant, or with ``dtype=torch.bfloat16`` the bf16 one; returns the
+        kernel's float32 output, before :meth:`forward` casts it to
+        ``dtype`` (the plain version of that output is ``kernel_plain``)."""
+        variant = self._variant(dtype)
         weights = dict(zip(_WEIGHTS, (base, alpha, wf, bf, wm1, bm1, wm2,
                                       bm2, wrm, brm)))
         n, t, v, ci, co, k, r = self._check(x, weights)
+        x = x.float()
         lib, tile, _ = self._plan(n, t, v, ci, co, k, r, tile)
         out = torch.empty((n, t, v, co), device=x.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [a.data_ptr() for a in [x] + list(weights.values()) + [out]]
-        err = getattr(lib, f"{self.name}_f32")(
+        err = getattr(lib, f"{self.name}_{variant}")(
             *ptrs, n, t, v, ci, co, k, r, int(agg == "left"), tile,
             x.device.index, stream)
         self._raise_on(lib, err)
-        self.launches += 1
+        self._count(variant, 1)
         return out
+
+
+def _compute_dtype(dtype):
+    """None for float32 compute (``None`` or ``torch.float32``), else the
+    torch dtype the contraction operands are rounded to."""
+    return None if dtype in (None, torch.float32) else dtype
 
 
 class _DSTDFunction(torch.autograd.Function):
     """Forward kernel saving ``x`` and the weights; backward kernel on the
-    cotangent (``jax.custom_vjp`` of ``dstdgcn_tpu/kernels/fused.py``)."""
+    cotangent (``jax.custom_vjp`` of ``dstdgcn_tpu/kernels/fused.py``),
+    the gradients in the primals' dtypes."""
 
     @staticmethod
-    def forward(ctx, op, agg, tile, *args):
-        ctx.op, ctx.agg = op, agg
+    def forward(ctx, op, agg, dtype, tile, *args):
+        ctx.op, ctx.agg, ctx.dtype = op, agg, dtype
         ctx.save_for_backward(*args)
-        return op.forward(*args, agg=agg, tile=tile)
+        return op.forward(*args, agg=agg, dtype=dtype, tile=tile)
 
     @staticmethod
     def backward(ctx, g):
-        x, *weights = ctx.saved_tensors
-        grads = ctx.op.bwd(x, g.contiguous(), *weights, agg=ctx.agg)
-        return (None, None, None) + tuple(grads)
+        saved = ctx.saved_tensors
+        grads = ctx.op.bwd(saved[0], g.contiguous(), *saved[1:],
+                           agg=ctx.agg, dtype=ctx.dtype)
+        return (None,) * 4 + tuple(gr.to(a.dtype)
+                                   for gr, a in zip(grads, saved))
 
 
 dstd_spatial_bwd = FusedBwd("spatial", plain_bwd.dstd_spatial_bwd,
                             default_tile=5)
 dstd_temporal_bwd = FusedBwd("temporal", plain_bwd.dstd_temporal_bwd,
                              default_tile=5)
-dstd_spatial = FusedOp("spatial", plain.dstd_spatial, default_tile=5,
-                       clustered=True, bwd=dstd_spatial_bwd)
-dstd_temporal = FusedOp("temporal", plain.dstd_temporal, default_tile=6,
+dstd_spatial = FusedOp("spatial", plain.dstd_spatial, plain.kernel_spatial,
+                       default_tile=5, clustered=True, bwd=dstd_spatial_bwd)
+dstd_temporal = FusedOp("temporal", plain.dstd_temporal,
+                        plain.kernel_temporal, default_tile=6,
                         clustered=False, bwd=dstd_temporal_bwd)
 
 # -- chains of ops in one launch ------------------------------------------
@@ -295,18 +356,21 @@ def bn_affine(scale, bias, mean, var, eps: float = 1e-5) -> torch.Tensor:
     return torch.stack([inv, bias - mean * inv])
 
 
-def _plain_op(fn, x, args, agg, dtype):
-    """One plain op of a chain; with a ``dtype`` its output goes back to
-    float32, as the chain kernels keep activations in float32."""
-    y = fn(x, *args, agg=agg, dtype=dtype)
-    return y if dtype is None else y.float()
+def _plain_op(mode, x, args, agg, dtype):
+    """One plain op of a chain; with a ``dtype`` the kernels' rounding
+    (:func:`..ops.dstd.kernel_spatial`), the output kept in float32 as the
+    chain kernels keep activations."""
+    if dtype is None:
+        return getattr(plain, f"dstd_{mode}")(x, *args, agg=agg)
+    return getattr(plain, f"kernel_{mode}")(x, *args, agg=agg,
+                                            dtype=_compute_dtype(dtype))
 
 
 def _chain_oracle(x, blocks, agg, dtype=None):
     """Plain version of :data:`dstd_chain`: the ops one by one."""
     for sp, tm in blocks:
-        x = _plain_op(plain.dstd_spatial, x, sp, agg, dtype)
-        x = _plain_op(plain.dstd_temporal, x, tm, agg, dtype)
+        x = _plain_op("spatial", x, sp, agg, dtype)
+        x = _plain_op("temporal", x, tm, agg, dtype)
     return x
 
 
@@ -315,10 +379,10 @@ def _encoder_oracle(x, layers, agg, dtype=None):
     order: the first affine before the residual, the second after it, both
     residuals from the layer input."""
     for sp, tm, aff1, aff2, pa in layers:
-        y = _plain_op(plain.dstd_spatial, x, sp, agg, dtype)
+        y = _plain_op("spatial", x, sp, agg, dtype)
         y = y * aff1[0] + aff1[1] + x
         y = torch.where(y >= 0, y, pa[0] * y)
-        z = _plain_op(plain.dstd_temporal, y, tm, agg, dtype) + x
+        z = _plain_op("temporal", y, tm, agg, dtype) + x
         z = z * aff2[0] + aff2[1]
         x = torch.where(z >= 0, z, pa[1] * z)
     return x
@@ -469,10 +533,11 @@ class ChainOp:
             raise ValueError(f"agg={agg!r}: expected 'right' or 'left'")
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{self.name}: unsupported device {x.device}")
-        if dtype is not None and x.device.type == "cuda":
+        if _compute_dtype(dtype) is not None and x.device.type == "cuda":
             raise NotImplementedError(
-                f"{self.name}: the CUDA kernel is float32 only; compute "
-                f"dtype {dtype} is ROADMAP Queue 2 (bf16 kernels)")
+                f"{self.name}: the CUDA chain kernel is float32 only; its "
+                f"compute dtype {dtype} (bf16 kernels 3 and 4) is the next "
+                "slice of the port, ROADMAP Queue 2")
 
 
 class DSTDChain(ChainOp):
@@ -574,9 +639,17 @@ _KERNELS = (dstd_spatial, dstd_temporal, dstd_spatial_bwd, dstd_temporal_bwd,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {op.name: op.launches for op in _KERNELS}
+    """Launches of each kernel since the last reset: the float32 kernels
+    under their names, the bf16 variants of the one-op kernels as
+    ``<name>_bf16``."""
+    counts = {op.name: op.launches for op in _KERNELS}
+    counts.update({f"{op.name}_bf16": op.launches_bf16 for op in _KERNELS
+                   if isinstance(op, _Kernel)})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for op in _KERNELS:
         op.launches = 0
+        if isinstance(op, _Kernel):
+            op.launches_bf16 = 0

@@ -15,7 +15,9 @@ from typing import Any, Optional, Union
 import torch
 from torch import nn
 
-from .layers import Dropout, JointBatchNorm, PReLU, STGCNNLayer, reset_all
+from . import autotune
+from .layers import (DSTDGCB, Dropout, JointBatchNorm, PReLU, STGCNNLayer,
+                     reset_all)
 
 __all__ = ["DSTDGCN", "get_model"]
 
@@ -27,7 +29,11 @@ class DSTDGCN(nn.Module):
     aggregation; ``use_pallas`` routes the DSTD-GC ops through the CUDA
     kernels (see :class:`.layers.DSTDGC`).  ``pair_flat`` and the
     ``agg_group_*`` sizes are layout choices of the JAX package with the
-    same result and change nothing here.  Parameters start from
+    same result and change nothing here.  ``compute_dtype`` and the
+    ``agg_group_*`` sizes accept "auto": each forward resolves them from its
+    batch size, or from ``auto_batch_hint`` when one is given, by the table
+    of :mod:`.autotune` (:meth:`resolve_knobs`), and the submodules see only
+    the resolved values.  Parameters start from
     ``torch.Generator().manual_seed(seed)``; call :meth:`reset_parameters`
     with another generator to draw them again.  Dropout draws its masks from
     ``do_in.generator`` (seeded ``seed + 1``).
@@ -46,15 +52,9 @@ class DSTDGCN(nn.Module):
                  remat: Union[bool, str] = False,
                  auto_batch_hint: Optional[int] = None, seed: int = 0):
         super().__init__()
-        knobs = dict(compute_dtype=compute_dtype, pair_flat=pair_flat,
-                     agg_group_spatial=agg_group_spatial,
-                     agg_group_temporal=agg_group_temporal)
-        autos = sorted(k for k, v in knobs.items() if v == "auto")
-        if autos:
-            raise NotImplementedError(
-                f"{autos} = 'auto': the auto-knob policy has no H100 "
-                "measurements yet (ROADMAP Queue 1 item 13); set the knobs "
-                "explicitly")
+        if pair_flat == "auto":
+            raise ValueError("pair_flat takes no 'auto' (the knobs that do: "
+                             f"{', '.join(autotune.AUTO_KNOBS)})")
         if bn_axis_name is not None:
             raise NotImplementedError(
                 "bn_axis_name (cross-replica BatchNorm) belongs to the "
@@ -63,18 +63,26 @@ class DSTDGCN(nn.Module):
             raise NotImplementedError(
                 "model.remat (activation rematerialisation in training) is "
                 "not ported yet (ROADMAP Queue 1 item 6)")
-        del pair_flat, agg_group_spatial, agg_group_temporal, auto_batch_hint
+        del pair_flat
+        #: the knobs as configured ("auto" or a value) and the batch that
+        #: resolves "auto" when given
+        self.knobs = dict(compute_dtype=compute_dtype,
+                          agg_group_spatial=agg_group_spatial,
+                          agg_group_temporal=agg_group_temporal)
+        self.auto_batch_hint = auto_batch_hint
         self.input_channels = input_channels
         self.input_time_frame = input_time_frame
         self.output_time_frame = output_time_frame
         self.joints_to_consider = joints_to_consider
         self.num_layers = num_layers
         self.fast = fast
-        self.compute_dtype = compute_dtype
         t, v, f = (input_time_frame + output_time_frame, joints_to_consider,
                    num_feature)
+        #: the compute dtype the blocks run at now (resolved)
+        self.active_dtype = self.resolve_knobs(
+            auto_batch_hint or 1)["compute_dtype"]
         common = dict(time_dim=t, joints_dim=v, layout=layout, fast=fast,
-                      use_pallas=use_pallas, compute_dtype=compute_dtype)
+                      use_pallas=use_pallas, compute_dtype=self.active_dtype)
         self.conv_st_in = STGCNNLayer(input_channels, f, residual=False,
                                       **common)
         self.bn_in = JointBatchNorm(v, f)
@@ -94,12 +102,29 @@ class DSTDGCN(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_all(self, generator)
 
+    def resolve_knobs(self, batch_size: int) -> dict:
+        """The knobs a forward of ``batch_size`` samples runs with: each
+        "auto" resolved at ``auto_batch_hint`` (or, without one, at
+        ``batch_size``), the others as configured."""
+        return {name: autotune.resolve_knob(name, value, batch_size,
+                                            self.auto_batch_hint)
+                for name, value in self.knobs.items()}
+
+    def _set_compute_dtype(self, dtype) -> None:
+        for m in self.modules():
+            if isinstance(m, DSTDGCB):
+                m.set_compute_dtype(dtype)
+        self.active_dtype = dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, v, c = x.shape
         tt = self.input_time_frame + self.output_time_frame
         if t != tt or v != self.joints_to_consider:
             raise ValueError(f"input {tuple(x.shape)}: expected T={tt} and "
                              f"V={self.joints_to_consider}")
+        dtype = self.resolve_knobs(n)["compute_dtype"]
+        if dtype != self.active_dtype:
+            self._set_compute_dtype(dtype)
         # motion decomposition: the last padded frame is the last observed
         # frame; channels = (position, position - last)
         residual = x[:, -1:]

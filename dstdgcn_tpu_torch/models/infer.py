@@ -123,9 +123,10 @@ def fused_eval_forward(model, x: torch.Tensor, dtype=None,
 
     Equals ``model.eval()(x)``; ``x`` is the padded (N, T, V, 3) position
     sequence.  ``weights`` is :func:`fused_weights` of ``model``, derived
-    here when not given.  ``dtype`` is the compute dtype of the ops (on the
-    card only ``None``, float32).  The encoder kernel has no gradient: call
-    under ``torch.no_grad()`` or ``torch.inference_mode()``.
+    here when not given.  ``dtype`` is the compute dtype of the ops; on the
+    card the encoder kernel takes only ``None`` (float32) so far and raises
+    for bf16.  The encoder kernel has no gradient: call under
+    ``torch.no_grad()`` or ``torch.inference_mode()``.
     """
     w = fused_weights(model) if weights is None else weights
     agg = "left" if model.fast else "right"

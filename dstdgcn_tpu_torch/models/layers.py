@@ -57,14 +57,19 @@ class JointBatchNorm(nn.Module):
 
     Every (v, c) feature is normalized over the N*T samples; in training the
     running statistics follow torch's momentum (0.1) with the unbiased
-    batch variance.
+    batch variance, computed in the parameters' type (float32, or float64
+    in a float64 model) whatever the input's dtype.  The output is cast to
+    ``dtype`` (the JAX module's ``dtype``: the DSTD-GC block sets its
+    activation dtype); with ``None`` it keeps the arithmetic's type,
+    float32 for a float32 or bf16 input.
     """
 
     def __init__(self, joints: int, channels: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(joints, channels))
         self.bias = nn.Parameter(torch.zeros(joints, channels))
         self.register_buffer("mean", torch.zeros(joints, channels))
@@ -79,9 +84,10 @@ class JointBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            xf = x.to(torch.promote_types(x.dtype, self.scale.dtype))
             cnt = x.shape[0] * x.shape[1]
-            mean = x.mean(dim=(0, 1))
-            var = (x * x).mean(dim=(0, 1)) - mean * mean
+            mean = xf.mean(dim=(0, 1))
+            var = (xf * xf).mean(dim=(0, 1)) - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * (cnt / max(cnt - 1, 1))
@@ -90,11 +96,13 @@ class JointBatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean) * inv + self.bias
+        out = (x - mean) * inv + self.bias
+        return out if self.dtype is None else out.to(self.dtype)
 
 
 class PReLU(nn.Module):
-    """Single-parameter PReLU, initial slope 0.25."""
+    """Single-parameter PReLU, initial slope 0.25; the slope is cast to the
+    input's dtype, so a bf16 input stays bf16 as in the JAX module."""
 
     def __init__(self, init: float = 0.25):
         super().__init__()
@@ -107,7 +115,8 @@ class PReLU(nn.Module):
             self.negative_slope.fill_(self.init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.negative_slope * x)
+        return torch.where(x >= 0, x,
+                           self.negative_slope.to(x.dtype) * x)
 
 
 class Dropout(nn.Module):
@@ -207,7 +216,9 @@ class DSTDGCB(nn.Module):
     (init 0) and ``R_s`` learnable (init the adjacency stack).  The fast
     variant learns one ``A_s`` (init the adjacency stack).  The temporal
     base is ``A_t + R_t`` with ``A_t`` the fixed "neighboor" matrix and
-    ``R_t`` learnable (init 0).
+    ``R_t`` learnable (init 0).  With a ``compute_dtype`` the block's
+    activations flow in that dtype as in the JAX block: both ops emit it,
+    ``bn`` and ``residual_bn`` cast to it, and the PReLU keeps it.
     """
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int,
@@ -239,13 +250,22 @@ class DSTDGCB(nn.Module):
             self.residual_bn = JointBatchNorm(joint_dim, co)
         agg = "left" if fast else "right"
         self.spatial = DSTDGC(ci, co, time_dim, ks, mode="spatial", agg=agg,
-                              use_pallas=use_pallas,
-                              compute_dtype=compute_dtype)
+                              use_pallas=use_pallas)
         self.bn = JointBatchNorm(joint_dim, co)
         self.prelu = PReLU()
         self.temporal = DSTDGC(co, co, joint_dim, kt, mode="temporal",
-                               agg=agg, use_pallas=use_pallas,
-                               compute_dtype=compute_dtype)
+                               agg=agg, use_pallas=use_pallas)
+        self.set_compute_dtype(compute_dtype)
+
+    def set_compute_dtype(self, compute_dtype: Optional[str]) -> None:
+        """Set the compute dtype of both ops and the activation dtype of the
+        block's BatchNorms (None: float32)."""
+        self.spatial.compute_dtype = self.temporal.compute_dtype = \
+            compute_dtype
+        act = None if compute_dtype is None else getattr(torch, compute_dtype)
+        self.bn.dtype = act
+        if hasattr(self, "residual_bn"):
+            self.residual_bn.dtype = act
 
     def reset_parameters(self, g: torch.Generator) -> None:
         with torch.no_grad():

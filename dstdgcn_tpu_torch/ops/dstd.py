@@ -17,7 +17,13 @@ C channels, R reduction channels (2), K stacked graph kernels (2 spatial,
 
 ``dtype`` (e.g. ``torch.bfloat16``) rounds the inputs of every contraction
 to that type while the products and sums stay float32, and the op emits
-``dtype``; ``None`` is plain float32.
+``dtype``; ``None`` is plain float32.  These are the rounding points of the
+JAX package's XLA path (q/k and the adjacency are computed in ``dtype``).
+The fused kernels round elsewhere: :func:`kernel_spatial` and
+:func:`kernel_temporal` are the plain version of the kernels' contract
+(``dstdgcn_tpu/kernels/fused.py::_spatial_kernel`` / ``_temporal_kernel``
+with a ``dtype``), which rounds only the operands of the four contractions
+``x wqk``, ``x wf``, ``s wrm`` and ``adj xf``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ __all__ = [
     "aggregate_temporal",
     "dstd_spatial",
     "dstd_temporal",
+    "kernel_spatial",
+    "kernel_temporal",
 ]
 
 
@@ -43,8 +51,11 @@ def _cast(x: torch.Tensor, dtype) -> torch.Tensor:
 
 def _dot_in(x: torch.Tensor, dtype) -> torch.Tensor:
     """Contraction input: rounded to ``dtype``, computed in float32 (a
-    product of two bf16 values is exact in float32)."""
-    return x if dtype is None else x.to(dtype).float()
+    product of two bf16 values is exact in float32), or in float64 for a
+    float64 input (a float64 reference of the same rounding)."""
+    if dtype is None:
+        return x
+    return x.to(dtype).to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _project(x, w, b, dtype=None) -> torch.Tensor:
@@ -183,3 +194,53 @@ def dstd_temporal(x, base_adj, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
         + _cast(base_adj, dtype)[:, None, None, :, :]
     out = aggregate_temporal(xf, adj, agg, dtype)
     return out if dtype is None else out.to(dtype)
+
+
+def _wide(x, w) -> torch.dtype:
+    """The arithmetic type of a kernel-form op: float32 for a float32 or
+    bf16 activation and float32 weights, float64 for float64 weights."""
+    return torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                               torch.float32)
+
+
+def _kernel_op(mode, x, base_adj, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
+               brm, agg, dtype):
+    _check_agg(agg)
+    x = x.to(_wide(x, wf))
+    a = torch.as_tensor(alpha, dtype=x.dtype, device=x.device).reshape(())
+    layout = "rtv" if mode == "spatial" else "rvt"   # q/k (K,N,R,S,P)
+    xr = _dot_in(x, dtype)
+    xf = _project(x, wf, bf, dtype)                           # (K,N,T,V,Co)
+    q = torch.einsum(f"ntvc,kcr->kn{layout}", xr, _dot_in(wm1, dtype)) \
+        + bm1[:, None, :, None, None]
+    k = torch.einsum(f"ntvc,kcr->kn{layout}", xr, _dot_in(wm2, dtype)) \
+        + bm2[:, None, :, None, None]
+    s = torch.tanh(q[..., :, None] - k[..., None, :])         # (K,N,R,S,P,P)
+    # spatial dyn[t,v,w] = sum_{r,s} s[r,s,v,w] wrm[r,s,t]; temporal
+    # dyn[w,t,u] = sum_{r,v} s[r,v,t,u] wrm[r,v,w]
+    dyn = torch.einsum("knrsij,krso->knoij", _dot_in(s, dtype),
+                       _dot_in(wrm, dtype)) + brm[:, None, :, None, None]
+    adj = dyn * a + base_adj[:, None, None]
+    fn = aggregate_spatial if mode == "spatial" else aggregate_temporal
+    return fn(xf, adj, agg, dtype)
+
+
+def kernel_spatial(x, base_adj, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
+                   agg: str = "right", dtype=None) -> torch.Tensor:
+    """The spatial op as the fused kernels compute it with a compute
+    ``dtype``: the operands of the four contractions (``x wqk``, ``x wf``,
+    ``s wrm``, ``adj xf``) rounded to ``dtype``, everything else (q/k, the
+    tanh, the mixing sums, ``(dyn + brm) alpha + base``) in float32 (in
+    float64 for float64 weights: a reference of the same rounding).
+    Returns the float32 output before the kernels' wrapper casts it to
+    ``dtype``; with ``dtype`` None it is :func:`dstd_spatial` in float32."""
+    return _kernel_op("spatial", x, base_adj, alpha, wf, bf, wm1, bm1, wm2,
+                      bm2, wrm, brm, agg, dtype)
+
+
+def kernel_temporal(x, base_adj, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
+                    brm, agg: str = "right", dtype=None) -> torch.Tensor:
+    """The temporal op as the fused kernels compute it (see
+    :func:`kernel_spatial`)."""
+    return _kernel_op("temporal", x, base_adj, alpha, wf, bf, wm1, bm1, wm2,
+                      bm2, wrm, brm, agg, dtype)

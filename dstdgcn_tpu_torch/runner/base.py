@@ -36,7 +36,16 @@ class BaseRunner:
         if "t" in self.config["mode"]:
             model_opts = {k: v for k, v in dict(config["model"]).items()
                           if k != "name"}
-            model = get_model(config["model"]["name"], **model_opts)
+            model_name = config["model"]["name"]
+            # pin "auto" knob resolution to the configured train batch so
+            # that a ragged last batch or an eval batch of another size does
+            # not flip the knobs within a run (models/autotune.py)
+            knobs = list(dict(model_opts.get(model_name, {})).values()) \
+                + list(model_opts.values())
+            if any(isinstance(v, str) and v == "auto" for v in knobs):
+                model_opts.setdefault(
+                    "auto_batch_hint", int(config["train_batch_size"]))
+            model = get_model(model_name, **model_opts)
             self.engine = PredictionEngine(config["engine"], model,
                                            self.logger, device=device)
         self.save_files()

@@ -65,7 +65,7 @@ def test_routed_op_in_train_mode_raises():
     """A routed op in train mode no longer raises: it trains through the
     kernels' autograd Function (the plain ops on the CPU) with the same
     gradients as the plain path; what still raises in training is
-    ``remat`` and a bf16 compute dtype on the card."""
+    ``remat``."""
     x = torch.from_numpy(np.random.RandomState(0).randn(
         2, 8, 22, 3).astype(np.float32))
     grads = []
@@ -82,8 +82,13 @@ def test_routed_op_in_train_mode_raises():
 
 
 def test_auto_knobs_and_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        DSTDGCN(**SMALL, compute_dtype="auto")
+    # the "auto" knobs resolve (models/autotune.py); pair_flat takes none
+    model = DSTDGCN(**SMALL, compute_dtype="auto", agg_group_spatial="auto",
+                    agg_group_temporal="auto")
+    assert model.resolve_knobs(64)["compute_dtype"] == "bfloat16"
+    assert model.resolve_knobs(8)["compute_dtype"] is None
+    with pytest.raises(ValueError, match="auto"):
+        DSTDGCN(**SMALL, pair_flat="auto")
     with pytest.raises(NotImplementedError):
         DSTDGCN(**SMALL, bn_axis_name="data")
     with pytest.raises(ValueError):

@@ -136,17 +136,24 @@ def test_wrapper_routes_without_grad_mask_and_dtype(mode):
     want = torch.autograd.grad(plain(*args_f), [args[0]], g)
     np.testing.assert_allclose(grads[0].numpy(), want[0].numpy(),
                                rtol=1e-5, atol=1e-5)
-    # a mask or a compute dtype takes autograd of the plain op
+    # a mask takes autograd of the plain op, as the JAX custom_vjp does
     p = x.shape[2] if mode == "spatial" else x.shape[1]
     mask = torch.from_numpy(
         (np.random.RandomState(4).rand(p, p) > 0.4).astype(np.float32))
-    for kwargs in (dict(mask=mask), dict(dtype=torch.bfloat16)):
-        out = fn(*args, **kwargs)
-        want = plain(*args, **kwargs)
-        np.testing.assert_array_equal(out.detach().float().numpy(),
-                                      want.detach().float().numpy())
-        assert out.grad_fn is not None
-        assert "DSTDFunction" not in type(out.grad_fn).__name__
+    out = fn(*args, mask=mask)
+    want = plain(*args, mask=mask)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  want.detach().numpy())
+    assert out.grad_fn is not None
+    assert "DSTDFunction" not in type(out.grad_fn).__name__
+    # a compute dtype takes the Function with the kernels' bf16 contract:
+    # the plain kernel version forward, the plain backward with the dtype
+    out = fn(*args, dtype=torch.bfloat16)
+    want = getattr(tops, f"kernel_{mode}")(*args, dtype=torch.bfloat16)
+    np.testing.assert_array_equal(
+        out.detach().float().numpy(),
+        want.detach().to(torch.bfloat16).float().numpy())
+    assert "DSTDFunction" in type(out.grad_fn).__name__
 
 
 def test_backward_wrappers_on_cpu_run_the_plain_backward():
@@ -161,6 +168,8 @@ def test_backward_wrappers_on_cpu_run_the_plain_backward():
         assert tfused.launch_counts() == {
             "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
             "dstd_temporal_bwd": 0, "dstd_chain": 0,
-            "dstd_encoder_chain": 0}
+            "dstd_encoder_chain": 0,
+        "dstd_spatial_bf16": 0, "dstd_temporal_bf16": 0,
+        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0}
     with pytest.raises(ValueError):
         tbwd.dstd_spatial_bwd(*case, agg="middle")

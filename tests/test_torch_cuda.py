@@ -6,7 +6,11 @@ Marked ``cuda``: each test skips when ``torch.cuda.is_available()`` is false
 1e-4: the kernels sum in another order than the plain ops; TF32 is off for
 the plain side.  Backward kernels and model gradients are held per tensor
 at 1e-4 max(max |plain|, 1), since a weight gradient sums every row of the
-batch.
+batch.  The bf16 variants are held against the plain versions of their
+contract (``ops/dstd.py::kernel_spatial``, ``ops/dstd_bwd.py`` with the
+dtype) at BF16_TOL, each check below half of its own bf16-versus-float32
+gap: two right implementations that sum in another order can round an
+intermediate to neighbouring bf16 values.
 """
 
 import numpy as np
@@ -22,6 +26,9 @@ torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
 WEIGHTS = ("wf", "bf", "wm1", "bm1", "wm2", "bm2", "wrm", "brm")
+#: bf16 kernel against its plain version: forward over the peak |output|,
+#: backward per gradient over max(max |plain|, 1)
+BF16_TOL = dict(forward=1e-3, backward=1.5e-3)
 
 
 @pytest.fixture
@@ -72,8 +79,18 @@ def test_kernel_tiles_and_ragged_shapes(cuda, mode, tile):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     args = _inputs("spatial", 2, 8, 6, 4, 4, cuda)
+    # bf16 runs its kernel (the bf16 tests below); float16 has none
+    out = fused.dstd_spatial(*args, None, "right", torch.bfloat16)
+    assert out.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):
-        fused.dstd_spatial(*args, None, "right", torch.bfloat16)
+        fused.dstd_spatial(*args, None, "right", torch.float16)
+    with pytest.raises(NotImplementedError):
+        fused.dstd_spatial_bwd(args[0], out.float(), *args[1:],
+                               dtype=torch.float16)
+    bad = list(args)                      # bf16 is for x and g only
+    bad[3] = bad[3].to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused.dstd_spatial(*bad, None, "right", torch.bfloat16)
     bad = list(args)
     bad[3] = bad[3].double()
     with pytest.raises(TypeError):
@@ -172,6 +189,141 @@ def test_model_train_step_kernel_path_matches_plain_path(cuda):
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     _assert_grads_close([p.grad for p in engines[0].model.parameters()],
                         [p.grad for p in engines[1].model.parameters()])
+
+
+def _bf16_held(name, got, want, want32, norm):
+    """max |got - want| / norm within BF16_TOL[name], below half of the
+    bf16-versus-float32 gap max |want - want32| / norm."""
+    err = float((got - want).abs().max()) / norm
+    gap = float((want - want32).abs().max()) / norm
+    assert err <= BF16_TOL[name] < gap / 2, (err, gap)
+
+
+@pytest.mark.parametrize("cin,co", [(6, 64), (64, 64), (64, 3)])
+@pytest.mark.parametrize("agg", ["right", "left"])
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_bf16_kernel_matches_plain(cuda, mode, agg, cin, co):
+    args = _inputs(mode, 4, 35, 22, cin, co, cuda)
+    op = getattr(fused, f"dstd_{mode}")
+    fused.reset_launch_counts()
+    got = op.launch(*args, agg=agg, dtype=torch.bfloat16)
+    out = op(args[0].to(torch.bfloat16), *args[1:], None, agg,
+             torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = fused.launch_counts()
+    assert counts[f"dstd_{mode}_bf16"] == 2 and counts[f"dstd_{mode}"] == 0
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, got.to(torch.bfloat16))   # x rounds exactly
+    want = getattr(plain, f"kernel_{mode}")(*args, agg, torch.bfloat16)
+    want32 = getattr(plain, f"dstd_{mode}")(*args, None, agg)
+    _bf16_held("forward", got, want, want32, float(want32.abs().max()))
+
+
+@pytest.mark.parametrize("cin,co", [(6, 64), (64, 64), (64, 3)])
+@pytest.mark.parametrize("agg", ["right", "left"])
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, cin, co):
+    args = _inputs(mode, 4, 35, 22, cin, co, cuda)
+    g = torch.from_numpy(np.random.RandomState(9).randn(
+        4, 35, 22, co).astype(np.float32)).to(cuda)
+    kernel = getattr(fused, f"dstd_{mode}_bwd")
+    fused.reset_launch_counts()
+    got = kernel(args[0], g, *args[1:], agg=agg, dtype=torch.bfloat16)
+    again = kernel(args[0].to(torch.bfloat16), g.to(torch.bfloat16),
+                   *args[1:], agg=agg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused.launch_counts()[f"dstd_{mode}_bwd_bf16"] == \
+        2 * fused.BWD_LAUNCHES
+    assert fused.launch_counts()[f"dstd_{mode}_bwd"] == 0
+    # x and g round exactly; the reduction's order is fixed
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = getattr(plain_bwd, f"dstd_{mode}_bwd")
+    want = ref(args[0], g, *args[1:], agg=agg, dtype=torch.bfloat16)
+    want32 = ref(args[0], g, *args[1:], agg=agg)
+    norms = [max(float(b.abs().max()), 1.0) for b in want]
+    errs = [float((a - b).abs().max()) / n
+            for a, b, n in zip(got, want, norms)]
+    gap = max(float((b - c).abs().max()) / n
+              for b, c, n in zip(want, want32, norms))
+    assert max(errs) <= BF16_TOL["backward"] < gap / 2, (errs, gap)
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8])
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_bf16_kernels_tiles_and_ragged_shapes(cuda, mode, tile):
+    args = _inputs(mode, 3, 9, 7, 5, 4, cuda, seed=1)
+    g = torch.from_numpy(np.random.RandomState(2).randn(
+        3, 9, 7, 4).astype(np.float32)).to(cuda)
+    bf16 = torch.bfloat16
+    got = getattr(fused, f"dstd_{mode}").launch(*args, dtype=bf16, tile=tile)
+    want = getattr(plain, f"kernel_{mode}")(*args, "right", bf16)
+    peak = float(want.abs().max())
+    assert float((got - want).abs().max()) <= BF16_TOL["forward"] * peak
+    grads = getattr(fused, f"dstd_{mode}_bwd")(args[0], g, *args[1:],
+                                               dtype=bf16, tile=tile)
+    want = getattr(plain_bwd, f"dstd_{mode}_bwd")(args[0], g, *args[1:],
+                                                  dtype=bf16)
+    _assert_grads_close(grads, want, BF16_TOL["backward"])
+
+
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_bf16_autograd_through_the_kernels(cuda, mode):
+    """A bf16 activation in, the bf16 kernels both ways, the gradients in
+    the primals' dtypes (x bf16, weights float32), against the plain
+    backward with the same dtype on the same cotangent."""
+    args = _inputs(mode, 4, 35, 22, 8, 8, cuda, seed=3)
+    x = args[0].to(torch.bfloat16).requires_grad_()
+    weights = [a.requires_grad_() for a in args[1:]]
+    fused.reset_launch_counts()
+    out = getattr(fused, f"dstd_{mode}")(x, *weights, None, "right",
+                                         torch.bfloat16)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, [x] + weights, g)
+    counts = fused.launch_counts()
+    assert counts[f"dstd_{mode}_bf16"] == 1
+    assert counts[f"dstd_{mode}_bwd_bf16"] == fused.BWD_LAUNCHES
+    assert counts[f"dstd_{mode}"] == counts[f"dstd_{mode}_bwd"] == 0
+    assert got[0].dtype == torch.bfloat16
+    assert all(a.dtype == torch.float32 for a in got[1:])
+    want = getattr(plain_bwd, f"dstd_{mode}_bwd")(
+        x.detach(), g, *[w.detach() for w in weights], dtype=torch.bfloat16)
+    _assert_grads_close([a.float() for a in got],
+                        [want[0].to(torch.bfloat16).float()] + list(want[1:]),
+                        BF16_TOL["backward"])
+
+
+def test_bf16_model_train_step_kernel_path_matches_plain_path(cuda):
+    """A small bf16 model, one train step on both paths (kernel path: the
+    bf16 kernels; plain path: the same Function's plain versions on the
+    CPU), loss and every gradient."""
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.models import DSTDGCN
+    small = dict(input_channels=6, input_time_frame=10, output_time_frame=25,
+                 st_gcnn_dropout=0.0, joints_to_consider=22, num_feature=16,
+                 num_layers=2, layout="h36m", use_pallas=True,
+                 compute_dtype="auto", auto_batch_hint=64)
+    cfg = dict(learn=dict(opt="adam", lr=3e-3, weight_decay=0, gamma=0.9,
+                          step_size=5),
+               loss=dict(joint=["jl2", 1]), n_out=1, transform="tsc",
+               inverse=True, max_iter=-1)
+    engines = [PredictionEngine(cfg, DSTDGCN(**small), device=dev)
+               for dev in ("cuda", "cpu")]
+    for eng in engines:
+        eng.init()
+    rng = np.random.RandomState(4)
+    batch = [rng.randn(8, 35, 66).astype(np.float32) * 100 for _ in range(3)]
+    fused.reset_launch_counts()
+    losses = [float(eng.compute_gradients(*batch)["total"])
+              for eng in engines]
+    counts = fused.launch_counts()
+    assert engines[0].model.active_dtype == "bfloat16"
+    assert counts["dstd_spatial_bf16"] == counts["dstd_temporal_bf16"] == 8
+    assert counts["dstd_spatial_bwd_bf16"] == 8 * fused.BWD_LAUNCHES
+    assert counts["dstd_spatial"] == counts["dstd_spatial_bwd"] == 0
+    assert losses[0] == pytest.approx(losses[1], rel=1e-3)
+    _assert_grads_close([p.grad.cpu() for p in engines[0].model.parameters()],
+                        [p.grad for p in engines[1].model.parameters()],
+                        2e-2)
 
 
 def _chain_layers(count, t, v, c, device, encoder, seed=0):

@@ -29,6 +29,7 @@ def test_scan_covers_the_port():
     assert "dstdgcn_tpu_torch/kernels/fused.py" in names
     assert "dstdgcn_tpu_torch/models/infer.py" in names
     assert "dstdgcn_tpu_torch/kernels/sparse.py" in names
+    assert "dstdgcn_tpu_torch/models/autotune.py" in names
     assert len(names) > 20
 
 

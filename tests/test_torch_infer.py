@@ -138,9 +138,11 @@ def test_encoder_chain_matches_jax(agg):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
     assert torch.equal(packed, got)
-    # a compute dtype on CPU tensors: the plain ops round their contraction
-    # inputs to bf16, against the JAX kernel's bf16 dots at the JAX test's
-    # bound (6e-2 of the float32 output's peak)
+    # a compute dtype on CPU tensors: the plain chain rounds where the
+    # kernels round (ops/dstd.py::kernel_spatial), against the JAX kernel's
+    # bf16 dots within 1e-3 of the float32 output's peak, below a quarter
+    # of the bf16-versus-float32 gap (8.4e-3 and 9.8e-3 of the peak here;
+    # measured error 6e-8)
     want16 = jfused.dstd_encoder_chain(jnp.asarray(x), _to(layers, jnp.asarray),
                                        agg, dtype=jnp.bfloat16)
     with torch.no_grad():
@@ -148,7 +150,9 @@ def test_encoder_chain_matches_jax(agg):
                                           agg, torch.bfloat16)
     assert got16.dtype == torch.float32
     scale = np.abs(np.asarray(want)).max()
-    assert np.abs(got16.numpy() - np.asarray(want16)).max() / scale < 6e-2
+    gap = np.abs(np.asarray(want16) - np.asarray(want)).max() / scale
+    err = np.abs(got16.numpy() - np.asarray(want16)).max() / scale
+    assert err <= 1e-3 < gap / 4, (err, gap)
 
 
 def test_bn_affine_matches_jax():

@@ -65,7 +65,9 @@ def test_bridged_model_matches_flax_eval(use_pallas, fast):
     # CPU tensors never reach a kernel, whatever the routing
     assert tfused.launch_counts() == {
         "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
-        "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0}
+        "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0,
+        "dstd_spatial_bf16": 0, "dstd_temporal_bf16": 0,
+        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0}
 
 
 def test_train_mode_batchnorm_matches_flax():

@@ -136,7 +136,9 @@ def test_slice_mpjpe_matches_jax_engine(tmp_path):
     assert len(eng.test_batch_seconds) == 2
     assert tfused.launch_counts() == {
         "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
-        "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0}
+        "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0,
+        "dstd_spatial_bf16": 0, "dstd_temporal_bf16": 0,
+        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0}
 
 
 def test_run_writes_testing_loss_csv(tmp_path):
