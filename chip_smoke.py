@@ -10,8 +10,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    ``sm_90a``, one ``nvcc`` per source in parallel (6 libraries: the
    spatial and temporal forward and backward, each with its float32 and
    bf16 variant, the chain library with ``dstd_chain`` and
-   ``dstd_encoder_chain``, and the block-sparse library with
-   ``block_spmm``, ``block_sddmm`` and ``block_sddmm_spmm``: 13 kernels);
+   ``dstd_encoder_chain``, each with its float32 and bf16 variant, and the
+   block-sparse library with ``block_spmm``, ``block_sddmm`` and
+   ``block_sddmm_spmm``: 15 kernels), with each entry function's registers
+   and spills as ``ptxas`` reports them;
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -32,7 +34,17 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    plain versions of their contract (``ops/dstd.py::kernel_spatial`` /
    ``kernel_temporal``, ``ops/dstd_bwd.py`` with the dtype): the error
    within BF16_TOL and BF16_TOL below half of the check's own
-   bf16-versus-float32 gap, all three printed;
+   bf16-versus-float32 gap, all three printed.  The bf16 chain kernels
+   (``dstd_encoder_chain_bf16``, ``dstd_chain_bf16``) on the serving
+   model's calibrated encoder at N=128 (the bf16 fused slice's batch) and
+   at N=1, both aggregations, against their plain versions
+   (``_encoder_oracle`` / ``_chain_oracle`` with the dtype): each layer on
+   the kernel's own input within BF16_LAYER_FRAC of the layer's
+   bf16-versus-float32 gap; the five one-layer launches
+   bit-equal to the five-layer launch, two calls bit-equal; the five-layer
+   error within BF16_CHAIN_FRAC of its gap (rounding flips spread over the
+   layers); the N=128 call timed beside the float32 kernel at N=128 and the
+   bf16 kernel at N=32;
 4. the serving slice: ``dstdgcn_tpu_torch.main.run`` on the config
    ``synthetic_h36m_serving`` (full-width H36M DSTD-GCN, random weights from
    seed 777) on ``cuda``: finite per-frame MPJPE, wall time per batch, and
@@ -47,7 +59,12 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    beside the standard forward's, and one calibrated batch against the
    plain path (1e-4 + 1e-4 |plain|);
 6. ``dstd_chain``'s own path (the kernel API with its gradient): one
-   forward and backward of the 5-block chain, exact launch counts;
+   forward and backward of the 5-block chain, exact launch counts; then
+   the same at bf16, counts from zero: exactly 1 ``dstd_chain_bf16``, and
+   the backward replays the chain at float32 as the JAX package's VJP of
+   its float32 oracle does (5 + 5 float32 forward launches, 5 backward
+   calls of each op, no bf16 one-op kernel), so its gradients equal the
+   float32 pass's bit for bit;
 7. the training slice: ``main.run`` on ``synthetic_h36m_train`` (the same
    model, ``use_pallas: True``, 2 epochs of 8 steps of batch 32, an eval
    sweep of 2 batches after each): finite losses and per-frame MPJPE, the
@@ -83,18 +100,32 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    contract on the card: the loss within BF16_LOSS_RTOL, the worst
    gradient within a quarter of the step's bf16-versus-float32 gap, the
    gate gradients against a float64 run of the same rounding;
-10. a ``{"kernels": [...]}`` line with each of the 13 kernels' launches on
+10. the bf16 fused serving slice: ``main.run`` on
+   ``synthetic_h36m_tpu_fused`` (the flagship TPU configuration's model and
+   engine blocks with ``engine.fused_inference``, batch 128, 4 eval
+   batches): the knobs resolve to bf16, exactly 1
+   ``dstd_encoder_chain_bf16`` per eval batch and no other DSTD-GC kernel
+   (the in and out layers run the plain ops at bf16, the XLA path's
+   rounding, as the JAX function has it), finite per-frame MPJPE; batch-1
+   requests (one bf16 launch each); the batch-128 bf16 fused forward's
+   wall and device time beside the float32 fused forward, the standard
+   bf16 forward and a batch-1 request; one calibrated batch against the
+   same function with the encoder through ``_encoder_oracle`` (the dtype),
+   within BF16_CHAIN_FRAC of the batch's bf16-versus-float32 gap;
+11. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
    its main path (the training slice for the float32 one-op kernels, the
-   bf16 slice for their bf16 variants, the fused slice for the encoder
-   kernel, phase 6 for ``dstd_chain``, phase 8 for the sparse kernels),
-   max error, times and bound (bf16 contractions at the dense bf16
-   tensor-core rate, the rest at the float32 rate).
+   bf16 slice for their bf16 variants, the fused slices for the encoder
+   kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
+   sparse kernels), max error, times and bound (bf16 contractions at the
+   dense bf16 tensor-core rate, the rest at the float32 rate).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
 ``call_ms`` is the CUDA-event mean per call of back-to-back calls, host
 launch overhead included.  Caches are warm: the 12.7 MB activations of a
-launch fit in the 50 MB L2, as they do between the ops of one forward.
+batch-32 launch fit in the 50 MB L2, as they do between the ops of one
+forward; at batch 128 the chain kernels' three activation buffers (25.2 MB
+each) do not.
 Run logs and a full report go to ``chiprun_out/chip_smoke/``.
 """
 
@@ -145,6 +176,20 @@ BF16_TOL = dict(forward=1.2e-3, backward=2.5e-3)
 #: the plain path's distance printed beside it.
 BF16_LOSS_RTOL = 1e-3
 BF16_STEP_FRAC = 0.4
+#: the bf16 chain kernels against their plain versions (``_chain_oracle`` /
+#: ``_encoder_oracle`` with the dtype) on the calibrated serving encoder,
+#: max |kernel - plain| over the peak |plain float32 output|, each held
+#: against its own bf16-versus-float32 gap.  Two right implementations can
+#: round an op's input to neighbouring bf16 values: each layer, on the
+#: kernel's own input, within BF16_LAYER_FRAC of the layer's gap (measured
+#: on the H100 up to 0.195 of it, 1.46e-3 of the peak, against gaps of
+#: 2.7e-3 to 1.1e-2).  Over five layers a flip moves the next layers'
+#: inputs and their roundings flip in turn: the five-layer error, and that
+#: of the bf16 fused forward (``synthetic_h36m_tpu_fused``, batch 128)
+#: against the same function with the encoder through ``_encoder_oracle``,
+#: within BF16_CHAIN_FRAC of their own gap (measured up to 0.69 of it).
+BF16_LAYER_FRAC = 0.3
+BF16_CHAIN_FRAC = 0.9
 #: published H100 SXM peaks (float32 outside the tensor cores, dense bf16
 #: on the tensor cores, HBM3)
 PEAK_F32_FLOPS = 67e12
@@ -182,6 +227,12 @@ KERNELS = {
     "dstd_encoder_chain": dict(
         source="dstdgcn_tpu_torch/csrc/dstd_chain.cu",
         replaces="dstdgcn_tpu/kernels/fused.py:654"),
+    "dstd_chain_bf16": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_chain.cu",
+        replaces="dstdgcn_tpu/kernels/fused.py:498"),
+    "dstd_encoder_chain_bf16": dict(
+        source="dstdgcn_tpu_torch/csrc/dstd_chain.cu",
+        replaces="dstdgcn_tpu/kernels/fused.py:654"),
     "block_spmm": dict(
         source="dstdgcn_tpu_torch/csrc/block_sparse.cu",
         replaces="dstdgcn_tpu/kernels/sparse.py:101"),
@@ -198,6 +249,7 @@ CHAINS = ("dstd_chain", "dstd_encoder_chain")
 #: the bf16 variants of the one-op kernels (launch counters ``<name>_bf16``)
 BF16_FORWARD = ("dstd_spatial_bf16", "dstd_temporal_bf16")
 BF16_BACKWARD = ("dstd_spatial_bwd_bf16", "dstd_temporal_bwd_bf16")
+BF16_CHAINS = ("dstd_chain_bf16", "dstd_encoder_chain_bf16")
 SPARSE = ("block_spmm", "block_sddmm", "block_sddmm_spmm")
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
 SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C, SPARSE_BLOCK = 4, 4096, 4, 128, 128
@@ -225,6 +277,37 @@ def nvidia_smi():
     return proc.stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of each
+    entry function in an ``nvcc -Xptxas -v`` log, names demangled by
+    ``c++filt`` where the toolchain has it."""
+    import re
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r[0] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) == len(rows):
+        for r, full in zip(rows, names):
+            full = full.replace("(anonymous namespace)::", "")
+            r[0] = full.split("(")[0].removeprefix("void ")
+    return [tuple(r) for r in rows]
+
+
 def op_weights(mode, ci, co):
     """Weight floats of one op (base, alpha, wf, bf, wm1, bm1, wm2, bm2,
     wrm, brm)."""
@@ -234,21 +317,25 @@ def op_weights(mode, ci, co):
             + 2 * k * r + k * r * ref * ref + k * ref)
 
 
-def chain_cost(n, c, layers, encoder):
-    """(flops, bytes) of one chain call of ``layers`` (spatial, temporal)
-    blocks at C channels: the ops' operations plus, for the encoder, 10
-    elementwise operations per activation element and layer (affine,
-    residual and PReLU after each op); x read and the output written once,
-    every weight read once (the encoder's affines and slopes too)."""
+def chain_cost(n, c, layers, encoder, dtype=None):
+    """(flops, bytes, tensor flops) of one chain call of ``layers``
+    (spatial, temporal) blocks at C channels: the ops' operations (with a
+    bf16 ``dtype`` their contractions as tensor flops, as ``op_cost``)
+    plus, for the encoder, 10 elementwise operations per activation element
+    and layer (affine, residual and PReLU after each op); x read and the
+    output written once in float32, every weight read once (the encoder's
+    affines and slopes too)."""
     rows = n * T * V
-    flops = layers * (op_cost("spatial", n, c, c)[0]
-                      + op_cost("temporal", n, c, c)[0])
+    costs = [op_cost(mode, n, c, c, dtype=dtype)
+             for mode in ("spatial", "temporal")]
+    flops = layers * sum(cost[0] for cost in costs)
+    tensor_flops = layers * sum(cost[2] for cost in costs)
     weights = layers * (op_weights("spatial", c, c)
                         + op_weights("temporal", c, c))
     if encoder:
         flops += layers * 10 * rows * c
         weights += layers * (4 * V * c + 2)
-    return flops, 4 * (2 * rows * c + weights)
+    return flops, 4 * (2 * rows * c + weights), tensor_flops
 
 
 def bound_of(flops, nbytes, tensor_flops=0.0):
@@ -801,6 +888,119 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
     return lines
 
 
+def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
+                      timings, max_err):
+    """The bf16 chain kernels against their plain versions (the oracles
+    with the dtype) on the serving model's calibrated encoder at batch
+    ``n_big`` and at batch 1, both aggregations, each op of the chain scaled
+    to an output peak of 1 (``chain_blocks``).  Layer by layer: one launch
+    of each layer on the kernel's own activation against the plain layer on
+    the same input, the error over the peak |plain float32 layer output|
+    within BF16_LAYER_FRAC of the layer's bf16-versus-float32 gap; the five
+    one-layer launches equal the one five-layer launch bit for bit, and two
+    five-layer calls are bit-equal.  End to end, a rounding flip of one
+    layer moves the next layers' inputs and so their roundings, and the
+    flips spread: the five-layer error is held within BF16_CHAIN_FRAC of
+    its own gap, both printed.  Times at
+    ``agg_main`` and batch ``n_big``: the kernel, its plain version and the
+    float32 kernel, and the bf16 kernel at batch N (the activation buffers
+    of a batch-``n_big`` call no longer fit in the 50 MB L2)."""
+    bf16, lines = torch.bfloat16, []
+    h_all, layers = encoder_case(torch, cfg, inputs[:n_big])
+    for agg in ("right", "left"):
+        blocks = chain_blocks(torch, plain, layers, h_all, agg)
+        for base, ref, given in (("dstd_encoder_chain",
+                                  fused._encoder_oracle, layers),
+                                 ("dstd_chain", fused._chain_oracle, blocks)):
+            name, kernel = f"{base}_bf16", getattr(fused, base)
+            arg = fused.pack_chain(given)
+            one = [fused.pack_chain(given[i:i + 1])
+                   for i in range(len(given))]
+            for n in (n_big, 1):
+                h = h_all[:n]
+
+                def call(h=h, kernel=kernel, arg=arg, agg=agg, dtype=bf16):
+                    with torch.no_grad():
+                        return kernel(h, arg, agg, dtype)
+
+                def plain_call(h=h, ref=ref, given=given, agg=agg,
+                               dtype=bf16):
+                    with torch.no_grad():
+                        return ref(h, given, agg, dtype)
+
+                before = kernel.launches_bf16
+                got, again = call(), call()
+                x, per_layer = h, []
+                for i, packed in enumerate(one):
+                    y = call(h=x, arg=packed)
+                    want = plain_call(h=x, given=given[i:i + 1])
+                    want32 = plain_call(h=x, given=given[i:i + 1],
+                                        dtype=None)
+                    peak = float(want32.abs().max())
+                    abs_err = float((y - want).abs().max())
+                    per_layer.append((abs_err, abs_err / peak, float(
+                        (want - want32).abs().max()) / peak))
+                    x = y
+                torch.cuda.synchronize()
+                check(kernel.launches_bf16 == before + 2 + len(one),
+                      f"{name} did not count its launches")
+                want, want32 = plain_call(), plain_call(dtype=None)
+                peak = float(want32.abs().max())
+                abs_err = float((got - want).abs().max())
+                err = abs_err / peak
+                gap = float((want - want32).abs().max()) / peak
+                repeat = bool(torch.equal(got, again))
+                layered = bool(torch.equal(got, x))
+                worst = max(range(len(per_layer)),
+                            key=lambda i: per_layer[i][1] / per_layer[i][2])
+                l_abs, l_err, l_gap = per_layer[worst]
+                line = dict(kernel=name, agg=agg, n=n, c=h.shape[-1],
+                            layers=len(given),
+                            layer_norm_err=[e[1] for e in per_layer],
+                            layer_gap=[e[2] for e in per_layer],
+                            layer_frac=BF16_LAYER_FRAC,
+                            worst_layer_over_gap=l_err / l_gap,
+                            max_abs_err=abs_err, norm_err=err,
+                            bf16_vs_f32_gap=gap, over_gap=err / gap,
+                            frac=BF16_CHAIN_FRAC, repeatable=repeat,
+                            layers_equal_one_launch=layered,
+                            ok=(l_err <= BF16_LAYER_FRAC * l_gap
+                                and err <= BF16_CHAIN_FRAC * gap
+                                and repeat and layered))
+                max_err[name] = max(max_err[name], abs_err,
+                                    *(e[0] for e in per_layer))
+                if agg == agg_main and n == n_big:
+                    k_call = time_ms(torch, call, 10)
+                    k_ms, k_by = device_ms(torch, call, 10)
+                    p_ms, p_by = device_ms(torch, plain_call, 3)
+                    f32_ms, _ = device_ms(torch, lambda: call(dtype=None),
+                                          10)
+                    small_ms, _ = device_ms(
+                        torch, lambda: call(h=h_all[:N]), 10)
+                    b_ms, t_ops, t_mem = bound_of(*chain_cost(
+                        n, h.shape[-1], len(given), base ==
+                        "dstd_encoder_chain", bf16))
+                    timings[(name, agg)] = (k_ms, p_ms, k_call, k_by)
+                    line.update(ms=k_ms, plain_ms=p_ms, call_ms=k_call,
+                                f32_kernel_ms=f32_ms, **{
+                                    f"ms_n{N}": small_ms,
+                                    f"ms_over_{n // N}x_n{N}":
+                                        k_ms / (n // N * small_ms)},
+                                timed_by=[k_by, p_by], bound_ms=b_ms,
+                                bound_by="operations" if t_ops >= t_mem
+                                else "bytes")
+                lines.append(line)
+                print("check " + json.dumps(line))
+                check(line["ok"], f"{name} agg={agg} n={n}: layer {worst} "
+                                  f"{l_err} against its plain version "
+                                  f"(within {BF16_LAYER_FRAC} of the gap "
+                                  f"{l_gap}); five layers {err} (within "
+                                  f"{BF16_CHAIN_FRAC} of the gap {gap}); "
+                                  f"repeatable {repeat}, one-layer launches "
+                                  f"equal {layered}")
+    return lines
+
+
 def dstd_kernel_of(key, bf16_reduce):
     """The launch-counter name of a DSTD-GC kernel from its profiler key
     (``spatial_kernel<5, dstd::Bf16>``, ``dstd_bwd::out_kernel<false, 5,
@@ -1054,6 +1254,167 @@ def bf16_phase(torch, np, fused, device):
     return report, counts
 
 
+def fused_bf16_phase(torch, np, fused, device):
+    """The bf16 fused serving slice through ``main.run`` on ``cuda``,
+    counts from zero: the knobs resolve to bf16, exactly one
+    ``dstd_encoder_chain_bf16`` per eval batch and no other DSTD-GC kernel
+    (the in and out layers run the plain ops at bf16: the XLA path's
+    rounding, as the JAX function has it), finite per-frame MPJPE and
+    ``testing_loss.csv``; batch-1 requests; the batch-128 bf16 fused
+    forward's wall and device time beside the float32 fused forward and the
+    standard bf16 forward; then one calibrated batch against the same
+    function with the encoder through its plain version (``_encoder_oracle``
+    with the dtype): the error over the float32 output's peak within
+    BF16_CHAIN_FRAC of the batch's bf16-versus-float32 gap (the encoder's
+    five layers spread rounding flips; phase 3 holds each layer).
+    Returns (report, the slice's launch counts)."""
+    from unittest import mock
+
+    from dstdgcn_tpu_torch import configs
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.models import infer
+    from dstdgcn_tpu_torch.utils.config import resolve
+    report = {}
+    cfg = configs.synthetic_h36m_tpu_fused()
+    rcfg = resolve(cfg)
+    bs = rcfg["test_batch_size"]
+    n_test = rcfg["dataset"]["test"]["synthetic"]["num_sequences"]
+    run_dir = os.path.join(OUT_DIR, "fused_bf16")
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner, (avg, per_frame) = run(cfg, "cuda", run_dir=run_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused.launch_counts()
+    eng = runner.engine
+    model = eng.model
+    knobs = model.resolve_knobs(bs)
+    batches = eng.test_batch_seconds
+    nb = len(batches)
+    print(f"fused bf16: resolved knobs at batch {bs} (hint "
+          f"{model.auto_batch_hint}): {knobs}")
+    print(f"fused bf16: main.run on cuda, {nb} batches of {bs} in "
+          f"{wall:.2f} s; per-frame MPJPE {[float(m) for m in per_frame]} "
+          f"avg {float(avg)}")
+    print(f"fused bf16: wall ms per batch "
+          f"{[round(t * 1e3, 3) for t in batches]} (median "
+          f"{float(np.median(batches)) * 1e3:.3f})")
+    print(f"fused bf16: launches {counts} over {nb} eval batches")
+    check(knobs["compute_dtype"] == "bfloat16" and eng.fused_inference,
+          f"the fused bf16 slice resolved {knobs}")
+    check(nb == -(-n_test // bs), f"{nb} eval batches, expected "
+                                  f"{-(-n_test // bs)}")
+    check(bool(np.all(np.isfinite(per_frame))) and np.isfinite(avg),
+          "the fused bf16 slice gave a non-finite MPJPE")
+    per_batch = {"dstd_encoder_chain_bf16": 1}
+    check(counts == {k: per_batch.get(k, 0) * nb for k in counts},
+          f"the fused bf16 slice launched {counts} over {nb} batches, "
+          f"expected {per_batch} per batch")
+    with open(os.path.join(run_dir, "testing_loss.csv")) as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    check(len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1]),
+          f"testing_loss.csv holds {rows}")
+    report.update(knobs=knobs, per_frame=[float(m) for m in per_frame],
+                  avg=float(avg), batch_seconds=batches, launches=counts,
+                  wall=wall)
+
+    # batch-1 requests: "auto" is pinned to the configured batch, so a
+    # single sequence runs the same bf16 kernel, one cluster
+    inputs = get_dataset("synthetic", **rcfg["dataset"]["test"]).input_seqs
+    fforward = eng._eval_forward()
+
+    def serve(x, forward=fforward):
+        with torch.inference_mode():
+            return eng._serve(x, forward, None, None)
+
+    req_ms = []
+    for i in range(4):
+        before = fused.launch_counts()
+        t0 = time.perf_counter()
+        out = serve(inputs[i:i + 1])
+        torch.cuda.synchronize()
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+        after = fused.launch_counts()
+        check(out.shape == (1, T, inputs.shape[-1])
+              and bool(torch.isfinite(out).all()), "bad batch-1 output")
+        check({k: after[k] - before[k] for k in after}
+              == {k: per_batch.get(k, 0) for k in after},
+              f"a batch-1 bf16 request launched {after} (before {before})")
+    print(f"fused bf16: 4 batch-1 requests, ms {[round(m, 3) for m in req_ms]}")
+
+    # where the time of one batch-128 forward goes: the bf16 fused forward,
+    # the float32 fused forward and the standard bf16 forward (the model's
+    # ops through the bf16 one-op kernels)
+    weights = infer.fused_weights(model)
+
+    def fused32(x):
+        return infer.fused_eval_forward(model, x, None, weights)
+
+    forwards = dict(
+        fused_bf16=lambda: serve(inputs[:bs]),
+        fused_f32=lambda: serve(inputs[:bs], fused32),
+        standard_bf16=lambda: eng.predict(inputs[:bs]),
+        fused_bf16_batch1=lambda: serve(inputs[:1]))
+    times = {}
+    for label, fn in forwards.items():
+        call = time_ms(torch, fn, 10)
+        prof = device_profile(torch, fn, 5)
+        dev = sum(prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+        times[label] = dict(call_ms=call, device_ms=dev, by_kernel=prof)
+        busy = (f"{dev:.3f} ms ({100 * dev / call:.1f}%)" if prof
+                else "not measured (the profiler recorded nothing)")
+        print(f"profile: {label} forward (batch "
+              f"{1 if label.endswith('batch1') else bs}) {call:.3f} ms per "
+              f"call, device busy {busy}; top "
+              + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
+    report.update(batch1_ms=req_ms, forwards=times)
+
+    # one calibrated batch: the fused path against the same function with
+    # the encoder through its plain version, the float32 function beside it
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).to(device))
+    x = eng.transform(eng.to_device(inputs[:bs]))
+    calibrate_batchnorm(torch, model, x)
+    weights = infer.fused_weights(model)
+
+    def plain_encoder(h, packed, agg, dtype=None, nb=None):
+        # contiguous, as the kernel's output is (the float32 out layer runs
+        # the one-op kernels)
+        return fused._encoder_oracle(h, packed.layers, agg,
+                                     dtype).contiguous()
+
+    with torch.inference_mode():
+        before = fused.launch_counts()
+        got = infer.fused_eval_forward(model, x, torch.bfloat16, weights)
+        torch.cuda.synchronize()
+        after = fused.launch_counts()
+        with mock.patch.object(fused, "dstd_encoder_chain", plain_encoder):
+            want = infer.fused_eval_forward(model, x, torch.bfloat16,
+                                            weights)
+            want32 = infer.fused_eval_forward(model, x, None, weights)
+    peak = float(want32.abs().max())
+    abs_err = float((got - want).abs().max())
+    err = abs_err / peak
+    gap = float((want - want32).abs().max()) / peak
+    launched = {k: after[k] - before[k] for k in after}
+    line = dict(n=bs, max_abs_err=abs_err, norm_err=err,
+                frac=BF16_CHAIN_FRAC, bf16_vs_f32_gap=gap,
+                over_gap=err / gap, peak=peak,
+                launches=launched, ok=err <= BF16_CHAIN_FRAC * gap)
+    print("check fused bf16 forward vs its plain path " + json.dumps(line))
+    check(line["ok"], f"the bf16 fused forward: {err} from its plain path, "
+                      f"above {BF16_CHAIN_FRAC} of its bf16-versus-float32 "
+                      f"gap {gap}")
+    check(launched == {k: per_batch.get(k, 0) for k in launched},
+          f"the calibrated bf16 fused forward launched {launched}")
+    report["check"] = line
+    return report, counts
+
+
 def run_smoke():
     import numpy as np
     import torch
@@ -1098,13 +1459,15 @@ def run_smoke():
     print(f"build: {total:.1f} s for {len(secs)} kernels "
           + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
     for name in secs:
-        log = build.build_log(name)
         with open(os.path.join(OUT_DIR, f"build_{name}.log"), "w") as f:
-            f.write(log)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            f.write(build.build_log(name))
     report["build_seconds"] = dict(secs, total=total)
+    report["ptxas"] = {}
+    for name in secs:
+        usage = report["ptxas"][name] = ptxas_usage(build.build_log(name))
+        for kernel, regs, stores, loads in usage:
+            print(f"  ptxas {name}: {kernel}: {regs} registers, spill "
+                  f"{stores} bytes stored / {loads} loaded")
 
     # 3. each kernel against its plain version at the serving and training
     # shapes (the two slices' configs share the model block)
@@ -1292,6 +1655,12 @@ def run_smoke():
         check(ok, f"dstd_chain agg={agg} gradients disagree with autograd "
                   f"through the plain chain: {norm_err} of max(|plain|, 1)")
     report["chain_checks"] = chain_checks + grad_lines
+    # the bf16 chain kernels at the bf16 fused slice's batch and at batch 1
+    agg_main = "left" if model_cfg.get("fast") else "right"
+    nf16 = resolve(configs.SYNTHETIC_H36M_TPU_FUSED)["test_batch_size"]
+    report["bf16_chain_checks"] = bf16_chain_checks(
+        torch, fused, plain, serving_cfg, test_ds.input_seqs, nf16, agg_main,
+        timings, max_err)
 
     # 4. the serving slice through its entry point, counts from zero
     cfg = configs.synthetic_h36m_serving()
@@ -1504,20 +1873,40 @@ def run_smoke():
     # counts from zero
     fused.reset_launch_counts()
     leaves, rebuilt = chain_leaves(torch, h, normalized["right"])
-    torch.autograd.grad(fused.dstd_chain(leaves[0], rebuilt, "right"),
-                        leaves, torch.ones_like(h))
+    cgrads = torch.autograd.grad(fused.dstd_chain(leaves[0], rebuilt,
+                                                  "right"),
+                                 leaves, torch.ones_like(h))
     torch.cuda.synchronize()
     ccounts = fused.launch_counts()
     print(f"chain: one forward and backward of dstd_chain, launches "
           f"{ccounts}")
-    check(ccounts == dict(
-        dstd_chain=1, dstd_encoder_chain=0, dstd_spatial=n_layers,
-        dstd_temporal=n_layers,
-        dstd_spatial_bwd=n_layers * fused.BWD_LAUNCHES,
-        dstd_temporal_bwd=n_layers * fused.BWD_LAUNCHES,
-        **{k: 0 for k in BF16_FORWARD + BF16_BACKWARD}),
-        f"dstd_chain forward and backward launched {ccounts}")
-    report["chain_path"] = ccounts
+    replay = dict(dstd_spatial=n_layers, dstd_temporal=n_layers,
+                  dstd_spatial_bwd=n_layers * fused.BWD_LAUNCHES,
+                  dstd_temporal_bwd=n_layers * fused.BWD_LAUNCHES)
+    check(ccounts == {**{k: 0 for k in ccounts}, **replay, "dstd_chain": 1},
+          f"dstd_chain forward and backward launched {ccounts}")
+    # the same at bf16, counts from zero: one bf16 chain launch, and the
+    # backward replays the chain at float32 (as the JAX package's VJP of its
+    # float32 oracle does), so the gradients are the float32 chain's, bit
+    # for bit, and no bf16 one-op kernel runs
+    fused.reset_launch_counts()
+    leaves, rebuilt = chain_leaves(torch, h, normalized["right"])
+    bgrads = torch.autograd.grad(fused.dstd_chain(
+        leaves[0], rebuilt, "right", torch.bfloat16), leaves,
+        torch.ones_like(h))
+    torch.cuda.synchronize()
+    bf16_ccounts = fused.launch_counts()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(bgrads, cgrads))
+    print(f"chain: one bf16 forward and backward of dstd_chain, launches "
+          f"{bf16_ccounts}; gradients equal to the float32 chain's: {same}")
+    check(bf16_ccounts == {**{k: 0 for k in bf16_ccounts}, **replay,
+                           "dstd_chain_bf16": 1},
+          f"bf16 dstd_chain forward and backward launched {bf16_ccounts}")
+    check(same, "the bf16 dstd_chain's gradients differ from the float32 "
+                "chain's")
+    report["chain_path"] = dict(float32=ccounts, bf16=bf16_ccounts,
+                                bf16_grads_equal_f32=same)
+    del leaves, rebuilt, cgrads, bgrads
 
     # 7. the training slice through its entry point, counts from zero
     tcfg = configs.synthetic_h36m_train()
@@ -1564,7 +1953,7 @@ def run_smoke():
     want_counts.update({name: fused.BWD_LAUNCHES * 14 * steps
                         for name in BACKWARD})
     want_counts.update({name: 0 for name in CHAINS + BF16_FORWARD
-                        + BF16_BACKWARD})
+                        + BF16_BACKWARD + BF16_CHAINS})
     check(tcounts == want_counts, f"training launched {tcounts}, expected "
                                   f"{want_counts}")
     report["train"] = dict(history=rows.tolist(), step_seconds=step_s,
@@ -1659,7 +2048,8 @@ def run_smoke():
     check(step_launches == {
         **{k: 14 for k in FORWARD},
         **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD},
-        **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD}},
+        **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD
+           + BF16_CHAINS}},
         f"one train step launched {step_launches}")
     report["train_check"] = dict(loss=k_loss, plain_loss=p_loss,
                                  loss_rel=loss_rel, worst_grad=worst,
@@ -1692,27 +2082,39 @@ def run_smoke():
     # path of the same contract
     report["bf16"], bcounts = bf16_phase(torch, np, fused, device)
 
-    # 10. the kernels line.  One-op kernels: times summed over the 7 calls
+    # 10. the bf16 fused serving slice and one calibrated batch against the
+    # plain path of the same function
+    report["fused_bf16"], fbcounts = fused_bf16_phase(torch, np, fused,
+                                                      device)
+
+    # 11. the kernels line.  One-op kernels: times summed over the 7 calls
     # of one forward (or of its backward) at their (Ci, Co), with the
     # model's aggregation, N=32 for the float32 kernels and N=128 (the bf16
     # slice's batch) for the bf16 variants; launches those of the training
     # slice (float32) or the bf16 slice, the serving slice's beside them.
-    # Chain kernels: one N=32 call over the 5 encoder layers; launches
-    # those of the fused slice (the encoder) and of dstd_chain's own path.
-    agg = "left" if model_cfg.get("fast") else "right"
-    main_launches = dict(tcounts, dstd_encoder_chain=fcounts[
-        "dstd_encoder_chain"], dstd_chain=ccounts["dstd_chain"],
+    # Chain kernels: one call over the 5 encoder layers, N=32 for the
+    # float32 kernels and N=128 (the bf16 fused slice's batch) for the bf16
+    # ones; launches those of the fused slices (the encoder) and of
+    # dstd_chain's own path (phase 6 and its bf16 pass).
+    main_launches = dict(
+        tcounts, dstd_encoder_chain=fcounts["dstd_encoder_chain"],
+        dstd_chain=ccounts["dstd_chain"],
+        dstd_encoder_chain_bf16=fbcounts["dstd_encoder_chain_bf16"],
+        dstd_chain_bf16=bf16_ccounts["dstd_chain_bf16"],
         **{k: bcounts[k] for k in BF16_FORWARD + BF16_BACKWARD})
     kernels = []
     for name, meta in KERNELS.items():
         if name in SPARSE:
             kernels.append(sparse_entries[name])
             continue
-        if name in CHAINS:
-            ms, plain_ms, call_ms, k_by = timings[(name, agg)]
+        if name in CHAINS + BF16_CHAINS:
+            ms, plain_ms, call_ms, k_by = timings[(name, agg_main)]
             timed_by = {k_by}
+            bf16 = name in BF16_CHAINS
             b_ms, ops_ms, mem_ms = bound_of(*chain_cost(
-                N, feat, n_layers, name == "dstd_encoder_chain"))
+                nf16 if bf16 else N, feat, n_layers,
+                name.startswith("dstd_encoder_chain"),
+                torch.bfloat16 if bf16 else None))
         else:
             mode = name.split("_")[1]
             backward = "_bwd" in name
@@ -1724,7 +2126,7 @@ def run_smoke():
                                             else model_cfg):
                 if m != mode:
                     continue
-                k_t, p_t, k_call, k_by = timings[(name, ci, co, agg)]
+                k_t, p_t, k_call, k_by = timings[(name, ci, co, agg_main)]
                 timed_by.add(k_by)
                 b, t_ops, t_mem = bound_ms(mode, n, ci, co, backward, dtype)
                 ms, plain_ms, b_ms = ms + k_t, plain_ms + p_t, b_ms + b
@@ -1740,7 +2142,7 @@ def run_smoke():
             serving_launches=counts[name], fused_launches=fcounts[name],
             timed_by="+".join(sorted(timed_by))))
         if name.endswith("_bf16"):
-            kernels[-1].update(n=nb16)
+            kernels[-1].update(n=nf16 if name in BF16_CHAINS else nb16)
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -1,9 +1,10 @@
 """Configs of the port as Python dicts (no PyYAML needed).
 
 ``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED``,
-``SYNTHETIC_H36M_TRAIN`` and ``SYNTHETIC_H36M_TPU_TRAIN`` equal
-``synthetic_h36m_serving.yaml``, ``synthetic_h36m_fused.yaml``,
-``synthetic_h36m_train.yaml`` and ``synthetic_h36m_tpu_train.yaml`` as
+``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_TPU_TRAIN`` and
+``SYNTHETIC_H36M_TPU_FUSED`` equal ``synthetic_h36m_serving.yaml``,
+``synthetic_h36m_fused.yaml``, ``synthetic_h36m_train.yaml``,
+``synthetic_h36m_tpu_train.yaml`` and ``synthetic_h36m_tpu_fused.yaml`` as
 ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass either
 form to :func:`dstdgcn_tpu_torch.main.run`.  The functions of the same
 names in lower case return fresh deep copies, since runners update the
@@ -17,7 +18,8 @@ import copy
 __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
            "SYNTHETIC_H36M_FUSED", "synthetic_h36m_fused",
            "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train",
-           "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train"]
+           "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train",
+           "SYNTHETIC_H36M_TPU_FUSED", "synthetic_h36m_tpu_fused"]
 
 _SYNTHETIC = dict(layout="h36m", num_sequences=256, input_n=10, output_n=25,
                   dct_used=0, mirror=False)
@@ -128,3 +130,18 @@ SYNTHETIC_H36M_TPU_TRAIN["engine"] = dict(
 
 def synthetic_h36m_tpu_train() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_TPU_TRAIN)
+
+
+#: the flagship TPU configuration's model and engine blocks served at batch
+#: 128 ("auto" resolves to bf16) through the fused-inference path
+#: (engine.fused_inference): 512 test sequences, one evaluation sweep
+SYNTHETIC_H36M_TPU_FUSED = copy.deepcopy(SYNTHETIC_H36M_TPU_TRAIN)
+SYNTHETIC_H36M_TPU_FUSED.update(epoch=1, mode="test")
+SYNTHETIC_H36M_TPU_FUSED["dataset"]["test"]["synthetic"][
+    "num_sequences"] = 512
+SYNTHETIC_H36M_TPU_FUSED["engine"].update(max_iter=2000,
+                                          fused_inference=True)
+
+
+def synthetic_h36m_tpu_fused() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_TPU_FUSED)

@@ -1,6 +1,12 @@
-// Chains of DSTD-GC ops in one launch (float32): the whole-chain kernel
-// (entry dstd_chain_f32) and the whole-encoder kernel (entry
-// dstd_encoder_chain_f32), one template with a compile-time switch.
+// Chains of DSTD-GC ops in one launch: the whole-chain kernel (entries
+// dstd_chain_f32 and dstd_chain_bf16) and the whole-encoder kernel (entries
+// dstd_encoder_chain_f32 and dstd_encoder_chain_bf16), one template with a
+// compile-time switch and the rounding policy of dstd_common.cuh.  The bf16
+// variants are the TPU kernels' `dtype` (dstdgcn_tpu/kernels/fused.py::
+// _spatial_body / _temporal_body through _dot_fn): the operands of the four
+// contractions of each op rounded to bf16, products and sums in float32;
+// the activation between ops, the tanh, the mixing sums, the adjacency's
+// affine and the encoder's epilogue stay float32, as x and out do.
 //
 // Replaces the TPU kernels dstdgcn_tpu/kernels/fused.py::_chain_grid_kernel
 // (entry dstd_chain) and ::_encoder_grid_kernel (entry dstd_encoder_chain).
@@ -36,8 +42,11 @@
 // block if spread over the cluster's distributed shared memory, next to the
 // 107 KB the spatial op already needs; and a block would read most of its
 // rows remotely.  So the activation stays in a per-sample global scratch
-// instead, which the 50 MB L2 holds (3 buffers of 6.3 MB at N=32): the
-// block's shared memory stays free for the op.  Buffers: the layer input
+// instead, which the 50 MB L2 holds (3 buffers of 6.3 MB at N=32; at
+// N=128 they are 25.2 MB each and do not fit, yet on an H100 a batch-128
+// call takes 0.93-0.99x four batch-32 calls: the kernel is bound by its
+// operations, not by these reads): the block's shared memory stays free
+// for the op.  Buffers: the layer input
 // (the caller's x for layer 0), `mid` (the spatial op's output) and the
 // layer output, which alternates between `out` and `ping` so that the last
 // layer writes `out`.  No op writes a buffer that any block still reads in
@@ -55,8 +64,11 @@
 // registers a thread (__launch_bounds__(512, 2); left free the compiler
 // takes 128, one block per SM, and a batch-32 call then runs in two waves),
 // so two blocks per SM: a batch-32 call is 32 clusters of 7 blocks (224
-// blocks on 132 SMs), a batch-1 call one cluster.  Plain float32 FMA on
-// the CUDA cores, as in the one-op kernels.
+// blocks on 132 SMs), a batch-1 call one cluster.  Both rounding policies
+// spill under the cap (ptxas -v at tile 5: 156-188 bytes stored), the
+// bf16 one a little less.  Plain float32 FMA on the CUDA cores, as in the
+// one-op kernels; the bf16 variants round each contraction operand where
+// the op bodies load or store it.
 #include "dstd_common.cuh"
 
 namespace {
@@ -154,7 +166,7 @@ __device__ inline void publish() {
   cg::this_cluster().sync();
 }
 
-template <int TILE, bool kEncoder>
+template <int TILE, bool kEncoder, typename Rnd>
 __global__ void __launch_bounds__(kThreads, 2)
     chain_kernel(const ChainArgs c) {
   extern __shared__ float4 smem4[];
@@ -173,21 +185,21 @@ __global__ void __launch_bounds__(kThreads, 2)
       const size_t VC = (size_t)c.V * c.C;
       const float* a1 = c.aff1 + 2 * l * VC;
       const float* a2 = c.aff2 + 2 * l * VC;
-      dstd::spatial_op<TILE, true>(
+      dstd::spatial_op<TILE, true, Rnd>(
           sa, smem, n, t0, tn,
           LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
                            __ldg(c.prelu + 2 * l), c.C});
       publish();
-      dstd::temporal_op<TILE, true>(
+      dstd::temporal_op<TILE, true, Rnd>(
           ta, smem, n, w0, wn,
           LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
                             __ldg(c.prelu + 2 * l + 1), c.C});
     } else {
-      dstd::spatial_op<TILE, true>(sa, smem, n, t0, tn,
-                                   dstd::PlainStore{c.mid + sample, c.C});
+      dstd::spatial_op<TILE, true, Rnd>(sa, smem, n, t0, tn,
+                                        dstd::PlainStore{c.mid + sample, c.C});
       publish();
-      dstd::temporal_op<TILE, true>(ta, smem, n, w0, wn,
-                                    dstd::PlainStore{out + sample, c.C});
+      dstd::temporal_op<TILE, true, Rnd>(ta, smem, n, w0, wn,
+                                         dstd::PlainStore{out + sample, c.C});
     }
     publish();
     in = out;
@@ -200,7 +212,7 @@ long long smem_floats(int T, int V, int C, int Ks, int Kt, int R, int tile) {
   return s > t ? s : t;
 }
 
-template <bool kEncoder>
+template <bool kEncoder, typename Rnd>
 cudaError_t launch(ChainArgs c, int N, int tile, int device,
                    cudaStream_t stream) {
   if (N == 0 || c.L == 0) return cudaSuccess;
@@ -218,8 +230,8 @@ cudaError_t launch(ChainArgs c, int N, int tile, int device,
   switch (tile) {
 #define DSTD_CHAIN_CASE(TL)                                                 \
   case TL:                                                                  \
-    return dstd::launch_clustered(chain_kernel<TL, kEncoder>, c, nblk, N,   \
-                                  bytes, stream);
+    return dstd::launch_clustered(chain_kernel<TL, kEncoder, Rnd>, c, nblk, \
+                                  N, bytes, stream);
     DSTD_CHAIN_CASE(1)
     DSTD_CHAIN_CASE(2)
     DSTD_CHAIN_CASE(3)
@@ -233,9 +245,14 @@ cudaError_t launch(ChainArgs c, int N, int tile, int device,
   return cudaErrorInvalidValue;
 }
 
-ChainArgs chain_args(const float* x, const float* const* w, float* out,
-                     float* scratch, int N, int T, int V, int C, int L,
-                     int Ks, int Kt, int R, int agg_left) {
+// One launch of the chain (kEncoder false: aff1, aff2 and prelu unused) or
+// of the encoder, with contraction operands rounded by Rnd.
+template <bool kEncoder, typename Rnd>
+int run_chain(const float* x, const float* const* w, const float* aff1,
+              const float* aff2, const float* prelu, float* out,
+              float* scratch, int N, int T, int V, int C, int L, int Ks,
+              int Kt, int R, int agg_left, int tile, int device,
+              void* stream) {
   const size_t act = (size_t)N * T * V * C;
   ChainArgs c = {};
   c.x = x;
@@ -245,6 +262,9 @@ ChainArgs chain_args(const float* x, const float* const* w, float* out,
   c.s = Stack{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9]};
   c.t = Stack{w[10], w[11], w[12], w[13], w[14],
               w[15], w[16], w[17], w[18], w[19]};
+  c.aff1 = aff1;
+  c.aff2 = aff2;
+  c.prelu = prelu;
   c.T = T;
   c.V = V;
   c.C = C;
@@ -253,7 +273,7 @@ ChainArgs chain_args(const float* x, const float* const* w, float* out,
   c.Kt = Kt;
   c.R = R;
   c.agg_left = agg_left;
-  return c;
+  return (int)launch<kEncoder, Rnd>(c, N, tile, device, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -273,30 +293,51 @@ const char* dstd_error_string(int err) {
 // `w` holds the 20 stacked weights: the spatial op's (base, alpha, wf, bf,
 // wm1, bm1, wm2, bm2, wrm, brm), then the temporal op's.  `scratch` holds
 // 2 * N*T*V*C floats.  Launches on `stream`; returns the cudaError_t of the
-// launch (0 = success).
+// launch (0 = success).  x and out are float32 in every variant: _f32
+// computes in float32, _bf16 rounds the operands of the four contractions
+// of each op (x wqk, x wf, s wrm, adj xf) to bf16 and keeps everything else,
+// the activation between ops included, in float32.
 int dstd_chain_f32(const float* x, const float* const* w, float* out,
                    float* scratch, int N, int T, int V, int C, int L, int Ks,
                    int Kt, int R, int agg_left, int tile, int device,
                    void* stream) {
-  const ChainArgs c = chain_args(x, w, out, scratch, N, T, V, C, L, Ks, Kt,
-                                 R, agg_left);
-  return (int)launch<false>(c, N, tile, device, (cudaStream_t)stream);
+  return run_chain<false, dstd::Exact>(x, w, nullptr, nullptr, nullptr, out,
+                                       scratch, N, T, V, C, L, Ks, Kt, R,
+                                       agg_left, tile, device, stream);
+}
+
+int dstd_chain_bf16(const float* x, const float* const* w, float* out,
+                    float* scratch, int N, int T, int V, int C, int L, int Ks,
+                    int Kt, int R, int agg_left, int tile, int device,
+                    void* stream) {
+  return run_chain<false, dstd::Bf16>(x, w, nullptr, nullptr, nullptr, out,
+                                      scratch, N, T, V, C, L, Ks, Kt, R,
+                                      agg_left, tile, device, stream);
 }
 
 // As dstd_chain_f32, with each layer's two folded BatchNorm affines
-// aff1, aff2 (L, 2, V, C) and PReLU slopes prelu (L, 2).
+// aff1, aff2 (L, 2, V, C) and PReLU slopes prelu (L, 2); the epilogues
+// (affine, residual, PReLU) are float32 in both variants.
 int dstd_encoder_chain_f32(const float* x, const float* const* w,
                            const float* aff1, const float* aff2,
                            const float* prelu, float* out, float* scratch,
                            int N, int T, int V, int C, int L, int Ks, int Kt,
                            int R, int agg_left, int tile, int device,
                            void* stream) {
-  ChainArgs c = chain_args(x, w, out, scratch, N, T, V, C, L, Ks, Kt, R,
-                           agg_left);
-  c.aff1 = aff1;
-  c.aff2 = aff2;
-  c.prelu = prelu;
-  return (int)launch<true>(c, N, tile, device, (cudaStream_t)stream);
+  return run_chain<true, dstd::Exact>(x, w, aff1, aff2, prelu, out, scratch,
+                                      N, T, V, C, L, Ks, Kt, R, agg_left,
+                                      tile, device, stream);
+}
+
+int dstd_encoder_chain_bf16(const float* x, const float* const* w,
+                            const float* aff1, const float* aff2,
+                            const float* prelu, float* out, float* scratch,
+                            int N, int T, int V, int C, int L, int Ks, int Kt,
+                            int R, int agg_left, int tile, int device,
+                            void* stream) {
+  return run_chain<true, dstd::Bf16>(x, w, aff1, aff2, prelu, out, scratch,
+                                     N, T, V, C, L, Ks, Kt, R, agg_left, tile,
+                                     device, stream);
 }
 
 }  // extern "C"

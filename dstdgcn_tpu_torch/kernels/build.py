@@ -80,12 +80,14 @@ SIGNATURES = {
     "dstd_chain": {
         # (x, weights[20], out, scratch, N, T, V, C, L, Ks, Kt, R, agg_left,
         #  tile, device, stream)
-        "dstd_chain_f32": ([_PTR, _PTRS, _PTR, _PTR] + [_INT] * 11 + [_PTR],
-                           ctypes.c_int),
+        **{f"dstd_chain_{v}": ([_PTR, _PTRS, _PTR, _PTR] + [_INT] * 11
+                               + [_PTR], ctypes.c_int)
+           for v in ("f32", "bf16")},
         # (x, weights[20], aff1, aff2, prelu, out, scratch, the same ints,
         #  stream)
-        "dstd_encoder_chain_f32": ([_PTR, _PTRS] + [_PTR] * 5 + [_INT] * 11
-                                   + [_PTR], ctypes.c_int),
+        **{f"dstd_encoder_chain_{v}": ([_PTR, _PTRS] + [_PTR] * 5
+                                       + [_INT] * 11 + [_PTR], ctypes.c_int)
+           for v in ("f32", "bf16")},
         # (T, V, C, Ks, Kt, R, tile)
         "dstd_chain_smem_bytes": ([_INT] * 7, _SIZE),
     },

@@ -29,9 +29,14 @@ call is :data:`BWD_LAUNCHES` launches.
 
 ``dstd_chain`` and ``dstd_encoder_chain`` keep the argument structure of
 their JAX counterparts (``x, blocks_or_layers, agg, dtype, nb``) and run a
-whole chain of ops as one launch of ``csrc/dstd_chain.cu``; their plain
-versions (``_chain_oracle``, ``_encoder_oracle``, built on the plain ops)
-and :func:`bn_affine` live here too, as in the JAX package.
+whole chain of ops as one launch of ``csrc/dstd_chain.cu``, float32 or,
+with ``dtype=torch.bfloat16``, the bf16 variant (``<name>_bf16``); x and
+the output are float32 in both.  Their plain versions (``_chain_oracle``,
+``_encoder_oracle``, built on the plain ops, with the ``dtype`` on
+:func:`..ops.dstd.kernel_spatial` / ``kernel_temporal``) and
+:func:`bn_affine` live here too, as in the JAX package.  The gradient of
+``dstd_chain`` replays the chain at float32 whatever its ``dtype``, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -108,23 +113,19 @@ def _check_arrays(name: str, x: torch.Tensor, arrays: Dict, want: Dict,
                              f"expected {shape}")
 
 
-class _Kernel:
-    """Shape checks, tile choice and the launch count of one CUDA kernel
-    library (``build.SOURCES`` name ``name``)."""
+class _Counted:
+    """The launch counts of one kernel wrapper, float32 in ``.launches`` and
+    bf16 in ``.launches_bf16``, and the variant a compute dtype selects."""
 
-    def __init__(self, name: str, mode: str, default_tile: int,
-                 clustered: bool):
+    def __init__(self, name: str):
         self.name = name
-        self.mode = mode
-        self.default_tile = default_tile
-        self.clustered = clustered
         self.launches = 0
         self.launches_bf16 = 0
-        self._plans: Dict[tuple, tuple] = {}
 
     def _variant(self, dtype) -> str:
         """The C function suffix of a compute dtype (``f32`` or ``bf16``);
         raises for a dtype that has no kernel."""
+        dtype = _compute_dtype(dtype)
         if dtype is None:
             return "f32"
         if dtype == torch.bfloat16:
@@ -139,6 +140,25 @@ class _Kernel:
             self.launches_bf16 += launches
         else:
             self.launches += launches
+
+    def _raise_on(self, lib, err):
+        if err != 0:
+            msg = lib.dstd_error_string(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: "
+                               f"cudaError {err} ({msg})")
+
+
+class _Kernel(_Counted):
+    """Shape checks, tile choice and the launch count of one CUDA kernel
+    library (``build.SOURCES`` name ``name``)."""
+
+    def __init__(self, name: str, mode: str, default_tile: int,
+                 clustered: bool):
+        super().__init__(name)
+        self.mode = mode
+        self.default_tile = default_tile
+        self.clustered = clustered
+        self._plans: Dict[tuple, tuple] = {}
 
     def _check(self, x, weights, g=None):
         if x.dim() != 4:
@@ -190,12 +210,6 @@ class _Kernel:
                                                        r, size)
             plan = self._plans[key] = (lib, size, floats)
         return plan
-
-    def _raise_on(self, lib, err):
-        if err != 0:
-            msg = lib.dstd_error_string(err).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: "
-                               f"cudaError {err} ({msg})")
 
 
 class FusedBwd(_Kernel):
@@ -447,14 +461,14 @@ def _flat(layers) -> list:
             for a in (part if isinstance(part, tuple) else (part,))]
 
 
-class ChainOp:
-    """Checks, tile and launch count of one entry of the chain library
-    (``csrc/dstd_chain.cu``): ``dstd_chain`` or ``dstd_encoder_chain``."""
+class ChainOp(_Counted):
+    """Checks, tile and launch counts of one entry of the chain library
+    (``csrc/dstd_chain.cu``): ``dstd_chain`` or ``dstd_encoder_chain``, each
+    with a float32 and a bf16 variant."""
 
     def __init__(self, name: str, encoder: bool):
-        self.name = name
+        super().__init__(name)
         self.encoder = encoder
-        self.launches = 0
         self._tiles: Dict[tuple, int] = {}
 
     def _check(self, x, w: ChainWeights):
@@ -502,8 +516,12 @@ class ChainOp:
             self._tiles[key] = tile
         return tile
 
-    def launch(self, x, w: ChainWeights, agg: str) -> torch.Tensor:
-        """One kernel launch on the card, outside autograd."""
+    def launch(self, x, w: ChainWeights, agg: str,
+               dtype=None) -> torch.Tensor:
+        """One kernel launch on the card, outside autograd: the float32
+        variant, or with ``dtype=torch.bfloat16`` the bf16 one; x and the
+        output are float32 in both."""
+        variant = self._variant(dtype)
         n, t, v, c, layers, ks, kt, r = self._check(x, w)
         lib = build.library("dstd_chain")
         tile = self._tile(lib, t, v, c, ks, kt, r)
@@ -518,26 +536,22 @@ class ChainOp:
                 x.device.index)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         extras = [a.data_ptr() for a in w.extras] if self.encoder else []
-        err = getattr(lib, f"{self.name}_f32")(
+        err = getattr(lib, f"{self.name}_{variant}")(
             x.data_ptr(), weights, *extras, out.data_ptr(),
             scratch.data_ptr(), *ints, stream)
-        if err != 0:
-            msg = lib.dstd_error_string(err).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: "
-                               f"cudaError {err} ({msg})")
-        self.launches += 1
+        self._raise_on(lib, err)
+        self._count(variant, 1)
         return out
 
     def _device(self, x, agg, dtype):
+        """Raise for an aggregation, a device or a compute dtype that the
+        chain has no kernel for (on the CPU too, where the plain version
+        computes the kernel's contract)."""
         if agg not in ("right", "left"):
             raise ValueError(f"agg={agg!r}: expected 'right' or 'left'")
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{self.name}: unsupported device {x.device}")
-        if _compute_dtype(dtype) is not None and x.device.type == "cuda":
-            raise NotImplementedError(
-                f"{self.name}: the CUDA chain kernel is float32 only; its "
-                f"compute dtype {dtype} (bf16 kernels 3 and 4) is the next "
-                "slice of the port, ROADMAP Queue 2")
+        self._variant(dtype)
 
 
 class DSTDChain(ChainOp):
@@ -546,11 +560,15 @@ class DSTDChain(ChainOp):
     ``dstd_chain(x, blocks, agg, dtype, nb)``: ``blocks`` holds ``(spatial,
     temporal)`` pairs of 10-tuples in the argument order of
     :data:`dstd_spatial` (or is their :func:`pack_chain`); channels stay
-    ``C`` throughout.  Differentiable: the backward replays the chain under
-    autograd through :data:`dstd_spatial` / :data:`dstd_temporal`, which on
-    the card runs the forward and backward kernels of each op, on the CPU
-    the plain ops and the plain backward.  ``nb`` (samples per grid program
-    on the TPU) has no meaning here and is ignored.
+    ``C`` throughout.  ``dtype=torch.bfloat16`` launches the bf16 variant
+    (``dstd_chain_bf16``); the output is float32 either way, as in the JAX
+    package.  Differentiable: the backward replays the chain at float32,
+    whatever ``dtype`` the forward took (``_chain_bwd`` of the JAX package
+    takes the VJP of its float32 oracle), under autograd through
+    :data:`dstd_spatial` / :data:`dstd_temporal`, which on the card runs the
+    float32 forward and backward kernels of each op, on the CPU the plain
+    ops and the plain backward.  ``nb`` (samples per grid program on the
+    TPU) has no meaning here and is ignored.
     """
 
     def __call__(self, x, blocks, agg: str = "right", dtype=None, nb=None):
@@ -567,7 +585,7 @@ class DSTDChain(ChainOp):
     def forward(self, x, layers, agg, dtype=None, packed=None):
         if x.device.type == "cpu":
             return _chain_oracle(x, layers, agg, dtype)
-        return self.launch(x, packed or pack_chain(layers), agg)
+        return self.launch(x, packed or pack_chain(layers), agg, dtype)
 
 
 def _blocks(flat) -> tuple:
@@ -577,12 +595,13 @@ def _blocks(flat) -> tuple:
 
 
 class _ChainFunction(torch.autograd.Function):
-    """Chain kernel forward; backward by replaying the ops under autograd
-    (``_chain_bwd`` of the JAX package)."""
+    """Chain kernel forward at its compute dtype; backward by replaying the
+    ops at float32 under autograd (``_chain_bwd`` of the JAX package, the
+    VJP of the float32 oracle at the saved ``x``)."""
 
     @staticmethod
     def forward(ctx, op, agg, dtype, packed, x, *flat):
-        ctx.agg, ctx.dtype = agg, dtype
+        ctx.agg = agg
         ctx.save_for_backward(x, *flat)
         return op.forward(x, _blocks(flat), agg, dtype, packed)
 
@@ -594,8 +613,8 @@ class _ChainFunction(torch.autograd.Function):
         with torch.enable_grad():
             y = inputs[0]
             for sp, tm in _blocks(inputs[1:]):
-                y = dstd_spatial(y, *sp, None, ctx.agg, ctx.dtype)
-                y = dstd_temporal(y, *tm, None, ctx.agg, ctx.dtype)
+                y = dstd_spatial(y, *sp, None, ctx.agg)
+                y = dstd_temporal(y, *tm, None, ctx.agg)
         wanted = [a for a in inputs if a.requires_grad]
         grads = iter(torch.autograd.grad(y, wanted, g))
         return (None,) * 4 + tuple(next(grads) if a.requires_grad else None
@@ -609,8 +628,11 @@ class EncoderChain(ChainOp):
     ``(spatial, temporal, aff1, aff2, prelu)`` per layer, the 10-tuples of
     the two ops, the folded eval BatchNorms (:func:`bn_affine`; aff1 the
     block's, aff2 the model's) and the two PReLU slopes ``(2,)``, or is
-    their :func:`pack_chain`.  No gradient, as in the JAX package: a call
-    that would need one raises.  ``nb`` is ignored.
+    their :func:`pack_chain`.  ``dtype=torch.bfloat16`` launches the bf16
+    variant (``dstd_encoder_chain_bf16``: bf16 contraction operands, the
+    epilogues in float32); the output is float32 either way.  No gradient,
+    as in the JAX package: a call that would need one raises.  ``nb`` is
+    ignored.
     """
 
     def __call__(self, x, layers, agg: str = "right", dtype=None, nb=None):
@@ -628,7 +650,7 @@ class EncoderChain(ChainOp):
                 "it under torch.no_grad() or torch.inference_mode()")
         if x.device.type == "cpu":
             return _encoder_oracle(x, _as_layers(given, x.device), agg, dtype)
-        return self.launch(x, packed or pack_chain(layers), agg)
+        return self.launch(x, packed or pack_chain(layers), agg, dtype)
 
 
 dstd_chain = DSTDChain("dstd_chain", encoder=False)
@@ -640,16 +662,12 @@ _KERNELS = (dstd_spatial, dstd_temporal, dstd_spatial_bwd, dstd_temporal_bwd,
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset: the float32 kernels
-    under their names, the bf16 variants of the one-op kernels as
-    ``<name>_bf16``."""
+    under their names, the bf16 variants as ``<name>_bf16``."""
     counts = {op.name: op.launches for op in _KERNELS}
-    counts.update({f"{op.name}_bf16": op.launches_bf16 for op in _KERNELS
-                   if isinstance(op, _Kernel)})
+    counts.update({f"{op.name}_bf16": op.launches_bf16 for op in _KERNELS})
     return counts
 
 
 def reset_launch_counts() -> None:
     for op in _KERNELS:
-        op.launches = 0
-        if isinstance(op, _Kernel):
-            op.launches_bf16 = 0
+        op.launches = op.launches_bf16 = 0

@@ -3,10 +3,17 @@
 Counterpart of ``dstdgcn_tpu/models/infer.py``: the eval-mode forward with
 the ``num_layers`` residual encoder layers as ONE launch of the
 whole-encoder kernel (:data:`..kernels.fused.dstd_encoder_chain`), which
-keeps the activation out of the per-op round trips of the standard forward,
-while the channel-changing in and out layers (6 -> C, C -> 3) run through
-the one-op kernel wrappers :data:`..kernels.fused.dstd_spatial` /
-``dstd_temporal`` (their plain ops on CPU tensors).
+keeps the activation out of the per-op round trips of the standard forward.
+The channel-changing in and out layers (6 -> C, C -> 3) are the XLA ops of
+the JAX package (``ops/dstd.py::dstd_spatial`` / ``dstd_temporal``): at
+float32 they run through the one-op kernel wrappers
+:data:`..kernels.fused.dstd_spatial` / ``dstd_temporal``, which compute the
+same function (their plain ops on CPU tensors); with a compute dtype they
+run the port's plain :func:`..ops.dstd.dstd_spatial` / ``dstd_temporal``
+with it, which round where the XLA ops round (q, k and the adjacency in the
+dtype, the output in the dtype) and not where the kernels' bf16 variants
+do.  The encoder takes the dtype as the JAX kernel does: on the card the
+bf16 variant of the whole-encoder kernel.
 
 It reads a :class:`.dstdgcn.DSTDGCN` module tree, whose names follow the
 flax tree the JAX functions read.  :func:`fused_weights` derives what the
@@ -23,6 +30,7 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from ..kernels import fused as fk
+from ..ops import dstd as plain
 
 __all__ = ["encoder_chain_params", "fused_weights", "fused_eval_forward",
            "FusedWeights"]
@@ -89,12 +97,15 @@ def _in_out_params(layer) -> tuple:
 def _in_out_layer(x: torch.Tensor, params: tuple, agg: str,
                   dtype) -> torch.Tensor:
     """One channel-changing ST_GCNN layer (refine, residual=False): the
-    DSTDGCB body with a projected residual."""
+    DSTDGCB body with a projected residual.  The ops are the XLA ops of the
+    JAX function: the kernel wrappers at float32, the plain ops with a
+    ``dtype`` (their rounding, not the kernels')."""
     kernel, bias, res_aff, sp, bn_aff, slope, tm = params
+    ops = fk if dtype in (None, torch.float32) else plain
     res = _apply_affine(x @ kernel + bias, res_aff)
-    y = fk.dstd_spatial(x, *sp, None, agg, dtype)
+    y = ops.dstd_spatial(x, *sp, None, agg, dtype)
     y = _prelu(_apply_affine(y, bn_aff) + res, slope)
-    return fk.dstd_temporal(y, *tm, None, agg, dtype).float()
+    return ops.dstd_temporal(y, *tm, None, agg, dtype).float()
 
 
 class FusedWeights(NamedTuple):
@@ -123,10 +134,11 @@ def fused_eval_forward(model, x: torch.Tensor, dtype=None,
 
     Equals ``model.eval()(x)``; ``x`` is the padded (N, T, V, 3) position
     sequence.  ``weights`` is :func:`fused_weights` of ``model``, derived
-    here when not given.  ``dtype`` is the compute dtype of the ops; on the
-    card the encoder kernel takes only ``None`` (float32) so far and raises
-    for bf16.  The encoder kernel has no gradient: call under
-    ``torch.no_grad()`` or ``torch.inference_mode()``.
+    here when not given.  ``dtype`` is the compute dtype: ``None``
+    (float32) or ``torch.bfloat16``, the in and out layers on the plain ops
+    with it and the encoder on the bf16 variant of its kernel.  The encoder
+    kernel has no gradient: call under ``torch.no_grad()`` or
+    ``torch.inference_mode()``.
     """
     w = fused_weights(model) if weights is None else weights
     agg = "left" if model.fast else "right"
@@ -134,6 +146,6 @@ def fused_eval_forward(model, x: torch.Tensor, dtype=None,
     h = torch.cat([x, x - residual], dim=-1)
     h = _in_out_layer(h, w.conv_in, agg, dtype)
     h = _prelu(_apply_affine(h, w.bn_in), w.prelu)  # dropout: eval = id
-    h = fk.dstd_encoder_chain(h, w.encoder, agg, dtype)
+    h = fk.dstd_encoder_chain(h.contiguous(), w.encoder, agg, dtype)
     h = _in_out_layer(h, w.conv_out, agg, dtype)
     return h + residual

@@ -170,6 +170,7 @@ def test_backward_wrappers_on_cpu_run_the_plain_backward():
             "dstd_temporal_bwd": 0, "dstd_chain": 0,
             "dstd_encoder_chain": 0,
         "dstd_spatial_bf16": 0, "dstd_temporal_bf16": 0,
-        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0}
+        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0,
+        "dstd_chain_bf16": 0, "dstd_encoder_chain_bf16": 0}
     with pytest.raises(ValueError):
         tbwd.dstd_spatial_bwd(*case, agg="middle")

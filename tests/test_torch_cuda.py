@@ -420,14 +420,95 @@ def test_chain_gradient_replays_the_op_kernels(cuda, agg):
     _assert_grads_close(got, want)
 
 
+#: the bf16 chain kernels against their plain versions (the oracles with
+#: the dtype), max |kernel - plain| over the peak |plain float32 output|,
+#: each against its own bf16-versus-float32 gap.  Two right implementations
+#: can round an op's input to neighbouring bf16 values: each layer, on the
+#: kernel's own input, within BF16_LAYER_FRAC of the layer's gap (measured
+#: up to 0.09 of it here, 0.195 in chip_smoke.py).  Over five layers a flip
+#: moves the next layers' inputs and their roundings flip in turn, so the
+#: five-layer error is held within BF16_CHAIN_FRAC of its own gap (measured
+#: up to 0.69).
+BF16_LAYER_FRAC = 0.3
+BF16_CHAIN_FRAC = 0.9
+
+
+@pytest.mark.parametrize("n", [1, 128])
+@pytest.mark.parametrize("agg", ["right", "left"])
+@pytest.mark.parametrize("encoder", [True, False])
+def test_bf16_chain_kernels_match_plain(cuda, encoder, agg, n):
+    layers = _chain_layers(5, 35, 22, 64, cuda, encoder=encoder, seed=3)
+    x = torch.randn(n, 35, 22, 64, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(n))
+    name = "dstd_encoder_chain" if encoder else "dstd_chain"
+    kernel = getattr(fused, name)
+    ref = fused._encoder_oracle if encoder else fused._chain_oracle
+    bf16 = torch.bfloat16
+
+    def held(got, x, given, frac):
+        want, want32 = ref(x, given, agg, bf16), ref(x, given, agg)
+        peak = float(want32.abs().max())
+        err = float((got - want).abs().max()) / peak
+        gap = float((want - want32).abs().max()) / peak
+        assert err <= frac * gap, (err, gap)
+
+    fused.reset_launch_counts()
+    with torch.no_grad():
+        got = kernel(x, layers, agg, bf16)
+        again = kernel(x, fused.pack_chain(layers), agg, bf16)
+        h = x
+        for i in range(len(layers)):      # layer by layer, its own input
+            y = kernel(h, layers[i:i + 1], agg, bf16)
+            held(y, h, layers[i:i + 1], BF16_LAYER_FRAC)
+            h = y
+    torch.cuda.synchronize()
+    counts = fused.launch_counts()
+    assert counts[f"{name}_bf16"] == 2 + len(layers) and counts[name] == 0
+    assert got.dtype == torch.float32
+    assert torch.equal(got, again) and torch.equal(got, h)
+    held(got, x, layers, BF16_CHAIN_FRAC)
+
+
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_bf16_chain_gradient_is_the_float32_chains(cuda, agg):
+    """dstd_chain at bf16: one bf16 chain launch, and the backward replays
+    the chain at float32 (the JAX package's VJP of its float32 oracle), so
+    the gradients equal the float32 chain's bit for bit and no bf16 one-op
+    kernel runs."""
+    blocks = _chain_layers(3, 35, 22, 64, cuda, encoder=False, seed=2)
+    x = torch.randn(3, 35, 22, 64, device=cuda)
+    g = torch.randn(3, 35, 22, 64, device=cuda)
+    grads, counts = {}, {}
+    for dtype in (torch.bfloat16, None):
+        leaves = [x.clone().requires_grad_()] + [
+            a.clone().requires_grad_() for sp, tm in blocks for a in sp + tm]
+        it = iter(leaves[1:])
+        rebuilt = [(tuple(next(it) for _ in range(10)),
+                    tuple(next(it) for _ in range(10))) for _ in blocks]
+        fused.reset_launch_counts()
+        grads[dtype] = torch.autograd.grad(
+            fused.dstd_chain(leaves[0], rebuilt, agg, dtype), leaves, g)
+        counts[dtype] = fused.launch_counts()
+    replay = dict(dstd_spatial=3, dstd_temporal=3,
+                  dstd_spatial_bwd=3 * fused.BWD_LAUNCHES,
+                  dstd_temporal_bwd=3 * fused.BWD_LAUNCHES)
+    zeros = {k: 0 for k in counts[None]}
+    assert counts[torch.bfloat16] == {**zeros, **replay,
+                                      "dstd_chain_bf16": 1}
+    assert counts[None] == {**zeros, **replay, "dstd_chain": 1}
+    assert all(torch.equal(a, b)
+               for a, b in zip(grads[torch.bfloat16], grads[None]))
+
+
 def test_chain_wrappers_reject_what_the_kernels_do_not_take(cuda):
     layers = _chain_layers(2, 10, 7, 8, cuda, encoder=True)
     blocks = [layer[:2] for layer in layers]
     x = torch.randn(2, 10, 7, 8, device=cuda)
     for fn, arg in ((fused.dstd_encoder_chain, layers),
                     (fused.dstd_chain, blocks)):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            fn(x, arg, "right", torch.bfloat16)
+        # bf16 runs its kernel (the bf16 chain tests below); float16 has none
+        with pytest.raises(NotImplementedError, match="float16"):
+            fn(x, arg, "right", torch.float16)
         with pytest.raises(ValueError):       # 11 joints, weights for 7
             fn(torch.randn(2, 10, 11, 8, device=cuda), arg)
         with pytest.raises(ValueError):       # not contiguous

@@ -67,7 +67,8 @@ def test_bridged_model_matches_flax_eval(use_pallas, fast):
         "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
         "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0,
         "dstd_spatial_bf16": 0, "dstd_temporal_bf16": 0,
-        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0}
+        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0,
+        "dstd_chain_bf16": 0, "dstd_encoder_chain_bf16": 0}
 
 
 def test_train_mode_batchnorm_matches_flax():

@@ -147,7 +147,8 @@ def test_wrapper_on_cpu_runs_plain_op_and_counts_nothing(mode):
         "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
         "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0,
         "dstd_spatial_bf16": 0, "dstd_temporal_bf16": 0,
-        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0}
+        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0,
+        "dstd_chain_bf16": 0, "dstd_encoder_chain_bf16": 0}
 
 
 def test_bf16_plain_op_rounds_contraction_inputs():

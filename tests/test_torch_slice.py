@@ -138,7 +138,8 @@ def test_slice_mpjpe_matches_jax_engine(tmp_path):
         "dstd_spatial": 0, "dstd_temporal": 0, "dstd_spatial_bwd": 0,
         "dstd_temporal_bwd": 0, "dstd_chain": 0, "dstd_encoder_chain": 0,
         "dstd_spatial_bf16": 0, "dstd_temporal_bf16": 0,
-        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0}
+        "dstd_spatial_bwd_bf16": 0, "dstd_temporal_bwd_bf16": 0,
+        "dstd_chain_bf16": 0, "dstd_encoder_chain_bf16": 0}
 
 
 def test_run_writes_testing_loss_csv(tmp_path):
