@@ -13,7 +13,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    ``dstd_encoder_chain``, each with its float32 and bf16 variant, and the
    block-sparse library with ``block_spmm``, ``block_sddmm`` and
    ``block_sddmm_spmm``: 15 kernels), with each entry function's registers
-   and spills as ``ptxas`` reports them;
+   and spills as ``ptxas`` reports them, and the number of tensor-core
+   ``HMMA`` instructions in the SASS of each backward function
+   (``cuobjdump``): some in kernel 5b's passes 2 and 3
+   (``MMA_FUNCTIONS``), none elsewhere;
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -22,7 +25,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    tensor max |kernel - plain| <= 1e-4 max(max |plain|, 1), the JAX
    package's own norm, since the weight gradients sum 24,640 rows in
    another order.  The backward's plain time is autograd through the plain
-   forward.  Chain kernels on the serving model's 5 encoder layers (BatchNorm
+   forward; the device time of each of the backward call's four launches
+   (``launch_ms``: qk, out, src, reduce) beside the call's.  Chain kernels
+   on the serving model's 5 encoder layers (BatchNorm
    calibrated, ``models/infer.py::encoder_chain_params``) at C=64:
    ``dstd_encoder_chain`` and ``dstd_chain`` (the layers' ops, each scaled
    to an output peak of 1) against their plain versions, and the gradients
@@ -96,10 +101,13 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    knobs resolve to bf16, exact launch counts of the four bf16 kernels and
    none of the float32 DSTD-GC kernels, finite losses and MPJPE, step wall
    times and one step's device time by kernel; then one bf16 train step
-   (dropout 0, BatchNorm calibrated) against the plain path of the same
-   contract on the card: the loss within BF16_LOSS_RTOL, the worst
-   gradient within a quarter of the step's bf16-versus-float32 gap, the
-   gate gradients against a float64 run of the same rounding;
+   (dropout 0, BatchNorm calibrated) of a fresh kernel-path model against
+   the plain path of the same contract on the card, at the weights the
+   plain path reaches in as many train steps from the same seeded initial
+   weights (no kernel under test moves them): the loss within
+   BF16_LOSS_RTOL, and the gate gradients and the other gradients, each as
+   a group, on average no farther from the plain path's float64 run than
+   BF16_STEP_NOISE times the plain path's own distance;
 10. the bf16 fused serving slice: ``main.run`` on
    ``synthetic_h36m_tpu_fused`` (the flagship TPU configuration's model and
    engine blocks with ``engine.fused_inference``, batch 128, 4 eval
@@ -163,19 +171,27 @@ GRAD_TOL = 1e-3
 #: forward, 9.2e-3 to 7.9e-2 backward).
 BF16_TOL = dict(forward=1.2e-3, backward=2.5e-3)
 #: the bf16 train step, kernel path against the plain path of the same
-#: contract: the loss (relative), and the worst parameter gradient over
-#: max(max |plain|, 1) within BF16_STEP_FRAC of the step's own
-#: bf16-versus-float32 gap (the largest such distance over the gradients:
-#: a rounding flip in one implementation moves a few elements, bf16
-#: rounding all of them).  The gate gradients (alpha) sum about a million
-#: cancelling products dA * dyn, so each bf16 run's flips move them by
-#: up to a tenth of max(|g|, 1): no run is their reference, the float64 run
-#: of the same rounding included (it rounds its own intermediates).  They
-#: are held as a group: the kernel path's largest distance to the float64
-#: run within BF16_STEP_FRAC of the gates' largest bf16-versus-float32 gap,
-#: the plain path's distance printed beside it.
+#: contract, at weights the plain path trains: the loss (relative), and
+#: for the gate gradients (alpha) and for the rest, the mean over the
+#: group's parameters of the distance to the plain path's float64 run (the
+#: same rounding points), max |a - b| over max(max |float64|, 1), within
+#: BF16_STEP_NOISE times the plain float32 path's own mean distance (the
+#: float32 step's factor, GRAD_TOL).  A rounding flip in one float32 run
+#: moves a bf16 intermediate by a bf16 step and the gradients downstream
+#: with it: the gates sum about a million cancelling products dA * dyn,
+#: and every run's flips move them by up to a tenth of max(|g|, 1), the
+#: float64 run's own included.  So the noise is the plain path's distance
+#: at the same weights, neither a fixed bound nor the bf16-versus-float32
+#: gap (which that noise reaches at many weights); and a group's mean, as
+#: one run's flips hit other parameters than another's (the largest
+#: distances differ by up to 2.5x between right kernels).  Measured on the
+#: H100 (``step_noise.py``, 6 weight states, 5b's tensor-core kernel and
+#: its CUDA-core predecessor): the mean ratio 0.70-1.21 (gates) and
+#: 0.96-1.09 (the rest); a 5b whose dx misses one joint reaches 2.4-11.7
+#: and 5.1-10.8.  A 1% error in one weight gradient stays under it: phase
+#: 3 holds each kernel's gradients at BF16_TOL.
 BF16_LOSS_RTOL = 1e-3
-BF16_STEP_FRAC = 0.4
+BF16_STEP_NOISE = 2.0
 #: the bf16 chain kernels against their plain versions (``_chain_oracle`` /
 #: ``_encoder_oracle`` with the dtype) on the calibrated serving encoder,
 #: max |kernel - plain| over the peak |plain float32 output|, each held
@@ -251,6 +267,21 @@ BF16_FORWARD = ("dstd_spatial_bf16", "dstd_temporal_bf16")
 BF16_BACKWARD = ("dstd_spatial_bwd_bf16", "dstd_temporal_bwd_bf16")
 BF16_CHAINS = ("dstd_chain_bf16", "dstd_encoder_chain_bf16")
 SPARSE = ("block_spmm", "block_sddmm", "block_sddmm_spmm")
+#: the 11 outputs of a DSTD-GC backward call, in order
+GRADIENTS = ("dx", "dbase", "dalpha", "dwf", "dbf", "dwm1", "dbm1", "dwm2",
+             "dbm2", "dwrm", "dbrm")
+#: the four launches of a DSTD-GC backward call (``dstd_bwd_common.cuh``)
+BWD_PASSES = ("qk", "out", "src", "reduce")
+#: the backward functions whose products run on the tensor cores (bf16
+#: ``mma.sync``, ``csrc/dstd_mma.cuh``): kernel 5b's passes 2 and 3, every
+#: tile; the float32 and temporal instantiations keep their CUDA-core FMAs
+MMA_FUNCTIONS = ("dstd_bwd::out_kernel<false, ",
+                 "dstd_bwd::src_kernel<false, ")
+
+
+def uses_mma(function):
+    return function.startswith(MMA_FUNCTIONS) and function.endswith(
+        "dstd::Bf16>")
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
 SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C, SPARSE_BLOCK = 4, 4096, 4, 128, 128
 #: kernel against plain version, max |kernel - plain| <= tol max(|plain|, 1)
@@ -295,17 +326,58 @@ def ptxas_usage(log):
         if m and name:
             rows.append([name, int(m.group(1)), *spill])
             name = None
-    try:
-        names = subprocess.run(["c++filt"], input="\n".join(
-            r[0] for r in rows), capture_output=True, text=True,
-            timeout=60).stdout.splitlines()
-    except OSError:
-        names = []
-    if len(names) == len(rows):
-        for r, full in zip(rows, names):
-            full = full.replace("(anonymous namespace)::", "")
-            r[0] = full.split("(")[0].removeprefix("void ")
+    for r, full in zip(rows, demangle([r[0] for r in rows])):
+        r[0] = full
     return [tuple(r) for r in rows]
+
+
+def demangle(names):
+    """``names`` demangled by ``c++filt`` where the toolchain has it, as
+    ``ns::kernel<args>``; else as they are."""
+    try:
+        full = subprocess.run(["c++filt"], input="\n".join(names),
+                              capture_output=True, text=True,
+                              timeout=60).stdout.splitlines()
+    except OSError:
+        full = []
+    if len(full) != len(names):
+        return list(names)
+    return [f.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for f in full]
+
+
+def sass_mma(path):
+    """{kernel: (number of tensor-core ``HMMA`` instructions, of all
+    instructions)} of each function in the SASS of the built library at
+    ``path`` (``cuobjdump -sass``); fails where the toolkit has no
+    cuobjdump, since the tensor-core check cannot run without it."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.access(tool, os.X_OK), "no cuobjdump: the SASS of the "
+                                    "backward kernels cannot be read")
+    proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
+    counts = sass_counts(proc.stdout)
+    return dict(zip(demangle(list(counts)), counts.values()))
+
+
+def sass_counts(text):
+    """{mangled kernel: (HMMA instructions, instructions)} of a
+    ``cuobjdump -sass`` listing: an instruction is a line with an address
+    comment (``/*0a70*/``), a function starts at ``Function : name``."""
+    import re
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = (0, 0)
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            hmma, total = counts[name]
+            counts[name] = (hmma + bool(re.search(r"\bHMMA\b", line)),
+                            total + 1)
+    return counts
 
 
 def op_weights(mode, ci, co):
@@ -644,14 +716,30 @@ def device_profile(torch, fn, iters, tries=3, host=None):
     return {}
 
 
-def device_ms(torch, fn, iters):
+def device_ms(torch, fn, iters, split=None):
     """(ms per call, how it was timed): the profiler's device time, or the
     CUDA-event time per call (host gaps included) if the profiler saw
-    nothing."""
-    total = sum(device_profile(torch, fn, iters).values())
+    nothing.  A ``split`` dict receives the device ms per call of each of a
+    backward call's four launches (``bwd_split``)."""
+    prof = device_profile(torch, fn, iters)
+    total = sum(prof.values())
     if total > 0:
+        if split is not None:
+            split.update(bwd_split(prof))
         return total, "profiler"
     return time_ms(torch, fn, iters), "events"
+
+
+def bwd_split(prof):
+    """{launch: device ms per call} of the four launches of a DSTD-GC
+    backward call (``dstd_bwd::qk_kernel``, ``out_kernel``, ``src_kernel``,
+    ``reduce_kernel``) in a ``device_profile`` dict."""
+    split = dict.fromkeys(BWD_PASSES, 0.0)
+    for key, ms in prof.items():
+        for name in BWD_PASSES:
+            if f"dstd_bwd::{name}_kernel<" in key:
+                split[name] += ms
+    return split
 
 
 def errors(torch, got, want):
@@ -785,7 +873,9 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
     against the plain version of its contract at batch ``n`` and every
     (Ci, Co) of ``shapes``, both aggregations: the error, the tolerance and
     the bf16-versus-float32 gap of the plain versions, the error within
-    BF16_TOL and BF16_TOL below half the gap.  The forward compares the
+    BF16_TOL and BF16_TOL below half the gap; per gradient of the
+    backward, the kernel's and the plain version's distance to the plain
+    version in float64 (``kernel_plain_vs_f64``).  The forward compares the
     kernel's float32 output before the wrapper's cast (``FusedOp.launch``).
     Times (the model's aggregation, right): the kernel, its plain version
     (the plain forward; the hand-derived plain backward), and the float32
@@ -820,6 +910,9 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                     want32 = fplain(*args, None, agg)
                     gwant = pbwd(args[0], g, *args[1:], agg=agg, dtype=bf16)
                     gwant32 = pbwd(args[0], g, *args[1:], agg=agg)
+                    gwant64 = pbwd(*[a.double() for a in (args[0], g)],
+                                   *[a.double() for a in args[1:]], agg=agg,
+                                   dtype=bf16)
                 peak = float(want32.abs().max())
                 results = {}
                 fwd_err = float((got - want).abs().max())
@@ -835,6 +928,14 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                         for a, b, nrm in zip(grads, gwant, norms)),
                     max(float((b - c).abs().max()) / nrm
                         for b, c, nrm in zip(gwant, gwant32, norms)))
+                # per gradient, the kernel's and the plain version's
+                # distance to the plain version in float64 (the same
+                # rounding points), over max(max |float64|, 1)
+                f64 = {}
+                for key, a, b, c in zip(GRADIENTS, grads, gwant, gwant64):
+                    nrm = max(float(c.abs().max()), 1.0)
+                    f64[key] = [float((a.double() - c).abs().max()) / nrm,
+                                float((b.double() - c).abs().max()) / nrm]
                 for part, (abs_err, err, gap) in results.items():
                     name = (f"dstd_{mode}_bf16" if part == "forward"
                             else f"dstd_{mode}_bwd_bf16")
@@ -843,6 +944,8 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                                 max_abs_err=abs_err, norm_err=err, tol=tol,
                                 bf16_vs_f32_gap=gap,
                                 ok=err <= tol < gap / 2)
+                    if part == "backward":
+                        line.update(kernel_plain_vs_f64=f64)
                     max_err[name] = max(max_err[name], abs_err)
                     if agg == "right":
                         if part == "forward":
@@ -866,14 +969,19 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                         else:
                             def f32_call(args=args, g=g):
                                 return bwd(args[0], g, *args[1:])
+                        split = {} if part == "backward" else None
+                        f32_split = {} if part == "backward" else None
                         k_call = time_ms(torch, call, 10)
-                        k_ms, k_by = device_ms(torch, call, 10)
+                        k_ms, k_by = device_ms(torch, call, 10, split)
                         p_ms, p_by = device_ms(torch, plain_call, 3)
-                        f32_ms, _ = device_ms(torch, f32_call, 10)
+                        f32_ms, _ = device_ms(torch, f32_call, 10, f32_split)
                         b_ms, t_ops, t_mem = bound_ms(
                             mode, n, ci, co, part == "backward", bf16)
                         timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call,
-                                                        k_by)
+                                                        k_by, split)
+                        if split is not None:
+                            line.update(launch_ms=split,
+                                        f32_launch_ms=f32_split)
                         line.update(ms=k_ms, plain_ms=p_ms, call_ms=k_call,
                                     f32_kernel_ms=f32_ms,
                                     timed_by=[k_by, p_by], bound_ms=b_ms,
@@ -980,7 +1088,7 @@ def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
                     b_ms, t_ops, t_mem = bound_of(*chain_cost(
                         n, h.shape[-1], len(given), base ==
                         "dstd_encoder_chain", bf16))
-                    timings[(name, agg)] = (k_ms, p_ms, k_call, k_by)
+                    timings[(name, agg)] = (k_ms, p_ms, k_call, k_by, None)
                     line.update(ms=k_ms, plain_ms=p_ms, call_ms=k_call,
                                 f32_kernel_ms=f32_ms, **{
                                     f"ms_n{N}": small_ms,
@@ -1067,13 +1175,11 @@ def bf16_phase(torch, np, fused, device):
     then one bf16 train step on one batch (dropout 0, BatchNorm calibrated)
     against the plain path of the same contract on the card: the loss, every
     gradient (below half of the step's bf16-versus-float32 gap), and the
-    gate gradients against a float64 run of the same rounding.  Returns
-    (report, the slice's launch counts)."""
+    gate gradients against a float64 run of the same rounding
+    (``bf16_step_check``).  Returns (report, the slice's launch counts)."""
     from dstdgcn_tpu_torch import configs
     from dstdgcn_tpu_torch.data import get_dataset
-    from dstdgcn_tpu_torch.engine import PredictionEngine
     from dstdgcn_tpu_torch.main import run
-    from dstdgcn_tpu_torch.models import get_model
     from dstdgcn_tpu_torch.utils.config import resolve
     report = {}
     cfg = configs.synthetic_h36m_tpu_train()
@@ -1134,11 +1240,12 @@ def bf16_phase(torch, np, fused, device):
                   launches=counts, steps=steps, evals=evals, wall=wall)
 
     # where the time of one bf16 train step goes on the card
-    train_ds = get_dataset("synthetic", **rcfg["dataset"]["train"])
-    batch = [a[:bs] for a in train_ds.arrays()[:3]]
+    train = get_dataset("synthetic", **rcfg["dataset"]["train"]).arrays()[:3]
+    batches = [[a[i:i + bs] for a in train]
+               for i in range(0, len(train[0]) - bs + 1, bs)]
 
     def step():
-        return eng.train_step(*batch)
+        return eng.train_step(*batches[0])
 
     step_call = time_ms(torch, step, 5)
     host = {}
@@ -1164,94 +1271,145 @@ def bf16_phase(torch, np, fused, device):
                              by_kernel=prof, dstd_ms=by_kernel,
                              host_ms=sum(host.values()))
 
-    # one bf16 train step: kernel path against the plain path of the same
-    # contract, the plain path at float32 beside it (the gap bf16 makes),
-    # and the gate gradients against a float64 run of the same rounding
+    # one bf16 train step against the plain path of the same contract, at
+    # weights the plain path trains (no kernel under test moves them)
+    report["step_check"] = bf16_step_check(torch, fused, device, rcfg,
+                                           batches, steps, per_fwd)
+    return report, counts
+
+
+def bf16_step_engines(torch, device, rcfg):
+    """The engines of the bf16 step check, each at the bf16 slice's seeded
+    initial weights: ``kernel`` (the port's model), ``plain`` (the plain
+    path of the same contract, ``plain_contract``), ``plain_f32`` (that at
+    float32: the gap bf16 makes) and ``float64`` (the plain path in
+    float64 with the same rounding points)."""
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.models import get_model
     opts = dict({k: v for k, v in rcfg["model"].items() if k != "name"},
-                auto_batch_hint=bs)
-    engines = {"kernel": eng}
-    for label, extra, dtype in (("plain", {}, None),
+                auto_batch_hint=rcfg["train_batch_size"])
+    engines = {}
+    for label, extra, dtype in (("kernel", {}, None), ("plain", {}, None),
                                 ("plain_f32", dict(compute_dtype=None), None),
                                 ("float64", {}, torch.float64)):
-        m = plain_contract(torch, get_model("dstdgcn", **dict(opts, **extra)))
+        m = get_model("dstdgcn", **dict(opts, **extra))
+        if label != "kernel":
+            m = plain_contract(torch, m)
         if dtype is not None:
             m = m.to(dtype)
         engines[label] = PredictionEngine(rcfg["engine"], m, device=device)
         engines[label].init()
+    return engines
+
+
+def bf16_step_grads(torch, device, engines, state, batch):
+    """Every engine at ``state`` (BatchNorm calibrated on ``batch`` through
+    the plain path, dropout 0), one train step's loss and gradients each
+    (float64 per parameter name); the float64 engine runs the step's two
+    passes in float64.  Returns (losses, grads)."""
     pmodel = engines["plain"].model
-    pmodel.load_state_dict(model.state_dict())
+    pmodel.load_state_dict(state)
     calibrate_batchnorm(torch, pmodel, engines["plain"].transform(
         engines["plain"].to_device(batch[0])))
+    losses = {}
     for label, e in engines.items():
         if label != "plain":
             e.model.load_state_dict(pmodel.state_dict())
         e.model.do_in.p = 0.0
-    before = fused.launch_counts()
-    losses = {"kernel": float(eng.compute_gradients(*batch)["total"])}
-    after = fused.launch_counts()
-    for label in ("plain", "plain_f32"):
-        losses[label] = float(engines[label].compute_gradients(*batch)[
-            "total"])
+        if label != "float64":
+            losses[label] = float(e.compute_gradients(*batch)["total"])
     m64, e64 = engines["float64"].model, engines["float64"]
     b64 = [torch.as_tensor(a, dtype=torch.float64, device=device)
            for a in batch]
     m64.train()
+    m64.zero_grad(set_to_none=True)
     total64 = (sum(e64._one_pass(b64[0], b64[2], None, None, None).values())
                + sum(e64._one_pass(b64[1], b64[2].flip(1), None, None,
                                    None).values())) / 2
     total64.backward()
-    losses["float64"] = float(total64)
+    losses["float64"] = float(total64.detach())
     grads = {label: {n: p.grad.double() for n, p in e.model
                      .named_parameters()} for label, e in engines.items()}
+    return losses, grads
 
+
+def step_errors(grads):
+    """{parameter: (kernel vs plain, plain bf16 vs plain float32, kernel vs
+    float64, plain vs float64)}, each max |a - b| over max(max |b|, 1)."""
     def rel(a, b):
         return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
 
-    step_launches = {k: after[k] - before[k] for k in after}
-    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-    errs = {n: (rel(g, grads["plain"][n]),
+    return {n: (rel(g, grads["plain"][n]),
                 rel(grads["plain_f32"][n], grads["plain"][n]),
                 rel(g, grads["float64"][n]),
                 rel(grads["plain"][n], grads["float64"][n]))
             for n, g in grads["kernel"].items()}
-    gates = [n for n in errs if n.endswith(("alpha_sm", "alpha_tm"))]
-    others = [n for n in errs if n not in gates]
-    worst = max(others, key=lambda n: errs[n][0])
-    gap = max(errs[n][1] for n in others)
-    gate_k64 = max(errs[n][2] for n in gates)
-    gate_p64 = max(errs[n][3] for n in gates)
-    gate_gap = max(errs[n][1] for n in gates)
-    print(f"bf16: one step, kernel path vs plain path: loss {losses} (rel "
-          f"{loss_rel:.3g}); launches {step_launches}")
-    for n in sorted(errs, key=lambda n: -errs[n][0])[:4] + gates:
-        print(f"bf16: gradient {n}: kernel vs plain {errs[n][0]:.3g}, "
-              f"plain bf16 vs plain float32 {errs[n][1]:.3g}, kernel vs "
-              f"float64 {errs[n][2]:.3g}, plain vs float64 "
-              f"{errs[n][3]:.3g} of max(|reference|, 1)")
-    print(f"bf16: worst gradient {worst} {errs[worst][0]:.3g}, tolerance "
-          f"{BF16_STEP_FRAC * gap:.3g} ({BF16_STEP_FRAC} of the step's "
-          f"bf16-versus-float32 gap {gap:.3g})")
-    print(f"bf16: gate gradients: kernel path at most {gate_k64:.3g} from "
-          f"the float64 run (plain path {gate_p64:.3g}), tolerance "
-          f"{BF16_STEP_FRAC * gate_gap:.3g} ({BF16_STEP_FRAC} of their "
-          f"bf16-versus-float32 gap {gate_gap:.3g})")
+
+
+def step_groups(names):
+    """{"gates": the gate parameters (alpha), "others": the rest}."""
+    gates = [n for n in names if n.endswith(("alpha_sm", "alpha_tm"))]
+    return dict(gates=gates, others=[n for n in names if n not in gates])
+
+
+def step_verdict(errs):
+    """The judgement of the bf16 step check on ``step_errors``: for the
+    gate gradients (alpha) and for the other gradients, the group's mean
+    distance of the kernel path to the float64 run against the plain
+    path's.  Returns {group: (kernel mean, plain mean, bound, the parameter
+    farthest from float64 on the kernel path)}."""
+    out = {}
+    for group, names in step_groups(errs).items():
+        kernel64 = sum(errs[n][2] for n in names) / len(names)
+        plain64 = sum(errs[n][3] for n in names) / len(names)
+        worst = max(names, key=lambda n: errs[n][2])
+        out[group] = (kernel64, plain64, BF16_STEP_NOISE * plain64, worst)
+    return out
+
+
+def bf16_step_check(torch, fused, device, rcfg, batches, steps, per_fwd):
+    """One bf16 train step of the kernel path against the plain path of the
+    same contract on the card, at the weights the plain path reaches in
+    ``steps`` train steps from the slice's seeded initial weights: the loss
+    within BF16_LOSS_RTOL, each gradient group (gates, the rest) on average
+    no farther from the float64 run than BF16_STEP_NOISE times the plain
+    path's own distance, and the step's launches.  Returns the numbers."""
+    engines = bf16_step_engines(torch, device, rcfg)
+    for i in range(steps):      # dropout on, as the slice trains
+        engines["plain"].train_step(*batches[i % len(batches)])
+    state = copy.deepcopy(engines["plain"].model.state_dict())
+    before = fused.launch_counts()
+    losses, grads = bf16_step_grads(torch, device, engines, state,
+                                    batches[0])
+    after = fused.launch_counts()
+    step_launches = {k: after[k] - before[k] for k in after}
+    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    errs = step_errors(grads)
+    verdict = step_verdict(errs)
+    print(f"bf16: one step at the weights of {steps} plain-path steps, "
+          f"kernel path vs plain path: loss {losses} (rel {loss_rel:.3g}); "
+          f"launches {step_launches}")
+    for n in sorted(errs, key=lambda n: -errs[n][2])[:6]:
+        print(f"bf16: gradient {n}: kernel vs float64 {errs[n][2]:.3g}, "
+              f"plain vs float64 {errs[n][3]:.3g}, kernel vs plain "
+              f"{errs[n][0]:.3g}, plain bf16 vs plain float32 "
+              f"{errs[n][1]:.3g} of max(|reference|, 1)")
+    for group, (k64, p64, bound, worst) in verdict.items():
+        print(f"bf16: {group} gradients: kernel path on average {k64:.3g} "
+              f"from the float64 run (farthest {worst}), plain path "
+              f"{p64:.3g}, tolerance {bound:.3g} ({BF16_STEP_NOISE} times "
+              "the plain path's)")
     check(loss_rel <= BF16_LOSS_RTOL, f"bf16 train loss: {losses}")
-    check(errs[worst][0] <= BF16_STEP_FRAC * gap,
-          f"bf16 gradient of {worst}: {errs[worst][0]} of max(|plain|, 1), "
-          f"gap {gap}")
-    check(gate_k64 <= BF16_STEP_FRAC * gate_gap,
-          f"bf16 gate gradients: {gate_k64} from float64 (plain path "
-          f"{gate_p64}), gap {gate_gap}")
+    for group, (k64, p64, bound, worst) in verdict.items():
+        check(k64 <= bound, f"bf16 {group} gradients: on average {k64} from "
+                            f"float64, plain path {p64}")
     check(step_launches == {
         **{k: 0 for k in step_launches},
         **{k: 2 * per_fwd for k in BF16_FORWARD},
         **{k: 2 * per_fwd * fused.BWD_LAUNCHES for k in BF16_BACKWARD}},
         f"one bf16 train step launched {step_launches}")
-    report["step_check"] = dict(losses=losses, loss_rel=loss_rel,
-                                worst=worst, gap=gap, gate_k64=gate_k64,
-                                gate_p64=gate_p64, gate_gap=gate_gap,
-                                grad_errs=errs)
-    return report, counts
+    return dict(steps=steps, losses=losses, loss_rel=loss_rel,
+                verdict=verdict, grad_errs=errs)
 
 
 def fused_bf16_phase(torch, np, fused, device):
@@ -1468,6 +1626,17 @@ def run_smoke():
         for kernel, regs, stores, loads in usage:
             print(f"  ptxas {name}: {kernel}: {regs} registers, spill "
                   f"{stores} bytes stored / {loads} loaded")
+    # the tensor-core products in the SASS of the backward libraries
+    report["sass_hmma"] = {}
+    for name in ("dstd_spatial_bwd", "dstd_temporal_bwd"):
+        mma = sass_mma(build.library(name)._name)
+        report["sass_hmma"][name] = mma
+        for kernel, (count, size) in mma.items():
+            print(f"  sass {name}: {kernel}: {count} HMMA of {size} "
+                  "instructions")
+            check((count > 0) == uses_mma(kernel),
+                  f"{kernel}: {count} HMMA instructions in its SASS, "
+                  f"expected {'some' if uses_mma(kernel) else 'none'}")
 
     # 3. each kernel against its plain version at the serving and training
     # shapes (the two slices' configs share the model block)
@@ -1497,7 +1666,8 @@ def run_smoke():
                                        10)
                 launches = kernel.launches - before
                 b_ms, t_ops, t_mem = bound_ms(mode, N, ci, co)
-                timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call, k_by)
+                timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call, k_by,
+                                                None)
                 max_err[name] = max(max_err[name], abs_err)
                 line = dict(kernel=name, agg=agg, ci=ci, co=co, n=N,
                             max_abs_err=abs_err, max_rel_err=rel_err,
@@ -1546,14 +1716,17 @@ def run_smoke():
 
                 k_call = time_ms(torch, call, 20)
                 p_call = time_ms(torch, plain_call, 10)
-                k_ms, k_by = device_ms(torch, call, 20)
+                split = {}
+                k_ms, k_by = device_ms(torch, call, 20, split)
                 p_ms, p_by = device_ms(torch, plain_call, 10)
                 b_ms, t_ops, t_mem = bound_ms(mode, N, ci, co, True)
-                timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call, k_by)
+                timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call, k_by,
+                                                split)
                 max_err[name] = max(max_err[name], abs_err)
                 line = dict(kernel=name, agg=agg, ci=ci, co=co, n=N,
                             max_abs_err=abs_err, max_norm_err=norm_err,
                             ok=ok, repeatable=repeat, ms=k_ms,
+                            launch_ms=split,
                             plain_ms=p_ms, call_ms=k_call,
                             plain_call_ms=p_call, timed_by=[k_by, p_by],
                             bound_ms=b_ms,
@@ -1615,7 +1788,7 @@ def run_smoke():
             p_ms, p_by = device_ms(torch, plain_call, 5)
             b_ms, t_ops, t_mem = bound_of(*chain_cost(
                 N, feat, n_layers, name == "dstd_encoder_chain"))
-            timings[(name, agg)] = (k_ms, p_ms, k_call, k_by)
+            timings[(name, agg)] = (k_ms, p_ms, k_call, k_by, None)
             max_err[name] = max(max_err[name], abs_err)
             line = dict(kernel=name, agg=agg, n=N, c=feat, layers=n_layers,
                         max_abs_err=abs_err, max_norm_err=norm_err,
@@ -2108,7 +2281,8 @@ def run_smoke():
             kernels.append(sparse_entries[name])
             continue
         if name in CHAINS + BF16_CHAINS:
-            ms, plain_ms, call_ms, k_by = timings[(name, agg_main)]
+            ms, plain_ms, call_ms, k_by, _ = timings[(name, agg_main)]
+            split = None
             timed_by = {k_by}
             bf16 = name in BF16_CHAINS
             b_ms, ops_ms, mem_ms = bound_of(*chain_cost(
@@ -2121,13 +2295,17 @@ def run_smoke():
             bf16 = name.endswith("_bf16")
             n, dtype = (nb16, torch.bfloat16) if bf16 else (N, None)
             ms = plain_ms = call_ms = b_ms = ops_ms = mem_ms = 0.0
+            split = dict.fromkeys(BWD_PASSES, 0.0) if backward else None
             timed_by = set()
             for m, ci, co in forward_shapes(bmodel_cfg if bf16
                                             else model_cfg):
                 if m != mode:
                     continue
-                k_t, p_t, k_call, k_by = timings[(name, ci, co, agg_main)]
+                k_t, p_t, k_call, k_by, k_split = timings[(name, ci, co,
+                                                           agg_main)]
                 timed_by.add(k_by)
+                for key, t in (k_split or {}).items():
+                    split[key] += t
                 b, t_ops, t_mem = bound_ms(mode, n, ci, co, backward, dtype)
                 ms, plain_ms, b_ms = ms + k_t, plain_ms + p_t, b_ms + b
                 call_ms += k_call
@@ -2141,6 +2319,8 @@ def run_smoke():
             library_ms=None, call_ms=call_ms,
             serving_launches=counts[name], fused_launches=fcounts[name],
             timed_by="+".join(sorted(timed_by))))
+        if split is not None:
+            kernels[-1].update(launch_ms=split)
         if name.endswith("_bf16"):
             kernels[-1].update(n=nf16 if name in BF16_CHAINS else nb16)
     report["kernels"] = kernels

@@ -26,7 +26,10 @@
 //      ds = sum_o wrm ddyn, du = ds (1 - S^2), dq/dk, adds dqk wqk^T to dx,
 //      and writes partial sums of dwrm (a warp per entry), dwqk, dbqk.
 // The five products of pass 2 (features, dA, dxf, dx, dwf) run as
-// register-tiled block products (block_gemm: 4 x 4 outputs per thread).
+// register-tiled block products (block_gemm: 4 x 4 outputs per thread) on
+// the CUDA cores; in the bf16 spatial kernel they, and pass 3's dwrm, run
+// as bf16 mma.sync products with float32 accumulators on the tensor cores
+// (block_mma, dstd_mma.cuh), the same function in another summation order.
 //   4. reduce_kernel: sums each partial array in a fixed order, one thread
 //      per weight-gradient element.  No atomics: the result is the same from
 //      run to run.
@@ -48,7 +51,10 @@
 // sum is dbf; the scores, which du reads; dq/dk, whose sum is dbqk).
 #pragma once
 
+#include <type_traits>
+
 #include "dstd_common.cuh"
+#include "dstd_mma.cuh"
 
 namespace dstd_bwd {
 
@@ -208,6 +214,17 @@ __device__ inline void block_gemm(int batch, int M, int Nn, int S, int Q,
   }
 }
 
+// The block products of pass 2: on the tensor cores (block_mma, bf16
+// mma.sync with float32 accumulators) where MMA, else block_gemm.
+template <bool MMA, typename LA, typename LB, typename ST>
+__device__ inline void block_product(int batch, int M, int Nn, int S, int Q,
+                                     LA la, LB lb, ST st) {
+  if constexpr (MMA)
+    dstd_mma::block_mma(batch, M, Nn, S, Q, la, lb, st);
+  else
+    block_gemm(batch, M, Nn, S, Q, la, lb, st);
+}
+
 // x / g / dx row of (mixing index s, pair index i)
 template <bool TEMPORAL>
 __device__ inline int xrow(int s, int i, int V) {
@@ -267,6 +284,8 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   float* wfs = sm + L.wfs;
   float* xs = sm + L.xs;
   float* red = sm + L.red;
+  // the bf16 spatial backward runs its five products on the tensor cores
+  constexpr bool kMma = !TEMPORAL && std::is_same_v<Rnd, Bf16>;
   const float alpha = __ldg(a.alpha);
   const size_t TV = (size_t)T * V;
   const float* xn = a.x + n * TV * Ci;
@@ -299,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   }
   __syncthreads();
   // the tile's features: xf[k] = x wf[k] + bf[k]
-  block_gemm(
+  block_product<kMma>(
       K, rows, Co, 1, Ci,
       [&](int, int m, int, int q) { return xs[m * XS + q]; },
       [&](int k, int, int q, int n) { return wfs[(k * Ci + q) * CS + n]; },
@@ -337,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   // product over channels; dalpha = sum dA * dyn
   float dal = 0.f;
   const bool left = a.agg_left;
-  block_gemm(
+  block_product<kMma>(
       K * tn, P, P, 1, Co,
       [&](int bt, int i, int, int c) {
         const int k = bt / tn, tt = bt - k * tn;
@@ -394,7 +413,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
 
   // dxf through the aggregation, into xf's place: right dxf[o,b] =
   // sum_m adj[o,b,m] g[o,m]; left dxf[o,b] = sum_m adj[o,m,b] g[o,m]
-  block_gemm(
+  block_product<kMma>(
       K * tn, P, Co, 1, P,
       [&](int bt, int b, int, int m) {
         const int k = bt / tn, tt = bt - k * tn;
@@ -412,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   __syncthreads();
 
   // dx of the tile's rows = sum_k dxf[k] wf[k]^T (the first contribution)
-  block_gemm(
+  block_product<kMma>(
       1, rows, Ci, K, Co,
       [&](int, int m, int k, int c) {
         return Rnd::r(xf[(k * TILE * P + m) * CS + c]);
@@ -424,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       });
   // dwf / dbf partials over the tile's rows
   float* pwf = a.scratch + S.pwf + (size_t)blk * K * Ci * Co;
-  block_gemm(
+  block_product<kMma>(
       K, Ci, Co, 1, rows,
       [&](int, int ci, int, int m) { return xs[m * XS + ci]; },
       [&](int k, int, int m, int c) {
@@ -451,7 +470,7 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
   const int n = blockIdx.y, s0 = blockIdx.x * TILE;
   const int tn = min(TILE, REF - s0), rows = tn * P;
   const int blk = n * gridDim.x + blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const LayoutSrc L(T, V, Ci, K, R, TILE, TEMPORAL);
   const Scratch S(a.N, T, V, Ci, a.Co, K, R, TILE, TEMPORAL);
   float* qk = sm + L.qk;
@@ -459,6 +478,8 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
   float* su = sm + L.su;
   float* dqk = sm + L.dqk;
   float* wqk = sm + L.wqk;
+  // the bf16 spatial backward runs dwrm on the tensor cores
+  constexpr bool kMma = !TEMPORAL && std::is_same_v<Rnd, Bf16>;
   const size_t TV = (size_t)T * V;
   const float* xn = a.x + n * TV * Ci;
   float* dxn = a.dx + n * TV * Ci;
@@ -496,18 +517,39 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
   }
   __syncthreads();
 
-  // dwrm[k,r,s,o] = sum_{i,j} S[k,r,s,i,j] ddyn[k,o,i,j]: a warp per entry
+  // dwrm[k,r,s,o] = sum_{i,j} S[k,r,s,i,j] ddyn[k,o,i,j]
   float* pwrm = a.scratch + S.pwrm + (size_t)n * K * R * REF * REF;
-  for (int task = warp; task < K * R * tn * REF; task += kWarps) {
-    const int krt = task / REF, o = task - krt * REF;
-    const int kr = krt / tn, st = krt - kr * tn, k = kr / R;
-    const float* sv = su + (kr * TILE + st) * PP;
-    const float* dv = ddn + ((size_t)k * REF + o) * PP;
-    float acc = 0.f;
-    for (int ij = lane; ij < PP; ij += 32)
-      acc = fmaf(Rnd::r(sv[ij]), dv[ij], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) pwrm[((size_t)kr * REF + s0 + st) * REF + o] = acc;
+  if constexpr (kMma) {
+    // per k an (R tn, REF) product over the P^2 pairs, rows (r, s); one
+    // 16 x 8 tile per warp, as the long depth (484 at V = 22) with ddyn
+    // read from L2 wants many warps in flight
+    dstd_mma::block_mma<1>(
+        K, R * tn, REF, 1, PP,
+        [&](int k, int m, int, int ij) {
+          const int r = m / tn, st = m - r * tn;
+          return Rnd::r(su[((k * R + r) * TILE + st) * PP + ij]);
+        },
+        [&](int k, int, int ij, int o) {
+          return __ldg(ddn + ((size_t)k * REF + o) * PP + ij);
+        },
+        [&](int k, int m, int o, float v) {
+          const int r = m / tn, st = m - r * tn;
+          pwrm[((size_t)(k * R + r) * REF + s0 + st) * REF + o] = v;
+        });
+  } else {
+    // a warp per entry
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int task = warp; task < K * R * tn * REF; task += kWarps) {
+      const int krt = task / REF, o = task - krt * REF;
+      const int kr = krt / tn, st = krt - kr * tn, k = kr / R;
+      const float* sv = su + (kr * TILE + st) * PP;
+      const float* dv = ddn + ((size_t)k * REF + o) * PP;
+      float acc = 0.f;
+      for (int ij = lane; ij < PP; ij += 32)
+        acc = fmaf(Rnd::r(sv[ij]), dv[ij], acc);
+      acc = warp_sum(acc);
+      if (lane == 0) pwrm[((size_t)kr * REF + s0 + st) * REF + o] = acc;
+    }
   }
   __syncthreads();
 

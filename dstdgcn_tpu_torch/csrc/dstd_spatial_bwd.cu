@@ -1,4 +1,5 @@
-// Spatial DSTD-GC backward, whole op in four launches (float32).
+// Spatial DSTD-GC backward, whole op in four launches (float32, and bf16
+// contraction operands).
 //
 // Replaces the TPU kernel dstdgcn_tpu/kernels/fused_bwd.py::
 // _spatial_bwd_kernel (entry spatial_bwd), the VJP of the forward kernel in
@@ -15,7 +16,8 @@
 // products), about 2 GFLOP of float32 CUDA-core work (about 30 us at
 // 67 TFLOP/s) against about 20 MB of inputs and outputs (about 6 us at
 // 3.35 TB/s): operation-bound, with 2*35*484 tanh per sample recomputed
-// twice.
+// twice.  At bf16, with the contractions at the tensor cores' 989 TFLOP/s,
+// the bytes bound it (chip_smoke.py::op_cost).
 //
 // Design (dstd_bwd_common.cuh): the TPU kernel carried the weight
 // gradients from one grid step to the next; here blocks run in no order, so
@@ -24,8 +26,13 @@
 // repeat bit for bit).  The cross-frame coupling (ds of a source frame needs
 // ddyn of every output frame) splits the work into a pass over output-frame
 // tiles and a pass over source-frame tiles, with ddyn (4.3 MB at N = 32) in
-// scratch, resident in L2 between them.  Plain float32 FMA on the CUDA
-// cores, `tanhf`; no tensor cores yet.
+// scratch, resident in L2 between them.  The float32 entry runs plain
+// float32 FMAs on the CUDA cores, `tanhf`.  The bf16 entry (the TPU kernel's
+// bf16 dtype: the operands of the 11 contractions rounded to bf16) runs the
+// five block products of pass 2 (features, dA, dxf, dx, dwf) and pass 3's
+// dwrm as bf16 mma.sync tiles with float32 accumulators on the tensor cores
+// (dstd_mma.cuh); the mixing loop, ds, the q/k products and every float32
+// sum stay on the CUDA cores.
 #include "dstd_bwd_common.cuh"
 
 DSTD_BWD_C_API(dstd_spatial_bwd, false)

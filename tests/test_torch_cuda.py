@@ -248,21 +248,38 @@ def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, cin, co):
     assert max(errs) <= BF16_TOL["backward"] < gap / 2, (errs, gap)
 
 
-@pytest.mark.parametrize("tile", [1, 3, 8])
-@pytest.mark.parametrize("mode", ["spatial", "temporal"])
-def test_bf16_kernels_tiles_and_ragged_shapes(cuda, mode, tile):
-    args = _inputs(mode, 3, 9, 7, 5, 4, cuda, seed=1)
+#: (mode, tile, N, T, V, Ci, Co, agg): ragged shapes at every tile, then
+#: the edges of the 16 x 8 x 16 tensor-core tiles of the bf16 spatial
+#: backward: V of 7, 22 and 25 joints (the pair axis, rows and depth of the
+#: dA and dxf products; 22 H36M, 25 CMU), one and three samples, channel
+#: pairs below, across and at the 16-wide depth, tiles 1, 5 and 8 (the
+#: feature rows, tile x V), both aggregations
+BF16_TILE_CASES = (
+    [(mode, tile, 3, 9, 7, 5, 4, "right") for mode in ("spatial", "temporal")
+     for tile in (1, 3, 8)]
+    + [("spatial", tile, n, 35, v, cin, co, agg) for v in (7, 22, 25)
+       for n in (1, 3) for cin, co in ((3, 3), (6, 64), (64, 3))
+       for tile in (1, 5, 8) for agg in ("right", "left")])
+
+
+@pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", BF16_TILE_CASES)
+def test_bf16_kernels_tiles_and_ragged_shapes(cuda, mode, tile, n, t, v, cin,
+                                              co, agg):
+    args = _inputs(mode, n, t, v, cin, co, cuda, seed=1)
     g = torch.from_numpy(np.random.RandomState(2).randn(
-        3, 9, 7, 4).astype(np.float32)).to(cuda)
+        n, t, v, co).astype(np.float32)).to(cuda)
     bf16 = torch.bfloat16
-    got = getattr(fused, f"dstd_{mode}").launch(*args, dtype=bf16, tile=tile)
-    want = getattr(plain, f"kernel_{mode}")(*args, "right", bf16)
+    got = getattr(fused, f"dstd_{mode}").launch(*args, agg=agg, dtype=bf16,
+                                                tile=tile)
+    want = getattr(plain, f"kernel_{mode}")(*args, agg, bf16)
     peak = float(want.abs().max())
     assert float((got - want).abs().max()) <= BF16_TOL["forward"] * peak
-    grads = getattr(fused, f"dstd_{mode}_bwd")(args[0], g, *args[1:],
-                                               dtype=bf16, tile=tile)
+    bwd = getattr(fused, f"dstd_{mode}_bwd")
+    grads = bwd(args[0], g, *args[1:], agg=agg, dtype=bf16, tile=tile)
+    again = bwd(args[0], g, *args[1:], agg=agg, dtype=bf16, tile=tile)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
     want = getattr(plain_bwd, f"dstd_{mode}_bwd")(args[0], g, *args[1:],
-                                                  dtype=bf16)
+                                                  agg=agg, dtype=bf16)
     _assert_grads_close(grads, want, BF16_TOL["backward"])
 
 

@@ -1,0 +1,126 @@
+"""The parsers ``chip_smoke.py`` reads its kernel evidence with, on the CPU.
+
+``chip_smoke.py`` holds the card run to what the compiler and the profiler
+report: registers and spills from ``nvcc -Xptxas -v`` (``ptxas_usage``),
+tensor-core ``HMMA`` instructions per function from ``cuobjdump -sass``
+(``sass_counts``, checked against ``uses_mma``), and the device time of each
+of a backward call's four launches from ``torch.profiler`` keys
+(``bwd_split``).  These tests feed them listings in the tools' formats.  The
+bf16 train step's judgement (``step_verdict``) is held on made-up distances.
+"""
+
+import pytest
+
+import chip_smoke as cs
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN8dstd_bwd10out_kernelILb0ELi5EN4dstd4Bf16EEEvNS_7BwdArgsE
+\t.headerflags\t@"EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/          LDC R1, c[0x0][0x28] ;    /* 0x00000a00ff017b82 */
+                                                    /* 0x000fe40000000800 */
+        /*0010*/          HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+                                                    /* 0x000fe20000041804 */
+        /*0020*/          HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
+        /*0030*/          EXIT ;
+\t\tFunction : _ZN8dstd_bwd13reduce_kernelILb0EEEvNS_7BwdArgsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   FADD R2, R2, R3 ;
+"""
+
+
+def test_sass_counts_hmma_and_instructions_per_function():
+    counts = cs.sass_counts(SASS)
+    assert counts == {
+        "_ZN8dstd_bwd10out_kernelILb0ELi5EN4dstd4Bf16EEEvNS_7BwdArgsE": (2, 4),
+        "_ZN8dstd_bwd13reduce_kernelILb0EEEvNS_7BwdArgsE": (0, 2)}
+
+
+@pytest.mark.parametrize("function,mma", [
+    ("dstd_bwd::out_kernel<false, 5, dstd::Bf16>", True),
+    ("dstd_bwd::out_kernel<false, 1, dstd::Bf16>", True),
+    ("dstd_bwd::src_kernel<false, 8, dstd::Bf16>", True),
+    ("dstd_bwd::out_kernel<false, 5, dstd::Exact>", False),
+    ("dstd_bwd::out_kernel<true, 5, dstd::Bf16>", False),
+    ("dstd_bwd::src_kernel<true, 6, dstd::Bf16>", False),
+    ("dstd_bwd::qk_kernel<false, dstd::Bf16>", False),
+    ("dstd_bwd::reduce_kernel<false>", False),
+])
+def test_uses_mma_names_the_bf16_spatial_passes_only(function, mma):
+    assert cs.uses_mma(function) is mma
+
+
+def test_bwd_split_sums_each_launch_and_ignores_other_kernels():
+    prof = {
+        "void dstd_bwd::qk_kernel<false, dstd::Bf16>(dstd_bwd::BwdArgs)": 0.05,
+        "void dstd_bwd::out_kernel<false, 5, dstd::Bf16>(dstd_bwd::BwdArgs)":
+            0.4,
+        "void dstd_bwd::src_kernel<false, 5, dstd::Bf16>(dstd_bwd::BwdArgs)":
+            0.3,
+        "void dstd_bwd::src_kernel<false, 3, dstd::Bf16>(dstd_bwd::BwdArgs)":
+            0.1,
+        "void dstd_bwd::reduce_kernel<false>(dstd_bwd::BwdArgs)": 0.08,
+        "void (anonymous namespace)::spatial_kernel<5, dstd::Bf16>(...)": 1.0,
+        "Memset (Device)": 0.01,
+    }
+    split = cs.bwd_split(prof)
+    assert list(split) == list(cs.BWD_PASSES)
+    assert split == pytest.approx(dict(qk=0.05, out=0.4, src=0.4,
+                                       reduce=0.08))
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    log = """ptxas info : Compiling entry function 'plain_entry' for 'sm_90a'
+ptxas info    : Function properties for plain_entry
+    16 bytes stack frame, 52 bytes spill stores, 112 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function 'other_entry' for 'sm_90a'
+ptxas info    : Used 32 registers, 384 bytes cmem[0]
+"""
+    assert cs.ptxas_usage(log) == [("plain_entry", 64, 52, 112),
+                                   ("other_entry", 32, 0, 0)]
+
+
+def test_sass_mma_fails_without_cuobjdump(monkeypatch):
+    import shutil
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(cs.os, "access", lambda path, mode: False)
+    with pytest.raises(cs.SmokeFailure, match="cuobjdump"):
+        cs.sass_mma("libdstd_spatial_bwd.so")
+
+
+def step_errs(gate_k64, gate_p64, other_k64, other_p64):
+    """``step_errors`` rows (kernel vs plain, gap, kernel vs float64, plain
+    vs float64) of two gates and two other parameters, whose kernel and
+    plain distances average to the given ones."""
+    return {"encoder_0.block.alpha_sm": (0.0, 0.1, gate_k64 * 1.5,
+                                         gate_p64 / 2),
+            "encoder_0.block.alpha_tm": (0.0, 0.1, gate_k64 / 2,
+                                         gate_p64 * 1.5),
+            "encoder_0.block.spatial.wf": (0.0, 0.01, other_k64 * 2,
+                                           other_p64),
+            "conv_st_in.block.residual_proj.kernel": (0.0, 0.01, 0.0,
+                                                      other_p64)}
+
+
+@pytest.mark.parametrize("errs,passes", [
+    (step_errs(0.03, 0.02, 0.004, 0.003), dict(gates=True, others=True)),
+    # twice the plain path's own mean distance is the limit, in each group
+    (step_errs(0.04, 0.02, 0.006, 0.003), dict(gates=True, others=True)),
+    (step_errs(0.041, 0.02, 0.004, 0.003), dict(gates=False, others=True)),
+    (step_errs(0.03, 0.02, 0.0061, 0.003), dict(gates=True, others=False)),
+])
+def test_step_verdict_holds_each_group_to_the_plain_paths_noise(errs,
+                                                                 passes):
+    verdict = cs.step_verdict(errs)
+    assert set(verdict) == {"gates", "others"}
+    for group, (k64, p64, bound, worst) in verdict.items():
+        assert bound == pytest.approx(cs.BF16_STEP_NOISE * p64)
+        assert (k64 <= bound * (1 + 1e-12)) is passes[group]
+    gates = ("encoder_0.block.alpha_sm", "encoder_0.block.alpha_tm")
+    assert verdict["gates"][0] == pytest.approx(
+        sum(errs[n][2] for n in gates) / 2)
+    assert verdict["gates"][1] == pytest.approx(
+        sum(errs[n][3] for n in gates) / 2)
+    assert verdict["gates"][3] == "encoder_0.block.alpha_sm"
+    assert verdict["others"][3] == "encoder_0.block.spatial.wf"
