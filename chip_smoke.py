@@ -273,10 +273,10 @@ GRADIENTS = ("dx", "dbase", "dalpha", "dwf", "dbf", "dwm1", "dbm1", "dwm2",
 #: the four launches of a DSTD-GC backward call (``dstd_bwd_common.cuh``)
 BWD_PASSES = ("qk", "out", "src", "reduce")
 #: the backward functions whose products run on the tensor cores (bf16
-#: ``mma.sync``, ``csrc/dstd_mma.cuh``): kernel 5b's passes 2 and 3, every
-#: tile; the float32 and temporal instantiations keep their CUDA-core FMAs
-MMA_FUNCTIONS = ("dstd_bwd::out_kernel<false, ",
-                 "dstd_bwd::src_kernel<false, ")
+#: ``mma.sync``, ``csrc/dstd_mma.cuh``): passes 2 and 3 of kernels 5b and
+#: 6b, every tile; the float32 instantiations and the q/k and reduction
+#: launches keep their CUDA-core FMAs
+MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 
 
 def uses_mma(function):

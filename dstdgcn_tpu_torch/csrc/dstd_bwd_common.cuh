@@ -24,12 +24,15 @@
 //   3. src_kernel, one block per (sample, tile of source indices s): reads
 //      ddyn of all output indices o of its sample from scratch (L2), forms
 //      ds = sum_o wrm ddyn, du = ds (1 - S^2), dq/dk, adds dqk wqk^T to dx,
-//      and writes partial sums of dwrm (a warp per entry), dwqk, dbqk.
+//      and writes partial sums of dwrm, dwqk, dbqk.
 // The five products of pass 2 (features, dA, dxf, dx, dwf) run as
 // register-tiled block products (block_gemm: 4 x 4 outputs per thread) on
-// the CUDA cores; in the bf16 spatial kernel they, and pass 3's dwrm, run
-// as bf16 mma.sync products with float32 accumulators on the tensor cores
+// the CUDA cores; in the bf16 kernels they, and pass 3's dwrm, run as bf16
+// mma.sync products with float32 accumulators on the tensor cores
 // (block_mma, dstd_mma.cuh), the same function in another summation order.
+// The mixing loop (tanh of every pair, times wrm) stays on the CUDA cores:
+// it is bound by its tanhf, which the contract rounds, and on the tensor
+// cores it measured no faster (PERF.md).
 //   4. reduce_kernel: sums each partial array in a fixed order, one thread
 //      per weight-gradient element.  No atomics: the result is the same from
 //      run to run.
@@ -145,19 +148,23 @@ struct LayoutOut {
 
 // Shared memory of a pass-3 block (floats): qk [J][tile][P] (the tile's
 // q/k), wrow [K][R][tile][REF] (the tile's rows of wrm), su [K][R][tile][P*P]
-// (scores, then du), dqk [tile*P][J], wqk [Ci][J|1].
+// (scores, then du), dqk [tile*P][J], wqk [Ci][J|1], and in the temporal
+// op part, the partial 16 x 8 tiles of dwrm (dstd_mma::block_mma_split).
 struct LayoutSrc {
-  long long qk, wrow, su, dqk, wqk, total;
+  long long qk, wrow, su, dqk, wqk, part, total;
   __host__ __device__ LayoutSrc(int T, int V, int Ci, int K, int R, int tile,
                                 bool temporal) {
     const long long REF = temporal ? V : T, P = temporal ? T : V;
     const long long J = 2LL * K * R;
+    const long long dwrm_tiles = K * ((R * tile + 15) / 16) * ((REF + 7) / 8);
     qk = 0;
     wrow = qk + round4(J * tile * P);
     su = wrow + round4((long long)K * R * tile * REF);
     dqk = su + round4((long long)K * R * tile * P * P);
     wqk = dqk + round4((long long)tile * P * J);
-    total = wqk + round4((long long)Ci * (J | 1));
+    part = wqk + round4((long long)Ci * (J | 1));
+    total = part + (temporal ? dstd_mma::split_floats(dwrm_tiles, kWarps)
+                             : 0);
   }
 };
 
@@ -284,8 +291,10 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   float* wfs = sm + L.wfs;
   float* xs = sm + L.xs;
   float* red = sm + L.red;
-  // the bf16 spatial backward runs its five products on the tensor cores
-  constexpr bool kMma = !TEMPORAL && std::is_same_v<Rnd, Bf16>;
+  // the bf16 kernels run the five products on the tensor cores (16 x 32 a
+  // warp: at the temporal op's P = 35 frames, 16 x 16 and 16 x 8 tiles
+  // measured no faster, PERF.md)
+  constexpr bool kMma = std::is_same_v<Rnd, Bf16>;
   const float alpha = __ldg(a.alpha);
   const size_t TV = (size_t)T * V;
   const float* xn = a.x + n * TV * Ci;
@@ -459,9 +468,15 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   }
 }
 
-// Pass 3: one block per (tile of source indices s, sample n).
+// Pass 3: one block per (tile of source indices s, sample n).  The bf16
+// temporal kernel is compiled for two blocks per SM (at most 64 registers
+// a thread, what ptxas picks on its own for most instantiations): its split
+// dwrm takes 110 registers, one block per SM, without.  A minimum of 0
+// leaves the others to ptxas (their SASS is that of no minimum).
 template <bool TEMPORAL, int TILE, typename Rnd>
-__global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(
+    kThreads, (TEMPORAL && std::is_same_v<Rnd, Bf16>) ? 2 : 0)
+    src_kernel(const BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int T = a.T, V = a.V, K = a.K, R = a.R, Ci = a.Ci;
@@ -478,8 +493,8 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
   float* su = sm + L.su;
   float* dqk = sm + L.dqk;
   float* wqk = sm + L.wqk;
-  // the bf16 spatial backward runs dwrm on the tensor cores
-  constexpr bool kMma = !TEMPORAL && std::is_same_v<Rnd, Bf16>;
+  // the bf16 kernels run dwrm on the tensor cores
+  constexpr bool kMma = std::is_same_v<Rnd, Bf16>;
   const size_t TV = (size_t)T * V;
   const float* xn = a.x + n * TV * Ci;
   float* dxn = a.dx + n * TV * Ci;
@@ -520,22 +535,27 @@ __global__ void __launch_bounds__(kThreads) src_kernel(const BwdArgs a) {
   // dwrm[k,r,s,o] = sum_{i,j} S[k,r,s,i,j] ddyn[k,o,i,j]
   float* pwrm = a.scratch + S.pwrm + (size_t)n * K * R * REF * REF;
   if constexpr (kMma) {
-    // per k an (R tn, REF) product over the P^2 pairs, rows (r, s); one
-    // 16 x 8 tile per warp, as the long depth (484 at V = 22) with ddyn
-    // read from L2 wants many warps in flight
-    dstd_mma::block_mma<1>(
-        K, R * tn, REF, 1, PP,
-        [&](int k, int m, int, int ij) {
-          const int r = m / tn, st = m - r * tn;
-          return Rnd::r(su[((k * R + r) * TILE + st) * PP + ij]);
-        },
-        [&](int k, int, int ij, int o) {
-          return __ldg(ddn + ((size_t)k * REF + o) * PP + ij);
-        },
-        [&](int k, int m, int o, float v) {
-          const int r = m / tn, st = m - r * tn;
-          pwrm[((size_t)(k * R + r) * REF + s0 + st) * REF + o] = v;
-        });
+    // per k an (R tn, REF) product over the P^2 pairs, rows (r, s), in
+    // 16 x 8 tiles, as the long depth with ddyn read from L2 wants many
+    // warps in flight: one tile a warp in the spatial kernel (10 tiles at
+    // T = 35, 484 pairs); in the temporal one (3 tiles at V = 22, 1225
+    // pairs) the depth split over the warps of each tile
+    auto la = [&](int k, int m, int, int ij) {
+      const int r = m / tn, st = m - r * tn;
+      return Rnd::r(su[((k * R + r) * TILE + st) * PP + ij]);
+    };
+    auto lb = [&](int k, int, int ij, int o) {
+      return __ldg(ddn + ((size_t)k * REF + o) * PP + ij);
+    };
+    auto store = [&](int k, int m, int o, float v) {
+      const int r = m / tn, st = m - r * tn;
+      pwrm[((size_t)(k * R + r) * REF + s0 + st) * REF + o] = v;
+    };
+    if constexpr (TEMPORAL)
+      dstd_mma::block_mma_split(sm + L.part, K, R * tn, REF, 1, PP, la, lb,
+                                store);
+    else
+      dstd_mma::block_mma<1>(K, R * tn, REF, 1, PP, la, lb, store);
   } else {
     // a warp per entry
     const int lane = tid & 31, warp = tid >> 5;

@@ -249,17 +249,25 @@ def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, cin, co):
 
 
 #: (mode, tile, N, T, V, Ci, Co, agg): ragged shapes at every tile, then
-#: the edges of the 16 x 8 x 16 tensor-core tiles of the bf16 spatial
-#: backward: V of 7, 22 and 25 joints (the pair axis, rows and depth of the
-#: dA and dxf products; 22 H36M, 25 CMU), one and three samples, channel
-#: pairs below, across and at the 16-wide depth, tiles 1, 5 and 8 (the
-#: feature rows, tile x V), both aggregations
+#: the edges of the 16 x 8 x 16 tensor-core tiles of the bf16 backward
+#: kernels.  Spatial: V of 7, 22 and 25 joints (the pair axis, rows and
+#: depth of the dA and dxf products; 22 H36M, 25 CMU).  Temporal: T of 9,
+#: 35 and 40 frames (the pair axis: rows and depth of dA and dxf, and the
+#: T*T depth of dwrm, split over warps) by V of 7, 22 and 25 joints (the
+#: mixing axis: dwrm's columns, a ragged last tile of output joints).
+#: Both: one and three samples, channel pairs below, across and at the
+#: 16-wide depth, tiles 1, 5 and 8 (the feature rows, tile x the pair
+#: axis), both aggregations
 BF16_TILE_CASES = (
     [(mode, tile, 3, 9, 7, 5, 4, "right") for mode in ("spatial", "temporal")
      for tile in (1, 3, 8)]
     + [("spatial", tile, n, 35, v, cin, co, agg) for v in (7, 22, 25)
        for n in (1, 3) for cin, co in ((3, 3), (6, 64), (64, 3))
-       for tile in (1, 5, 8) for agg in ("right", "left")])
+       for tile in (1, 5, 8) for agg in ("right", "left")]
+    + [("temporal", tile, n, t, v, cin, co, agg) for t in (9, 35, 40)
+       for v in (7, 22, 25) for n in (1, 3)
+       for cin, co in ((3, 3), (6, 64), (64, 3)) for tile in (1, 5, 8)
+       for agg in ("right", "left")])
 
 
 @pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", BF16_TILE_CASES)

@@ -41,12 +41,13 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("dstd_bwd::out_kernel<false, 1, dstd::Bf16>", True),
     ("dstd_bwd::src_kernel<false, 8, dstd::Bf16>", True),
     ("dstd_bwd::out_kernel<false, 5, dstd::Exact>", False),
-    ("dstd_bwd::out_kernel<true, 5, dstd::Bf16>", False),
-    ("dstd_bwd::src_kernel<true, 6, dstd::Bf16>", False),
+    ("dstd_bwd::out_kernel<true, 5, dstd::Bf16>", True),
+    ("dstd_bwd::src_kernel<true, 6, dstd::Bf16>", True),
     ("dstd_bwd::qk_kernel<false, dstd::Bf16>", False),
     ("dstd_bwd::reduce_kernel<false>", False),
 ])
-def test_uses_mma_names_the_bf16_spatial_passes_only(function, mma):
+def test_uses_mma_names_the_bf16_out_and_src_passes_of_both_ops(function,
+                                                                mma):
     assert cs.uses_mma(function) is mma
 
 
