@@ -15,8 +15,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    ``block_sddmm_spmm``: 15 kernels), with each entry function's registers
    and spills as ``ptxas`` reports them, and the number of tensor-core
    ``HMMA`` instructions in the SASS of each backward function
-   (``cuobjdump``): some in kernel 5b's passes 2 and 3
-   (``MMA_FUNCTIONS``), none elsewhere;
+   (``cuobjdump``): some in passes 2 and 3 of every backward kernel (bf16
+   ``mma.sync`` in 5b and 6b, 3xTF32 in 5 and 6: ``MMA_FUNCTIONS``), none
+   in the q/k and reduction launches;
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -24,9 +25,12 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    kernels (against ``ops/dstd_bwd.py``, seeded cotangent): per output
    tensor max |kernel - plain| <= 1e-4 max(max |plain|, 1), the JAX
    package's own norm, since the weight gradients sum 24,640 rows in
-   another order.  The backward's plain time is autograd through the plain
-   forward; the device time of each of the backward call's four launches
-   (``launch_ms``: qk, out, src, reduce) beside the call's.  Chain kernels
+   another order (the float32 backward kernels' products run as 3xTF32
+   tensor-core products, float32-accurate, in another order still), and
+   two calls give the same bits.  The backward's plain time is autograd
+   through the plain forward; the device time of each of the backward
+   call's four launches (``launch_ms``: qk, out, src, reduce) beside the
+   call's.  Chain kernels
    on the serving model's 5 encoder layers (BatchNorm
    calibrated, ``models/infer.py::encoder_chain_params``) at C=64:
    ``dstd_encoder_chain`` and ``dstd_chain`` (the layers' ops, each scaled
@@ -124,8 +128,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    its main path (the training slice for the float32 one-op kernels, the
    bf16 slice for their bf16 variants, the fused slices for the encoder
    kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
-   sparse kernels), max error, times and bound (bf16 contractions at the
-   dense bf16 tensor-core rate, the rest at the float32 rate).
+   sparse kernels), max error, times and bound (contractions at the
+   tensor cores' rate for the dtype: dense bf16, or for float32 3xTF32,
+   the dense TF32 rate over 3; the rest at the float32 rate).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -207,10 +212,14 @@ BF16_STEP_NOISE = 2.0
 BF16_LAYER_FRAC = 0.3
 BF16_CHAIN_FRAC = 0.9
 #: published H100 SXM peaks (float32 outside the tensor cores, dense bf16
-#: on the tensor cores, HBM3)
+#: and TF32 on the tensor cores, HBM3)
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
+#: float32-accurate contractions at their least time on this card: 3xTF32,
+#: three TF32 tensor-core products for each (csrc/dstd_mma.cuh)
+PEAK_F32_DOT_FLOPS = PEAK_TF32_FLOPS / 3
 #: file:line of the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
     "dstd_spatial": dict(
@@ -272,16 +281,16 @@ GRADIENTS = ("dx", "dbase", "dalpha", "dwf", "dbf", "dwm1", "dbm1", "dwm2",
              "dbm2", "dwrm", "dbrm")
 #: the four launches of a DSTD-GC backward call (``dstd_bwd_common.cuh``)
 BWD_PASSES = ("qk", "out", "src", "reduce")
-#: the backward functions whose products run on the tensor cores (bf16
-#: ``mma.sync``, ``csrc/dstd_mma.cuh``): passes 2 and 3 of kernels 5b and
-#: 6b, every tile; the float32 instantiations and the q/k and reduction
-#: launches keep their CUDA-core FMAs
+#: the backward functions whose products run on the tensor cores
+#: (``csrc/dstd_mma.cuh``): passes 2 and 3 of every backward kernel, the
+#: bf16 ones (5b, 6b) on bf16 ``mma.sync``, the float32 ones (5, 6) on
+#: 3xTF32, every tile; the q/k and reduction launches keep their CUDA-core
+#: FMAs
 MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 
 
 def uses_mma(function):
-    return function.startswith(MMA_FUNCTIONS) and function.endswith(
-        "dstd::Bf16>")
+    return function.startswith(MMA_FUNCTIONS)
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
 SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C, SPARSE_BLOCK = 4, 4096, 4, 128, 128
 #: kernel against plain version, max |kernel - plain| <= tol max(|plain|, 1)
@@ -390,13 +399,12 @@ def op_weights(mode, ci, co):
 
 
 def chain_cost(n, c, layers, encoder, dtype=None):
-    """(flops, bytes, tensor flops) of one chain call of ``layers``
-    (spatial, temporal) blocks at C channels: the ops' operations (with a
-    bf16 ``dtype`` their contractions as tensor flops, as ``op_cost``)
-    plus, for the encoder, 10 elementwise operations per activation element
-    and layer (affine, residual and PReLU after each op); x read and the
-    output written once in float32, every weight read once (the encoder's
-    affines and slopes too)."""
+    """(flops, bytes, contraction flops, their peak) of one chain call of
+    ``layers`` (spatial, temporal) blocks at C channels: the ops'
+    operations (as ``op_cost``) plus, for the encoder, 10 elementwise
+    operations per activation element and layer (affine, residual and
+    PReLU after each op); x read and the output written once in float32,
+    every weight read once (the encoder's affines and slopes too)."""
     rows = n * T * V
     costs = [op_cost(mode, n, c, c, dtype=dtype)
              for mode in ("spatial", "temporal")]
@@ -407,29 +415,32 @@ def chain_cost(n, c, layers, encoder, dtype=None):
     if encoder:
         flops += layers * 10 * rows * c
         weights += layers * (4 * V * c + 2)
-    return flops, 4 * (2 * rows * c + weights), tensor_flops
+    return flops, 4 * (2 * rows * c + weights), tensor_flops, costs[0][3]
 
 
-def bound_of(flops, nbytes, tensor_flops=0.0):
-    """(least ms, ms of the operations, ms of the bytes): ``flops`` at the
-    float32 rate, ``tensor_flops`` (bf16 contractions) at the dense bf16
-    tensor-core rate."""
-    t_ops = (flops / PEAK_F32_FLOPS + tensor_flops / PEAK_BF16_FLOPS) * 1e3
+def bound_of(flops, nbytes, dot_flops=0.0, dot_peak=PEAK_F32_DOT_FLOPS):
+    """(least ms, ms of the operations, ms of the bytes): ``flops`` (the
+    elementwise work) at the float32 rate, ``dot_flops`` (the
+    contractions) at ``dot_peak``: the dense bf16 tensor-core rate for a
+    bf16 contract, the 3xTF32 rate for float32."""
+    t_ops = (flops / PEAK_F32_FLOPS + dot_flops / dot_peak) * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), t_ops, t_mem
 
 
 def op_cost(mode, n, ci, co, backward=False, dtype=None):
-    """(flops, bytes, tensor flops) one call needs: every input read once,
-    every output written once; tanh and the pair difference count one op
-    each.  The backward recomputes the forward up to the adjacency, then
-    does the dA and dxf products, dalpha / dbase / dbrm, dx from dxf,
-    dwf / dbf, dwrm, ds, du, the dq / dk sums, dx from dq / dk and
-    dwqk / dbqk; it reads x, g and the weights and writes dx and the
-    weight gradients.  With a bf16 ``dtype`` the contractions (the
-    projections, the mixing, the aggregation and their backward products)
-    are tensor flops, the rest float32 flops; the bytes are those the
-    kernel moves, float32 inputs and outputs as in the float32 kernel."""
+    """(flops, bytes, contraction flops, their peak) one call needs: every
+    input read once, every output written once; tanh and the pair
+    difference count one op each.  The backward recomputes the forward up
+    to the adjacency, then does the dA and dxf products, dalpha / dbase /
+    dbrm, dx from dxf, dwf / dbf, dwrm, ds, du, the dq / dk sums, dx from
+    dq / dk and dwqk / dbqk; it reads x, g and the weights and writes dx
+    and the weight gradients.  The contractions (the projections, the
+    mixing, the aggregation and their backward products) run at the
+    tensor cores' rate for the dtype (bf16: dense bf16; float32: 3xTF32,
+    the least time for float32-accurate products on this card), the rest
+    at the float32 rate; the bytes are those the kernel moves, float32
+    inputs and outputs at either dtype."""
     k = 2 if mode == "spatial" else 1
     r = 2
     ref, pair = (T, V) if mode == "spatial" else (V, T)
@@ -457,9 +468,8 @@ def op_cost(mode, n, ci, co, backward=False, dtype=None):
                 + 3 * scores + 2 * scores            # du, dq / dk sums
                 + rows * 2 * r * k)                  # dbqk
         nbytes = 4 * (2 * rows * ci + rows * co + 2 * weights)
-    if dtype is None:
-        return dots + rest, nbytes, 0.0
-    return rest, nbytes, dots
+    return rest, nbytes, dots, (PEAK_F32_DOT_FLOPS if dtype is None
+                                else PEAK_BF16_FLOPS)
 
 
 def bound_ms(mode, n, ci, co, backward=False, dtype=None):
@@ -468,19 +478,25 @@ def bound_ms(mode, n, ci, co, backward=False, dtype=None):
 
 
 def sparse_cost(name, n, blocks, block, r, c, v, vj=None):
-    """(flops, bytes) one sparse call needs at ``blocks`` active blocks:
-    every input read once (the adjacency's active blocks only), every
-    output written once (the SDDMM's active blocks only).  Per score entry
-    and r: the difference, the tanh (counted as one operation, though
-    accurate tanhf is some 20 instructions), the multiply and the add; per
-    product term a multiply-add (2)."""
+    """(flops, bytes, contraction flops, their peak) one sparse call needs
+    at ``blocks`` active blocks: every input read once (the adjacency's
+    active blocks only), every output written once (the SDDMM's active
+    blocks only).  Per score entry and r: the difference and the tanh
+    (counted as one operation each, though accurate tanhf is some 20
+    instructions) at the float32 rate, the multiply and the add of the sum
+    over r a contraction; per product term a multiply-add (2), a
+    contraction.  Contractions at the 3xTF32 rate (float32, as
+    ``op_cost``)."""
     vj = v if vj is None else vj
     entries = n * blocks * block * block
     if name == "block_spmm":
-        return 2 * entries * c, 4 * (entries + n * vj * c + n * v * c)
+        return (0, 4 * (entries + n * vj * c + n * v * c), 2 * entries * c,
+                PEAK_F32_DOT_FLOPS)
     if name == "block_sddmm":
-        return 4 * r * entries, 4 * (2 * n * v * r + r + entries)
-    return (4 * r + 2 * c) * entries, 4 * (2 * n * v * r + r + 2 * n * v * c)
+        return (2 * r * entries, 4 * (2 * n * v * r + r + entries),
+                2 * r * entries, PEAK_F32_DOT_FLOPS)
+    return (2 * r * entries, 4 * (2 * n * v * r + r + 2 * n * v * c),
+            (2 * r + 2 * c) * entries, PEAK_F32_DOT_FLOPS)
 
 
 def large_graph(np, sparse):

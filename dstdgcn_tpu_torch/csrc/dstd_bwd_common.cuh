@@ -25,14 +25,15 @@
 //      ddyn of all output indices o of its sample from scratch (L2), forms
 //      ds = sum_o wrm ddyn, du = ds (1 - S^2), dq/dk, adds dqk wqk^T to dx,
 //      and writes partial sums of dwrm, dwqk, dbqk.
-// The five products of pass 2 (features, dA, dxf, dx, dwf) run as
-// register-tiled block products (block_gemm: 4 x 4 outputs per thread) on
-// the CUDA cores; in the bf16 kernels they, and pass 3's dwrm, run as bf16
-// mma.sync products with float32 accumulators on the tensor cores
-// (block_mma, dstd_mma.cuh), the same function in another summation order.
-// The mixing loop (tanh of every pair, times wrm) stays on the CUDA cores:
-// it is bound by its tanhf, which the contract rounds, and on the tensor
-// cores it measured no faster (PERF.md).
+// The five products of pass 2 (features, dA, dxf, dx, dwf) and pass 3's
+// dwrm run on the tensor cores (block_mma, dstd_mma.cuh; MmaKind below): in
+// the bf16 kernels as bf16 mma.sync products with float32 accumulators, in
+// the float32 ones as 3xTF32 products (float32 accuracy from three TF32
+// mma.sync a step), where pass 3's ds is a product too; the same function
+// in another summation order.  The mixing loop (tanh of every pair, times
+// wrm) stays on the CUDA cores: it is bound by its tanhf, which the
+// contract rounds, and on the tensor cores it measured no faster
+// (PERF.md).
 //   4. reduce_kernel: sums each partial array in a fixed order, one thread
 //      per weight-gradient element.  No atomics: the result is the same from
 //      run to run.
@@ -174,63 +175,13 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// Register-tiled products inside one block: for every batch entry
-// b < batch, C[b][m][n] = sum_{s < S, q < Q} A(b, m, s, q) B(b, s, q, n).
-// Each thread owns 4 x 4 outputs, rows m_t + u*mt and columns n_t + w*nt
-// (u, w < 4), so 8 loads feed 16 FMAs and neighbouring threads load
-// neighbouring columns; indices past the edge are clamped on load and
-// skipped on store.  la / lb load A / B, st(b, m, n, value) stores.
-template <typename LA, typename LB, typename ST>
-__device__ inline void block_gemm(int batch, int M, int Nn, int S, int Q,
-                                  LA la, LB lb, ST st) {
-  const int mt = (M + 3) >> 2, nt = (Nn + 3) >> 2, per = mt * nt;
-  for (int task = threadIdx.x; task < batch * per; task += blockDim.x) {
-    const int b = task / per, rem = task - b * per;
-    const int m_t = rem / nt, n_t = rem - m_t * nt;
-    int mi[4], ni[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      mi[u] = min(m_t + u * mt, M - 1);
-      ni[u] = min(n_t + u * nt, Nn - 1);
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) acc[u][w] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      for (int q = 0; q < Q; ++q) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) av[u] = la(b, mi[u], s, q);
-#pragma unroll
-        for (int w = 0; w < 4; ++w) bv[w] = lb(b, s, q, ni[w]);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int w = 0; w < 4; ++w)
-            acc[u][w] = fmaf(av[u], bv[w], acc[u][w]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w)
-        if (m_t + u * mt < M && n_t + w * nt < Nn)
-          st(b, m_t + u * mt, n_t + w * nt, acc[u][w]);
-  }
-}
-
-// The block products of pass 2: on the tensor cores (block_mma, bf16
-// mma.sync with float32 accumulators) where MMA, else block_gemm.
-template <bool MMA, typename LA, typename LB, typename ST>
-__device__ inline void block_product(int batch, int M, int Nn, int S, int Q,
-                                     LA la, LB lb, ST st) {
-  if constexpr (MMA)
-    dstd_mma::block_mma(batch, M, Nn, S, Q, la, lb, st);
-  else
-    block_gemm(batch, M, Nn, S, Q, la, lb, st);
-}
+// The element kind of a backward kernel's tensor-core products, by rounding
+// policy: the bf16 kernels (5b, 6b) on bf16 mma.sync, the float32 ones (6,
+// 5) on 3xTF32 (float32-accurate); both measured faster than the
+// register-tiled CUDA-core products they replaced (PERF.md).
+template <typename Rnd>
+using MmaKind = std::conditional_t<std::is_same_v<Rnd, Bf16>,
+                                   dstd_mma::Bf16Mma, dstd_mma::Tf32x3Mma>;
 
 // x / g / dx row of (mixing index s, pair index i)
 template <bool TEMPORAL>
@@ -291,10 +242,12 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   float* wfs = sm + L.wfs;
   float* xs = sm + L.xs;
   float* red = sm + L.red;
-  // the bf16 kernels run the five products on the tensor cores (16 x 32 a
-  // warp: at the temporal op's P = 35 frames, 16 x 16 and 16 x 8 tiles
-  // measured no faster, PERF.md)
-  constexpr bool kMma = std::is_same_v<Rnd, Bf16>;
+  // the five products on the tensor cores, 16 x 32 a warp (bf16 16 x 16 and
+  // 16 x 8 tiles measured no faster at the temporal op's P = 35 frames);
+  // dA, dxf and dwf in 3xTF32 at 16 x 16 (faster there than 16 x 32,
+  // PERF.md)
+  using Kind = MmaKind<Rnd>;
+  constexpr int kNarrow = std::is_same_v<Rnd, Bf16> ? 4 : 2;
   const float alpha = __ldg(a.alpha);
   const size_t TV = (size_t)T * V;
   const float* xn = a.x + n * TV * Ci;
@@ -327,7 +280,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   }
   __syncthreads();
   // the tile's features: xf[k] = x wf[k] + bf[k]
-  block_product<kMma>(
+  dstd_mma::block_mma<Kind>(
       K, rows, Co, 1, Ci,
       [&](int, int m, int, int q) { return xs[m * XS + q]; },
       [&](int k, int, int q, int n) { return wfs[(k * Ci + q) * CS + n]; },
@@ -365,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   // product over channels; dalpha = sum dA * dyn
   float dal = 0.f;
   const bool left = a.agg_left;
-  block_product<kMma>(
+  dstd_mma::block_mma<Kind, kNarrow>(
       K * tn, P, P, 1, Co,
       [&](int bt, int i, int, int c) {
         const int k = bt / tn, tt = bt - k * tn;
@@ -422,7 +375,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
 
   // dxf through the aggregation, into xf's place: right dxf[o,b] =
   // sum_m adj[o,b,m] g[o,m]; left dxf[o,b] = sum_m adj[o,m,b] g[o,m]
-  block_product<kMma>(
+  dstd_mma::block_mma<Kind, kNarrow>(
       K * tn, P, Co, 1, P,
       [&](int bt, int b, int, int m) {
         const int k = bt / tn, tt = bt - k * tn;
@@ -440,7 +393,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   __syncthreads();
 
   // dx of the tile's rows = sum_k dxf[k] wf[k]^T (the first contribution)
-  block_product<kMma>(
+  dstd_mma::block_mma<Kind>(
       1, rows, Ci, K, Co,
       [&](int, int m, int k, int c) {
         return Rnd::r(xf[(k * TILE * P + m) * CS + c]);
@@ -452,7 +405,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       });
   // dwf / dbf partials over the tile's rows
   float* pwf = a.scratch + S.pwf + (size_t)blk * K * Ci * Co;
-  block_product<kMma>(
+  dstd_mma::block_mma<Kind, kNarrow>(
       K, Ci, Co, 1, rows,
       [&](int, int ci, int, int m) { return xs[m * XS + ci]; },
       [&](int k, int, int m, int c) {
@@ -468,14 +421,15 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   }
 }
 
-// Pass 3: one block per (tile of source indices s, sample n).  The bf16
-// temporal kernel is compiled for two blocks per SM (at most 64 registers
-// a thread, what ptxas picks on its own for most instantiations): its split
-// dwrm takes 110 registers, one block per SM, without.  A minimum of 0
-// leaves the others to ptxas (their SASS is that of no minimum).
+// Pass 3: one block per (tile of source indices s, sample n).  The
+// temporal kernels are compiled for two blocks per SM (at most 64 registers
+// a thread): without, their split dwrm takes more registers (bf16 110,
+// float32 95-97), one block per SM, measured slower in both dtypes, though
+// at 64 the float32 one spills 8 bytes a thread at tiles 3, 5 and 7 (none
+// at its tile 4; PERF.md).  A minimum of 0 leaves the spatial ones to
+// ptxas.
 template <bool TEMPORAL, int TILE, typename Rnd>
-__global__ void __launch_bounds__(
-    kThreads, (TEMPORAL && std::is_same_v<Rnd, Bf16>) ? 2 : 0)
+__global__ void __launch_bounds__(kThreads, TEMPORAL ? 2 : 0)
     src_kernel(const BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -493,8 +447,8 @@ __global__ void __launch_bounds__(
   float* su = sm + L.su;
   float* dqk = sm + L.dqk;
   float* wqk = sm + L.wqk;
-  // the bf16 kernels run dwrm on the tensor cores
-  constexpr bool kMma = std::is_same_v<Rnd, Bf16>;
+  // dwrm, and in the float32 kernels ds, on the tensor cores
+  using Kind = MmaKind<Rnd>;
   const size_t TV = (size_t)T * V;
   const float* xn = a.x + n * TV * Ci;
   float* dxn = a.dx + n * TV * Ci;
@@ -534,65 +488,84 @@ __global__ void __launch_bounds__(
 
   // dwrm[k,r,s,o] = sum_{i,j} S[k,r,s,i,j] ddyn[k,o,i,j]
   float* pwrm = a.scratch + S.pwrm + (size_t)n * K * R * REF * REF;
-  if constexpr (kMma) {
-    // per k an (R tn, REF) product over the P^2 pairs, rows (r, s), in
-    // 16 x 8 tiles, as the long depth with ddyn read from L2 wants many
-    // warps in flight: one tile a warp in the spatial kernel (10 tiles at
-    // T = 35, 484 pairs); in the temporal one (3 tiles at V = 22, 1225
-    // pairs) the depth split over the warps of each tile
-    auto la = [&](int k, int m, int, int ij) {
-      const int r = m / tn, st = m - r * tn;
-      return Rnd::r(su[((k * R + r) * TILE + st) * PP + ij]);
-    };
-    auto lb = [&](int k, int, int ij, int o) {
-      return __ldg(ddn + ((size_t)k * REF + o) * PP + ij);
-    };
-    auto store = [&](int k, int m, int o, float v) {
-      const int r = m / tn, st = m - r * tn;
-      pwrm[((size_t)(k * R + r) * REF + s0 + st) * REF + o] = v;
-    };
-    if constexpr (TEMPORAL)
-      dstd_mma::block_mma_split(sm + L.part, K, R * tn, REF, 1, PP, la, lb,
-                                store);
-    else
-      dstd_mma::block_mma<1>(K, R * tn, REF, 1, PP, la, lb, store);
-  } else {
-    // a warp per entry
-    const int lane = tid & 31, warp = tid >> 5;
-    for (int task = warp; task < K * R * tn * REF; task += kWarps) {
-      const int krt = task / REF, o = task - krt * REF;
-      const int kr = krt / tn, st = krt - kr * tn, k = kr / R;
-      const float* sv = su + (kr * TILE + st) * PP;
-      const float* dv = ddn + ((size_t)k * REF + o) * PP;
-      float acc = 0.f;
-      for (int ij = lane; ij < PP; ij += 32)
-        acc = fmaf(Rnd::r(sv[ij]), dv[ij], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) pwrm[((size_t)kr * REF + s0 + st) * REF + o] = acc;
-    }
-  }
+  // per k an (R tn, REF) product over the P^2 pairs, rows (r, s), in
+  // 16 x 8 tiles, as the long depth with ddyn read from L2 wants many
+  // warps in flight: one tile a warp in the spatial kernel (10 tiles at
+  // T = 35, 484 pairs); in the temporal one (3 tiles at V = 22, 1225
+  // pairs) the depth split over the warps of each tile
+  auto la = [&](int k, int m, int, int ij) {
+    const int r = m / tn, st = m - r * tn;
+    return Rnd::r(su[((k * R + r) * TILE + st) * PP + ij]);
+  };
+  auto lb = [&](int k, int, int ij, int o) {
+    return __ldg(ddn + ((size_t)k * REF + o) * PP + ij);
+  };
+  auto store = [&](int k, int m, int o, float v) {
+    const int r = m / tn, st = m - r * tn;
+    pwrm[((size_t)(k * R + r) * REF + s0 + st) * REF + o] = v;
+  };
+  if constexpr (TEMPORAL)
+    dstd_mma::block_mma_split<Kind>(sm + L.part, K, R * tn, REF, 1, PP, la,
+                                    lb, store);
+  else
+    dstd_mma::block_mma<Kind, 1>(K, R * tn, REF, 1, PP, la, lb, store);
   __syncthreads();
 
   // ds = sum_o wrm[k,r,s,o] ddyn[k,o,i,j]; du = ds (1 - S^2) over S
-  for (int p = tid; p < K * PP; p += kThreads) {
-    const int k = p / PP, ij = p - k * PP;
-    for (int r = 0; r < R; ++r) {
-      const float* wr = wrow + (k * R + r) * TILE * REF;
-      float acc[TILE];
+  if constexpr (std::is_same_v<Kind, dstd_mma::Tf32x3Mma>) {
+    // per k a product over the REF output indices with rows (r, s) and
+    // columns the P^2 pairs, each ddyn element read once a block (the loop
+    // below reads it once per r); the temporal op takes its transpose
+    // (rows the 1225 frame pairs, 16 x 8 a warp: R tn = 8 columns at its
+    // tile 4), faster there and fewer registers under its two blocks per
+    // SM, the spatial one not (PERF.md)
+    auto wr = [&](int k, int m, int o) {
+      const int r = m / tn, st = m - r * tn;
+      return wrow[((k * R + r) * TILE + st) * REF + o];
+    };
+    auto dd = [&](int k, int o, int ij) {
+      return __ldg(ddn + ((size_t)k * REF + o) * PP + ij);
+    };
+    auto du = [&](int k, int m, int ij, float v) {
+      const int r = m / tn, st = m - r * tn;
+      const int e = ((k * R + r) * TILE + st) * PP + ij;
+      const float s = su[e];
+      su[e] = v * (1.f - s * s);
+    };
+    if constexpr (TEMPORAL)
+      dstd_mma::block_mma<Kind, 1>(
+          K, PP, R * tn, 1, REF,
+          [&](int k, int ij, int, int o) { return dd(k, o, ij); },
+          [&](int k, int, int o, int m) { return wr(k, m, o); },
+          [&](int k, int ij, int m, float v) { du(k, m, ij, v); });
+    else
+      dstd_mma::block_mma<Kind>(
+          K, R * tn, PP, 1, REF,
+          [&](int k, int m, int, int o) { return wr(k, m, o); },
+          [&](int k, int, int o, int ij) { return dd(k, o, ij); }, du);
+  } else {
+    // the bf16 kernels on the CUDA cores: on bf16 mma.sync ds moved 5b's
+    // dx past the card tests' bound (PERF.md)
+    for (int p = tid; p < K * PP; p += kThreads) {
+      const int k = p / PP, ij = p - k * PP;
+      for (int r = 0; r < R; ++r) {
+        const float* wr = wrow + (k * R + r) * TILE * REF;
+        float acc[TILE];
 #pragma unroll
-      for (int st = 0; st < TILE; ++st) acc[st] = 0.f;
-      for (int o = 0; o < REF; ++o) {
-        const float d = ddn[((size_t)k * REF + o) * PP + ij];
+        for (int st = 0; st < TILE; ++st) acc[st] = 0.f;
+        for (int o = 0; o < REF; ++o) {
+          const float d = ddn[((size_t)k * REF + o) * PP + ij];
 #pragma unroll
-        for (int st = 0; st < TILE; ++st)
-          acc[st] = fmaf(wr[st * REF + o], d, acc[st]);
-      }
+          for (int st = 0; st < TILE; ++st)
+            acc[st] = fmaf(wr[st * REF + o], d, acc[st]);
+        }
 #pragma unroll
-      for (int st = 0; st < TILE; ++st) {
-        if (st < tn) {
-          const int e = ((k * R + r) * TILE + st) * PP + ij;
-          const float s = su[e];
-          su[e] = acc[st] * (1.f - s * s);
+        for (int st = 0; st < TILE; ++st) {
+          if (st < tn) {
+            const int e = ((k * R + r) * TILE + st) * PP + ij;
+            const float s = su[e];
+            su[e] = acc[st] * (1.f - s * s);
+          }
         }
       }
     }

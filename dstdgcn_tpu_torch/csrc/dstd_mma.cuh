@@ -1,46 +1,64 @@
-// Tensor-core block products for the bf16 DSTD-GC kernels.
+// Tensor-core block products for the DSTD-GC backward kernels.
 //
-// block_mma computes what dstd_bwd_common.cuh's block_gemm computes, with
-// the same call contract, on Hopper's tensor cores: for every batch entry
-// b < batch, C[b][m][n] = sum_{s < S, q < Q} A(b, m, s, q) B(b, s, q, n),
-// the loaders la / lb returning floats and st(b, m, n, value) storing.
-// Each product is one mma.sync.aligned.m16n8k16 with bf16 inputs and
-// float32 accumulators: the bf16 contract of the kernels (the operands of a
-// contraction rounded to bf16, products and sums in float32).  Every operand
-// the contract feeds to a product is already bf16-rounded where it is
-// stored or loaded (dstd::Bf16::r), so the conversion to bf16 here is exact.
+// block_mma computes a batch of block products inside one thread block on
+// Hopper's tensor cores: for every batch entry b < batch,
+// C[b][m][n] = sum_{s < S, q < Q} A(b, m, s, q) B(b, s, q, n), the loaders
+// la / lb returning floats and st(b, m, n, value) storing.
+// The element kind of the product is a template argument:
+//  - Bf16Mma: one mma.sync.aligned.m16n8k16 with bf16 inputs and float32
+//    accumulators, the bf16 contract of the kernels (the operands of a
+//    contraction rounded to bf16, products and sums in float32).  Every
+//    operand the contract feeds to a product is already bf16-rounded where
+//    it is stored or loaded (dstd::Bf16::r), so the conversion here is
+//    exact.
+//  - Tf32x3Mma: float32 products to float32 accuracy on the TF32 tensor
+//    cores ("3xTF32").  Each operand x splits into big = tf32(x) (round to
+//    nearest, ties away, 10 mantissa bits: the rounding of
+//    cvt.rna.tf32.f32) and small = x - big (exact in float32), which the
+//    tensor core reads as TF32 by ignoring its low 13 bits (round toward
+//    zero); each m16n8k8 step adds small_a big_b + big_a small_b +
+//    big_a big_b into the float32 accumulators, three
+//    mma.sync.aligned.m16n8k8 .tf32.  big + small is within 2^-21 of each
+//    operand and the term left out, small_a small_b, is below 2^-22 of the
+//    product; one TF32 pass alone would err by about 2^-11 of each
+//    operand, beyond the float32 kernels' 1e-4 bound over long sums
+//    (tests/test_torch_tf32x3.py).
 //
-// Each warp owns one 16 x 32 tile of C[b] (four m16n8 tiles sharing one A
-// fragment) at a time; the warps of the block walk over (batch entry, m
-// tile, n tile).  The depth runs over s, then q in chunks of 32, two
-// products each, zeros past the edge of M, N and Q: no atomics, and the
-// order of each sum is fixed, so two calls give the same bits.  The
-// fragments are built from the loaders, so a call site passes the same
-// lambdas as to block_gemm; ldmatrix and bf16 staging in shared memory are
-// not used.  Every loader call runs whatever the edge (indices clamped, the
-// value zeroed after): a loader's own index arithmetic (a division of the
-// batch index, say) is then loop-invariant code the compiler hoists, where
-// a call under a condition would repeat it on every load.
-// block_mma_split is block_mma for a product with few output tiles and a
-// long depth: it splits the depth over the warps of each tile.
+// Each warp owns one 16 x 8 TILES_N tile of C[b] (TILES_N m16n8 tiles
+// sharing one A fragment; 16 x 32 by default) at a time; the warps of the
+// block walk over (batch entry, m tile, n tile).  The depth runs over s,
+// then q in chunks of 32 (two bf16 steps of 16, four TF32 steps of 8),
+// zeros past the edge of M, N and Q: no atomics, and the order of each sum
+// is fixed, so two calls give the same bits.  The fragments are built from
+// the loaders; ldmatrix and staging in shared memory are not used.  At the
+// edge every loader call still runs (indices clamped, the value zeroed
+// after): a loader's own index arithmetic (a division of the batch index,
+// say) is then loop-invariant code the compiler hoists, where a call under
+// a condition would repeat it on every load.  block_mma_split is block_mma
+// for a product with few output tiles and a long depth: it splits the
+// depth over the warps of each tile.
 //
 // Which depth index fills which slot of a product is free, as long as A
-// and B agree.  In a chunk of 32 the slots 2t, 2t+1, 2t+8, 2t+9 of the
-// product h (0, 1) take the depths 8t + 4h + 0..3, so the lanes of one
-// load read depths 8t + c of rows g: for an operand stored with a row
-// stride of 1 modulo 32 floats (the kernels' odd strides Co|1, Ci|1 at 64
-// channels) the 32 lanes hit 32 distinct banks, whether the depth runs
-// along the row or down the column.  Slots in the usual order (2t + c)
-// would put 4 lanes on one bank.
+// and B agree.  In a chunk of 32, lane (g, t) of step h holds the kPer
+// depths 8t + kPer h + c (c < kPer) of its rows g (and g + 8) and its
+// column g: bf16 (kPer 4) slots 2t, 2t+1, 2t+8, 2t+9 of product h (0, 1);
+// TF32 (kPer 2) slot t (c = 0) and t+4 (c = 1) of product h (0..3).  The
+// lanes of one load then read depths 8t + c of rows g: for an operand
+// stored with a row stride of 1 modulo 32 floats (the kernels' odd strides
+// Co|1, Ci|1 at 64 channels) the 32 lanes hit 32 distinct banks, whether
+// the depth runs along the row or down the column.  Slots in the usual
+// order (2t + c, or t) would put 4 lanes on one bank.
 //
-// Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16
-// with floating point type"), g = lane / 4, t = lane % 4:
-//   A (16 x 16, row-major), 4 registers of two bf16 (low half first):
-//     a0 (g, 2t..2t+1), a1 (g+8, 2t..2t+1), a2 (g, 2t+8..2t+9),
-//     a3 (g+8, 2t+8..2t+9)
-//   B (16 x 8, column-major), 2 registers: b0 (2t..2t+1, g),
-//     b1 (2t+8..2t+9, g)
-//   C (16 x 8), 4 floats: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
+// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 with
+// floating point type" and "... mma.m16n8k8"), g = lane / 4, t = lane % 4:
+//   m16n8k16 bf16: A (16 x 16, row-major), 4 registers of two bf16 (low
+//     half first): a0 (g, 2t..2t+1), a1 (g+8, 2t..2t+1), a2 (g, 2t+8..2t+9),
+//     a3 (g+8, 2t+8..2t+9); B (16 x 8, column-major), 2 registers:
+//     b0 (2t..2t+1, g), b1 (2t+8..2t+9, g)
+//   m16n8k8 tf32: A (16 x 8), 4 registers: a0 (g, t), a1 (g+8, t),
+//     a2 (g, t+4), a3 (g+8, t+4); B (8 x 8), 2 registers: b0 (t, g),
+//     b1 (t+4, g)
+//   C (16 x 8), both, 4 floats: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
 //     c3 (g+8, 2t+1)
 #pragma once
 
@@ -67,64 +85,175 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One warp's 16 x (8 TILES_N) tile of C[b] at rows m0, columns n0: the sum
-// over s < S and the depths q_lo <= q < q_hi (q_lo a multiple of 32) added
-// into acc, the C fragments of its n8 tiles.
-template <int TILES_N, typename LA, typename LB>
-__device__ __forceinline__ void warp_tile(float (&acc)[TILES_N][4], int b,
-                                          int M, int Nn, int S, int Q,
-                                          int m0, int n0, int q_lo, int q_hi,
-                                          LA& la, LB& lb) {
+// x rounded to TF32 (nearest, ties away from zero), as a float's bits: the
+// rounding of cvt.rna.tf32.f32 in two integer instructions (half a TF32
+// ulp added to the magnitude, the low 13 bits cleared); ptxas expands
+// cvt.rna into a longer sequence (a floating-point test and a select) that
+// measured 0.08 ms slower over kernel 6's 7 calls at N = 32 (PERF.md).  A
+// NaN whose top mantissa bits are all ones (0x7fffffff) comes out as -0,
+// but x - big stays NaN and carries it through the small terms.
+__device__ inline uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a b, one m16n8k8 tile, tf32 inputs, float32 accumulators
+__device__ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The element kinds of warp_tile.  kPer: the depths of one row (A) or
+// column (B) a lane holds in one step; a step is 8 kPer deep, a chunk of 32
+// is 8 / kPer steps.  a(av) builds the A fragment from av[row g, g+8][c],
+// mma(d, a, bv) adds the product with the B fragment of bv[c].  kInterior:
+// chunks wholly inside M, N and Q skip the edge clamps and zeroing (the
+// bf16 kernels keep the one path they were measured with).
+struct Bf16Mma {
+  static constexpr int kPer = 4;
+  static constexpr bool kInterior = false;
+  struct A {
+    uint32_t r[4];
+  };
+  __device__ static A a(const float (&av)[2][kPer]) {
+    return {{pack_bf16(av[0][0], av[0][1]), pack_bf16(av[1][0], av[1][1]),
+             pack_bf16(av[0][2], av[0][3]), pack_bf16(av[1][2], av[1][3])}};
+  }
+  __device__ static void mma(float (&d)[4], const A& a,
+                             const float (&bv)[kPer]) {
+    const uint32_t b[2] = {pack_bf16(bv[0], bv[1]), pack_bf16(bv[2], bv[3])};
+    mma_bf16(d, a.r, b);
+  }
+};
+
+struct Tf32x3Mma {
+  static constexpr int kPer = 2;
+  static constexpr bool kInterior = true;
+  struct A {
+    uint32_t big[4], small[4];
+  };
+  __device__ static A a(const float (&av)[2][kPer]) {
+    const float v[4] = {av[0][0], av[1][0], av[0][1], av[1][1]};
+    A f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f.big[i] = tf32(v[i]);
+      f.small[i] = __float_as_uint(v[i] - __uint_as_float(f.big[i]));
+    }
+    return f;
+  }
+  __device__ static void mma(float (&d)[4], const A& a,
+                             const float (&bv)[kPer]) {
+    uint32_t big[2], small[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      big[i] = tf32(bv[i]);
+      small[i] = __float_as_uint(bv[i] - __uint_as_float(big[i]));
+    }
+    // the small terms first, then the big one
+    mma_tf32(d, a.small, big);
+    mma_tf32(d, a.big, small);
+    mma_tf32(d, a.big, big);
+  }
+};
+
+// The rows and columns of a warp's tile (g = lane / 4): its rows r0 = m0 + g
+// and r1 = r0 + 8, the same clamped into M (l0, l1) and whether they are
+// inside (in0, in1), and its n8 tiles that reach into N (live: the same
+// for every lane; the first always does).
+struct TileRows {
+  int r0, r1, l0, l1, live;
+  bool in0, in1;
+  __device__ TileRows(int M, int Nn, int m0, int n0, int tiles_n) {
+    r0 = m0 + ((threadIdx.x & 31) >> 2);
+    r1 = r0 + 8;
+    in0 = r0 < M;
+    in1 = r1 < M;
+    l0 = min(r0, M - 1);
+    l1 = min(r1, M - 1);
+    live = min(tiles_n, (Nn - n0 + 7) >> 3);
+  }
+};
+
+// One 32-deep chunk (depths q0 ...) of warp_tile's sum at s: with EDGE,
+// rows, columns and depths past the edge are clamped on load and zeroed
+// after; without, every one is inside.
+template <typename K, int TILES_N, bool EDGE, typename LA, typename LB>
+__device__ __forceinline__ void warp_chunk(float (&acc)[TILES_N][4], int b,
+                                           int Nn, int Q, int s, int q0,
+                                           int n0, const TileRows& w, LA& la,
+                                           LB& lb) {
+  constexpr int kPer = K::kPer;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = m0 + g, r1 = r0 + 8;
-  const bool in0 = r0 < M, in1 = r1 < M;
-  // rows and columns past the edge are clamped on load and zeroed after
-  const int l0 = min(r0, M - 1), l1 = min(r1, M - 1);
-  // the warp's n8 tiles that reach into N (the same for every lane; the
-  // first always does)
-  const int live = min(TILES_N, (Nn - n0 + 7) >> 3);
-  for (int s = 0; s < S; ++s) {
-    for (int q0 = q_lo; q0 < q_hi; q0 += 32) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (h == 1 && q0 + 4 >= Q) break;
-        // the depth of this lane's four slots 2t, 2t+1, 2t+8, 2t+9
-        const int d = q0 + 8 * t + 4 * h;
-        float av[2][4];
+  for (int h = 0; h < 8 / kPer; ++h) {
+    // the step's lowest depth is q0 + kPer h
+    if (EDGE && h > 0 && q0 + kPer * h >= Q) break;
+    // the depth of this lane's first slot
+    const int d = q0 + 8 * t + kPer * h;
+    float av[2][kPer];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int q = min(d + c, Q - 1);
-          const float v0 = la(b, l0, s, q), v1 = la(b, l1, s, q);
-          av[0][c] = in0 && d + c < Q ? v0 : 0.f;
-          av[1][c] = in1 && d + c < Q ? v1 : 0.f;
-        }
-        const uint32_t a[4] = {pack_bf16(av[0][0], av[0][1]),
-                               pack_bf16(av[1][0], av[1][1]),
-                               pack_bf16(av[0][2], av[0][3]),
-                               pack_bf16(av[1][2], av[1][3])};
+    for (int c = 0; c < kPer; ++c) {
+      if constexpr (EDGE) {
+        const int q = min(d + c, Q - 1);
+        const float v0 = la(b, w.l0, s, q), v1 = la(b, w.l1, s, q);
+        av[0][c] = w.in0 && d + c < Q ? v0 : 0.f;
+        av[1][c] = w.in1 && d + c < Q ? v1 : 0.f;
+      } else {
+        av[0][c] = la(b, w.r0, s, d + c);
+        av[1][c] = la(b, w.r1, s, d + c);
+      }
+    }
+    const typename K::A a = K::a(av);
 #pragma unroll
-        for (int j = 0; j < TILES_N; ++j) {
-          if (j == 0 || j < live) {
-            const int col = n0 + 8 * j + g, lc = min(col, Nn - 1);
-            float bv[4];
+    for (int j = 0; j < TILES_N; ++j) {
+      if (!EDGE || j == 0 || j < w.live) {
+        const int col = n0 + 8 * j + g, lc = min(col, Nn - 1);
+        float bv[kPer];
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float v = lb(b, s, min(d + c, Q - 1), lc);
-              bv[c] = col < Nn && d + c < Q ? v : 0.f;
-            }
-            const uint32_t bb[2] = {pack_bf16(bv[0], bv[1]),
-                                    pack_bf16(bv[2], bv[3])};
-            mma_bf16(acc[j], a, bb);
+        for (int c = 0; c < kPer; ++c) {
+          if constexpr (EDGE) {
+            const float v = lb(b, s, min(d + c, Q - 1), lc);
+            bv[c] = col < Nn && d + c < Q ? v : 0.f;
+          } else {
+            bv[c] = lb(b, s, d + c, col);
           }
         }
+        K::mma(acc[j], a, bv);
       }
     }
   }
 }
 
-// TILES_N: the n8 tiles of C one warp owns (16 x 32 at 4): the A fragment
-// of a depth step feeds all of them.
-template <int TILES_N = 4, typename LA, typename LB, typename ST>
+// One warp's 16 x (8 TILES_N) tile of C[b] at rows m0, columns n0: the sum
+// over s < S and the depths q_lo <= q < q_hi (q_lo a multiple of 32) added
+// into acc, the C fragments of its n8 tiles, in products of kind K.
+template <typename K, int TILES_N, typename LA, typename LB>
+__device__ __forceinline__ void warp_tile(float (&acc)[TILES_N][4], int b,
+                                          int M, int Nn, int S, int Q,
+                                          int m0, int n0, int q_lo, int q_hi,
+                                          LA& la, LB& lb) {
+  const TileRows w(M, Nn, m0, n0, TILES_N);
+  const bool inside =
+      K::kInterior && m0 + 16 <= M && n0 + 8 * TILES_N <= Nn;
+  for (int s = 0; s < S; ++s) {
+    for (int q0 = q_lo; q0 < q_hi; q0 += 32) {
+      if (inside && q0 + 32 <= Q)
+        warp_chunk<K, TILES_N, false>(acc, b, Nn, Q, s, q0, n0, w, la, lb);
+      else
+        warp_chunk<K, TILES_N, true>(acc, b, Nn, Q, s, q0, n0, w, la, lb);
+    }
+  }
+}
+
+// K: the element kind (Bf16Mma, Tf32x3Mma); TILES_N: the n8 tiles of C
+// one warp owns (16 x 32 at 4): the A fragment of a depth step feeds all
+// of them.
+template <typename K, int TILES_N = 4, typename LA, typename LB, typename ST>
 __device__ inline void block_mma(int batch, int M, int Nn, int S, int Q,
                                  LA la, LB lb, ST st) {
   constexpr int kWarpN = 8 * TILES_N;
@@ -141,7 +270,7 @@ __device__ inline void block_mma(int batch, int M, int Nn, int S, int Q,
 #pragma unroll
     for (int j = 0; j < TILES_N; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    warp_tile<TILES_N>(acc, b, M, Nn, S, Q, m0, n0, 0, Q, la, lb);
+    warp_tile<K, TILES_N>(acc, b, M, Nn, S, Q, m0, n0, 0, Q, la, lb);
     const int r0 = m0 + g, r1 = r0 + 8;
 #pragma unroll
     for (int j = 0; j < TILES_N; ++j) {
@@ -168,7 +297,7 @@ __host__ __device__ inline long long split_floats(long long tiles,
 // partial tile to `part` (split_floats of shared memory); after a barrier
 // every output is the sum of its partials in part order, so the order of
 // each sum is still fixed.  Every thread of the block must call it.
-template <typename LA, typename LB, typename ST>
+template <typename K, typename LA, typename LB, typename ST>
 __device__ inline void block_mma_split(float* part, int batch, int M, int Nn,
                                        int S, int Q, LA la, LB lb, ST st) {
   constexpr int kTile = 16 * 8;
@@ -186,7 +315,7 @@ __device__ inline void block_mma_split(float* part, int batch, int M, int Nn,
     float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
     const int q_lo = (p * chunks / parts) << 5;
     const int q_hi = min(((p + 1) * chunks / parts) << 5, Q);
-    warp_tile<1>(acc, b, M, Nn, S, Q, m0, n0, q_lo, q_hi, la, lb);
+    warp_tile<K, 1>(acc, b, M, Nn, S, Q, m0, n0, q_lo, q_hi, la, lb);
     float* out = part + (size_t)task * kTile;
     out[g * 8 + 2 * t] = acc[0][0];
     out[g * 8 + 2 * t + 1] = acc[0][1];

@@ -13,11 +13,12 @@
 // Bound on an H100 SXM: at N=32, T=35, V=22, 64->64 channels the backward
 // does about 2.6x the forward's operations (the recompute of projections,
 // scores and adjacency, then dA, dxf, dx, dwf, ds, dwrm and the q/k
-// products), about 2 GFLOP of float32 CUDA-core work (about 30 us at
-// 67 TFLOP/s) against about 20 MB of inputs and outputs (about 6 us at
-// 3.35 TB/s): operation-bound, with 2*35*484 tanh per sample recomputed
-// twice.  At bf16, with the contractions at the tensor cores' 989 TFLOP/s,
-// the bytes bound it (chip_smoke.py::op_cost).
+// products), about 2 GFLOP of contractions, about 13 us at the 3xTF32
+// rate (the dense TF32 tensor-core peak over 3, the least time for
+// float32-accurate products), against about 19 MB of inputs and outputs
+// (about 6 us at 3.35 TB/s): operation-bound, with 2*35*484 tanh per
+// sample recomputed twice.  At bf16, with the contractions at the tensor
+// cores' 989 TFLOP/s, the bytes bound it (chip_smoke.py::op_cost).
 //
 // Design (dstd_bwd_common.cuh): the TPU kernel carried the weight
 // gradients from one grid step to the next; here blocks run in no order, so
@@ -26,13 +27,14 @@
 // repeat bit for bit).  The cross-frame coupling (ds of a source frame needs
 // ddyn of every output frame) splits the work into a pass over output-frame
 // tiles and a pass over source-frame tiles, with ddyn (4.3 MB at N = 32) in
-// scratch, resident in L2 between them.  The float32 entry runs plain
-// float32 FMAs on the CUDA cores, `tanhf`.  The bf16 entry (the TPU kernel's
-// bf16 dtype: the operands of the 11 contractions rounded to bf16) runs the
-// five block products of pass 2 (features, dA, dxf, dx, dwf) and pass 3's
-// dwrm as bf16 mma.sync tiles with float32 accumulators on the tensor cores
-// (dstd_mma.cuh); the mixing loop, ds, the q/k products and every float32
-// sum stay on the CUDA cores.
+// scratch, resident in L2 between them.  The five block products of pass 2
+// (features, dA, dxf, dx, dwf) and pass 3's dwrm run as mma.sync tiles with
+// float32 accumulators on the tensor cores (dstd_mma.cuh): in the float32
+// entry as 3xTF32 products (float32-accurate), where pass 3's ds is one
+// such product too; in the bf16 entry (the TPU kernel's bf16 dtype: the
+// operands of the 11 contractions rounded to bf16) as bf16 products.  The
+// mixing loop, the bf16 ds, the q/k products and every float32 sum stay on
+// the CUDA cores.
 #include "dstd_bwd_common.cuh"
 
 DSTD_BWD_C_API(dstd_spatial_bwd, false)

@@ -164,6 +164,7 @@ class _Libraries:
                 failed.append(f"{name} (exit {proc.returncode}):\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
+                _lib_path(name).with_suffix(".log").write_text(log)
                 os.replace(tmp, _lib_path(name))
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -202,6 +203,11 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) for a
-    library compiled by this process, else an empty string."""
-    return _LIBS.logs.get(name, "")
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of
+    a library's build, kept beside the library; an empty string if it was
+    not built."""
+    log = _LIBS.logs.get(name)
+    if log is None:
+        path = _lib_path(name).with_suffix(".log")
+        log = path.read_text() if path.exists() else ""
+    return log

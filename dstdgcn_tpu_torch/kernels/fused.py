@@ -215,12 +215,16 @@ class _Kernel(_Counted):
 class FusedBwd(_Kernel):
     """Backward of one DSTD-GC op: CUDA kernel on the card, the plain
     backward of :mod:`..ops.dstd_bwd` on the CPU.  Returns the 11 gradients
-    ``(dx, dbase, dalpha, dwf, dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm)``."""
+    ``(dx, dbase, dalpha, dwf, dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm)``.
+    ``f32_tile``: the float32 kernel's default tile where it differs from
+    the bf16 one's (``default_tile``)."""
 
-    def __init__(self, mode: str, plain_fn, default_tile: int):
+    def __init__(self, mode: str, plain_fn, default_tile: int,
+                 f32_tile: int | None = None):
         super().__init__(f"dstd_{mode}_bwd", mode, default_tile,
                          clustered=False)
         self.plain = plain_fn
+        self.f32_tile = f32_tile or default_tile
 
     def __call__(self, x, g, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
                  brm, agg: str = "right", dtype=None, *,
@@ -238,6 +242,8 @@ class FusedBwd(_Kernel):
                                       bm2, wrm, brm)))
         n, t, v, ci, co, k, r = self._check(x, weights, g)
         x, g = x.float(), g.float()
+        if tile is None and variant == "f32":
+            tile = self.f32_tile
         lib, tile, floats = self._plan(n, t, v, ci, co, k, r, tile)
         grads = [torch.empty_like(x)] + [torch.empty_like(weights[key])
                                          for key in _WEIGHTS]
@@ -352,8 +358,10 @@ class _DSTDFunction(torch.autograd.Function):
 
 dstd_spatial_bwd = FusedBwd("spatial", plain_bwd.dstd_spatial_bwd,
                             default_tile=5)
+# the float32 temporal backward at tile 4: 6 blocks a sample (1.45 waves on
+# the H100's 132 SMs at N = 32) measured faster than 5 and 6 (PERF.md)
 dstd_temporal_bwd = FusedBwd("temporal", plain_bwd.dstd_temporal_bwd,
-                             default_tile=5)
+                             default_tile=5, f32_tile=4)
 dstd_spatial = FusedOp("spatial", plain.dstd_spatial, plain.kernel_spatial,
                        default_tile=5, clustered=True, bwd=dstd_spatial_bwd)
 dstd_temporal = FusedOp("temporal", plain.dstd_temporal,

@@ -10,7 +10,9 @@ batch.  The bf16 variants are held against the plain versions of their
 contract (``ops/dstd.py::kernel_spatial``, ``ops/dstd_bwd.py`` with the
 dtype) at BF16_TOL, each check below half of its own bf16-versus-float32
 gap: two right implementations that sum in another order can round an
-intermediate to neighbouring bf16 values.
+intermediate to neighbouring bf16 values.  The tile cases (``TILE_CASES``,
+at bf16 and at float32) hold an output past its bound if it lies near the
+float64 run of the contract (``F64_NOISE``).
 """
 
 import numpy as np
@@ -26,6 +28,8 @@ torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
 WEIGHTS = ("wf", "bf", "wm1", "bm1", "wm2", "bm2", "wrm", "brm")
+GRADIENTS = ("dx", "dbase", "dalpha", "dwf", "dbf", "dwm1", "dbm1", "dwm2",
+             "dbm2", "dwrm", "dbrm")
 #: bf16 kernel against its plain version: forward over the peak |output|,
 #: backward per gradient over max(max |plain|, 1)
 BF16_TOL = dict(forward=1e-3, backward=1.5e-3)
@@ -249,16 +253,16 @@ def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, cin, co):
 
 
 #: (mode, tile, N, T, V, Ci, Co, agg): ragged shapes at every tile, then
-#: the edges of the 16 x 8 x 16 tensor-core tiles of the bf16 backward
-#: kernels.  Spatial: V of 7, 22 and 25 joints (the pair axis, rows and
-#: depth of the dA and dxf products; 22 H36M, 25 CMU).  Temporal: T of 9,
-#: 35 and 40 frames (the pair axis: rows and depth of dA and dxf, and the
-#: T*T depth of dwrm, split over warps) by V of 7, 22 and 25 joints (the
-#: mixing axis: dwrm's columns, a ragged last tile of output joints).
-#: Both: one and three samples, channel pairs below, across and at the
-#: 16-wide depth, tiles 1, 5 and 8 (the feature rows, tile x the pair
-#: axis), both aggregations
-BF16_TILE_CASES = (
+#: the edges of the tensor-core tiles of the backward kernels (16 x 8 x 16
+#: bf16, 16 x 8 x 8 3xTF32).  Spatial: V of 7, 22 and 25 joints (the pair
+#: axis, rows and depth of the dA and dxf products; 22 H36M, 25 CMU).
+#: Temporal: T of 9, 35 and 40 frames (the pair axis: rows and depth of dA
+#: and dxf, and the T*T depth of dwrm, split over warps) by V of 7, 22 and
+#: 25 joints (the mixing axis: dwrm's columns, a ragged last tile of output
+#: joints).  Both: one and three samples, channel pairs below, across and
+#: at the 16-wide depth, tiles 1, 5 and 8 (the feature rows, tile x the
+#: pair axis), both aggregations.  Run at bf16 and at float32.
+TILE_CASES = (
     [(mode, tile, 3, 9, 7, 5, 4, "right") for mode in ("spatial", "temporal")
      for tile in (1, 3, 8)]
     + [("spatial", tile, n, 35, v, cin, co, agg) for v in (7, 22, 25)
@@ -268,27 +272,101 @@ BF16_TILE_CASES = (
        for v in (7, 22, 25) for n in (1, 3)
        for cin, co in ((3, 3), (6, 64), (64, 3)) for tile in (1, 5, 8)
        for agg in ("right", "left")])
+#: a bf16 tile case's output that lies farther than BF16_TOL from the
+#: plain contract is still held if its distance to the float64 run of the
+#: same contract (the same rounding points) is within BF16_TOL or within
+#: F64_NOISE times the plain contract's own distance to that run, the
+#: larger of its two runs in two summation orders (on the card and on the
+#: CPU).  At some 64->3 temporal edges a rounding flip moves a bf16
+#: intermediate and the output by up to 1.74e-3, past BF16_TOL (ROADMAP.md,
+#: F4): in one summation order and not in another, so the kernel, the plain
+#: contract on the card and the same on the CPU are runs of the same
+#: rounding noise, and the float64 run is the function they all round.
+#: The float32 cases are held the same way at 1e-4: dalpha sums products
+#: that cancel, and float32 summation order alone moves it by up to
+#: 7.0e-5 of max(|g|, 1) from float64 at these shapes (the plain version on
+#: the card), so two right float32 orders can lie 1.1e-4 apart.  F64_NOISE
+#: is the factor ``chip_smoke.py`` phases 7 and 9 use for the train steps.
+#: Measured on the H100 over the tile cases (``bwd_profile.py --cases``,
+#: PERF.md): where a right kernel lies past the bound, its distance to the
+#: float64 run is at most 1.00 (bf16) and 0.57 (float32) times the plain
+#: contract's; a 6b whose dx misses joint 0 lies 111 times or more past
+#: this check's bound, one whose dx is 1% off 2.85 times or more.
+F64_NOISE = 2.0
 
 
-@pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", BF16_TILE_CASES)
+def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None):
+    """One tile case (seeded inputs, seed 1; cotangent seed 2) through the
+    kernels at ``dtype`` (None: float32): {output: (distance to the plain
+    contract, the kernel's distance to the contract's float64 run, the
+    plain contract's own distance to it on ``device`` and on the CPU)} for
+    the forward (bf16 only, over the peak |output|) and each of the
+    backward's 11 gradients (over max(max |.|, 1)), and whether two
+    backward calls gave the same bits.  ``bwd`` replaces the backward
+    kernel (a broken one, say)."""
+    args = _inputs(mode, n, t, v, cin, co, device, seed=1)
+    g = torch.from_numpy(np.random.RandomState(2).randn(
+        n, t, v, co).astype(np.float32)).to(device)
+    wide = [a.double() for a in args]
+    on_cpu = [a.cpu() for a in [g] + args]
+
+    def dist(a, b, norm):
+        return float((a.double() - b.double().to(a.device)).abs().max()) \
+            / norm
+
+    def held(got, want, want_cpu, want64, norm, norm64):
+        return (dist(got, want, norm), dist(got, want64, norm64),
+                dist(want, want64, norm64), dist(want_cpu, want64, norm64))
+
+    out = {}
+    if dtype is not None:
+        got = getattr(fused, f"dstd_{mode}").launch(*args, agg=agg,
+                                                    dtype=dtype, tile=tile)
+        ref = getattr(plain, f"kernel_{mode}")
+        want, want64 = ref(*args, agg, dtype), ref(*wide, agg, dtype)
+        out["forward"] = held(got, want, ref(*on_cpu[1:], agg, dtype),
+                              want64, float(want.abs().max()),
+                              float(want64.abs().max()))
+    bwd = bwd or getattr(fused, f"dstd_{mode}_bwd")
+    grads = bwd(args[0], g, *args[1:], agg=agg, dtype=dtype, tile=tile)
+    again = bwd(args[0], g, *args[1:], agg=agg, dtype=dtype, tile=tile)
+    ref = getattr(plain_bwd, f"dstd_{mode}_bwd")
+    want = ref(args[0], g, *args[1:], agg=agg, dtype=dtype)
+    want_cpu = ref(on_cpu[1], on_cpu[0], *on_cpu[2:], agg=agg, dtype=dtype)
+    want64 = ref(wide[0], g.double(), *wide[1:], agg=agg, dtype=dtype)
+    for name, a, b, b_cpu, c in zip(GRADIENTS, grads, want, want_cpu,
+                                    want64):
+        out[name] = held(a, b, b_cpu, c, max(float(b.abs().max()), 1.0),
+                         max(float(c.abs().max()), 1.0))
+    return out, all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def _held(dtype, name, err, kernel64, *plain64):
+    """Whether a tile case holds one output: within its bound of the plain
+    contract (float32 1e-4, bf16 BF16_TOL) or, failing that, near the
+    contract's float64 run as F64_NOISE says (``plain64``: the plain
+    contract's distances to it in its two summation orders)."""
+    tol = 1e-4 if dtype is None else BF16_TOL[
+        "forward" if name == "forward" else "backward"]
+    return err <= tol or kernel64 <= max(tol, F64_NOISE * max(plain64))
+
+
+@pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", TILE_CASES)
 def test_bf16_kernels_tiles_and_ragged_shapes(cuda, mode, tile, n, t, v, cin,
                                               co, agg):
-    args = _inputs(mode, n, t, v, cin, co, cuda, seed=1)
-    g = torch.from_numpy(np.random.RandomState(2).randn(
-        n, t, v, co).astype(np.float32)).to(cuda)
-    bf16 = torch.bfloat16
-    got = getattr(fused, f"dstd_{mode}").launch(*args, agg=agg, dtype=bf16,
-                                                tile=tile)
-    want = getattr(plain, f"kernel_{mode}")(*args, agg, bf16)
-    peak = float(want.abs().max())
-    assert float((got - want).abs().max()) <= BF16_TOL["forward"] * peak
-    bwd = getattr(fused, f"dstd_{mode}_bwd")
-    grads = bwd(args[0], g, *args[1:], agg=agg, dtype=bf16, tile=tile)
-    again = bwd(args[0], g, *args[1:], agg=agg, dtype=bf16, tile=tile)
-    assert all(torch.equal(a, b) for a, b in zip(grads, again))
-    want = getattr(plain_bwd, f"dstd_{mode}_bwd")(args[0], g, *args[1:],
-                                                  agg=agg, dtype=bf16)
-    _assert_grads_close(grads, want, BF16_TOL["backward"])
+    held, repeat = _tile_case(mode, tile, n, t, v, cin, co, agg, cuda,
+                              torch.bfloat16)
+    assert repeat
+    assert all(_held(torch.bfloat16, name, *d) for name, d in held.items()), \
+        held
+
+
+@pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", TILE_CASES)
+def test_float32_backward_kernels_tiles_and_ragged_shapes(
+        cuda, mode, tile, n, t, v, cin, co, agg):
+    held, repeat = _tile_case(mode, tile, n, t, v, cin, co, agg, cuda, None)
+    assert repeat
+    assert all(_held(None, name, *d) for name, d in held.items()), held
 
 
 @pytest.mark.parametrize("mode", ["spatial", "temporal"])

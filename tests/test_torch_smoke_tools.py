@@ -40,15 +40,49 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("dstd_bwd::out_kernel<false, 5, dstd::Bf16>", True),
     ("dstd_bwd::out_kernel<false, 1, dstd::Bf16>", True),
     ("dstd_bwd::src_kernel<false, 8, dstd::Bf16>", True),
-    ("dstd_bwd::out_kernel<false, 5, dstd::Exact>", False),
+    ("dstd_bwd::out_kernel<false, 5, dstd::Exact>", True),
+    ("dstd_bwd::src_kernel<false, 1, dstd::Exact>", True),
     ("dstd_bwd::out_kernel<true, 5, dstd::Bf16>", True),
     ("dstd_bwd::src_kernel<true, 6, dstd::Bf16>", True),
+    ("dstd_bwd::out_kernel<true, 5, dstd::Exact>", True),
+    ("dstd_bwd::src_kernel<true, 8, dstd::Exact>", True),
     ("dstd_bwd::qk_kernel<false, dstd::Bf16>", False),
+    ("dstd_bwd::qk_kernel<true, dstd::Exact>", False),
     ("dstd_bwd::reduce_kernel<false>", False),
+    ("dstd_bwd::reduce_kernel<true>", False),
 ])
 def test_uses_mma_names_the_bf16_out_and_src_passes_of_both_ops(function,
                                                                 mma):
     assert cs.uses_mma(function) is mma
+
+
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("backward", [False, True])
+def test_op_cost_counts_float32_contractions_at_the_3xtf32_rate(mode,
+                                                                backward):
+    flops, nbytes, dots, peak = cs.op_cost(mode, 32, 64, 64, backward)
+    assert peak == cs.PEAK_TF32_FLOPS / 3
+    # the same split as the bf16 contract's, at the dense bf16 rate there
+    assert cs.op_cost(mode, 32, 64, 64, backward, "bfloat16") == (
+        flops, nbytes, dots, cs.PEAK_BF16_FLOPS)
+    assert 0 < flops < dots
+    least, t_ops, t_mem = cs.bound_of(flops, nbytes, dots, peak)
+    assert t_ops == pytest.approx(
+        (flops / 67e12 + dots / (494.7e12 / 3)) * 1e3)
+    assert least == max(t_ops, t_mem)
+    # below the bound of every operation at the CUDA cores' 67 TFLOP/s
+    assert t_ops < (flops + dots) / cs.PEAK_F32_FLOPS * 1e3
+
+
+@pytest.mark.parametrize("name", ["block_spmm", "block_sddmm",
+                                  "block_sddmm_spmm"])
+def test_sparse_cost_splits_the_same_operations(name):
+    n, blocks, block, r, c, v = 4, 174, 128, 4, 128, 4096
+    flops, _, dots, peak = cs.sparse_cost(name, n, blocks, block, r, c, v)
+    entries = n * blocks * block * block
+    total = dict(block_spmm=2 * c, block_sddmm=4 * r,
+                 block_sddmm_spmm=4 * r + 2 * c)[name] * entries
+    assert flops + dots == total and peak == cs.PEAK_F32_DOT_FLOPS
 
 
 def test_bwd_split_sums_each_launch_and_ignores_other_kernels():
