@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Per-launch profile of the DSTD-GC backward kernels on one NVIDIA GPU,
-for the A/B of kernel versions.
+"""Per-launch profile of the DSTD-GC backward (and, with ``--forward``,
+forward) kernels on one NVIDIA GPU, for the A/B of kernel versions.
 
     python3 bwd_profile.py OUT_DIR [--tree DIR] [--label L]
                            [--modes temporal,spatial] [--dtype D]
-                           [--tile K] [--build-only]
+                           [--tile K] [--forward] [--build-only]
 
 For the kernels of the port in ``--tree`` (default: this checkout; another
 checkout's kernels are built in its own tree): the registers and spills of
@@ -26,6 +26,20 @@ the backward's tile (default: the wrapper's).  Nothing is asserted: a
 variant that computes something else still reports its times, with ``ok``
 false.
 
+With ``--forward`` the same for the forward kernels
+(``dstd_{spatial,temporal}_{bf16,f32}``, one launch a call): the ptxas and
+``HMMA`` lines of the forward functions and of the chain kernels
+(``dstd_chain``, which share their CUDA-core bodies), and per (Ci, Co)
+and aggregation the kernel's float32 output (``FusedOp.launch``) against
+the plain contract (``ops/dstd.py::kernel_spatial`` / ``kernel_temporal``
+with the dtype; over the peak |plain float32 output|, as phase 3 holds
+it), the kernel's and the plain contract's distance to the contract's
+float64 run (``kernel_plain_vs_f64``), whether two calls give the same
+bits, the device ms (agg right, on the x of the model's path: bf16 at
+bf16) and, at bf16, the device ms of the casts around a call in the model
+(``x.float()`` of a bf16 x, which a wrapper that reads x as float32 pays,
+and the output's cast to bf16); the last line per op sums the 7 calls.
+
 With ``--cases MODE[:TILE]`` it runs instead the card tests' tile cases of
 that op at the dtype (``tests/test_torch_cuda.py::TILE_CASES``, at one
 tile if given, on the same inputs, through the card tests' own
@@ -33,12 +47,13 @@ tile if given, on the same inputs, through the card tests' own
 contract, its and the plain version's distance to the float64 run of the
 contract, and whether the card test holds it (``_held``).  ``--fault
 dx_joint0`` zeroes the backward kernel's dx at joint 0 after each call,
-``--fault dx_1pc`` scales it by 1.01: a broken kernel the card test must
-refuse.
+``--fault dx_1pc`` scales it by 1.01, ``out_joint0`` and ``out_1pc`` do
+the same to the forward kernel's output: a broken kernel the card test
+must refuse.
 
 Writes ``OUT_DIR/bwd_profile_<label>.jsonl`` (one line per check, one per
 op's sum) and prints the same lines.  ``--build-only`` builds the
-backward libraries and stops (to build several trees in parallel before
+profiled libraries and stops (to build several trees in parallel before
 timing them one after another).
 """
 
@@ -58,9 +73,11 @@ def _zero_joint0(t):
     return t
 
 
-#: deliberate faults of ``--cases --fault``: how the backward kernel's dx is
-#: altered after each call
-FAULTS = {"dx_joint0": _zero_joint0, "dx_1pc": lambda t: t * 1.01}
+#: deliberate faults of ``--cases --fault``: how the backward kernel's dx
+#: (``dx_*``) or the forward kernel's output (``out_*``) is altered after
+#: each call
+FAULTS = {"dx_joint0": _zero_joint0, "dx_1pc": lambda t: t * 1.01,
+          "out_joint0": _zero_joint0, "out_1pc": lambda t: t * 1.01}
 
 
 def main():
@@ -75,6 +92,7 @@ def main():
                     choices=("bfloat16", "float32"))
     ap.add_argument("--tile", type=int, default=None)
     ap.add_argument("--fault", default=None, choices=tuple(FAULTS))
+    ap.add_argument("--forward", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -95,7 +113,10 @@ def main():
     from dstdgcn_tpu_torch.utils.config import resolve
     cs.check(os.path.dirname(dstdgcn_tpu_torch.__file__).startswith(tree),
              f"the port came from {dstdgcn_tpu_torch.__file__}, not {tree}")
-    libs = [f"dstd_{mode}_bwd" for mode in modes]
+    # the forward mode lists the chain kernels' SASS too: they share the
+    # forward bodies of csrc/dstd_common.cuh
+    libs = ([f"dstd_{mode}" for mode in modes] + ["dstd_chain"]
+            if args.forward else [f"dstd_{mode}_bwd" for mode in modes])
     secs = build.build_all(libs)
     print(f"{label}: the port of {tree}; build {secs}", flush=True)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -137,6 +158,12 @@ def main():
     n = bcfg["train_batch_size"]
     calls = Counter(cs.forward_shapes(bcfg["model"]["dstdgcn"]))
     dtype, T, V = (None if f32 else torch.bfloat16), cs.T, cs.V
+    if args.forward:
+        run_forward(torch, np, cs, fused, modes, dtype, n, calls, args.tile,
+                    emit)
+        out.close()
+        print(cs.nvidia_smi())
+        return 0
     tol = cs.TOL if f32 else cs.BF16_TOL["backward"]
     for mode in modes:
         bwd = getattr(fused, f"dstd_{mode}_bwd")
@@ -202,27 +229,98 @@ def main():
     return 0
 
 
+def run_forward(torch, np, cs, fused, modes, dtype, n, calls, tile, emit):
+    """The forward kernels of ``modes`` at ``dtype`` and batch ``n``, at
+    each (Ci, Co) of ``calls`` (the 7 calls of one forward), both
+    aggregations: errors, repeat and (agg right) device ms, then each op's
+    sum over its calls."""
+    from dstdgcn_tpu_torch.ops import dstd as plain
+    device = torch.device("cuda")
+    bf16 = dtype is not None
+    tol = cs.BF16_TOL["forward"] if bf16 else cs.TOL
+    for mode in modes:
+        op = getattr(fused, f"dstd_{mode}")
+        kplain, fplain = (getattr(plain, f"kernel_{mode}"),
+                          getattr(plain, f"dstd_{mode}"))
+        total = casts = worst = 0.0
+        for (m, ci, co), count in sorted(calls.items()):
+            if m != mode:
+                continue
+            a = cs.op_inputs(torch, np, mode, ci, co, device, seed=ci + co,
+                             n=n)
+            for agg in ("right", "left"):
+                with torch.no_grad():
+                    got = op.launch(*a, agg=agg, dtype=dtype, tile=tile)
+                    again = op.launch(*a, agg=agg, dtype=dtype, tile=tile)
+                    want = kplain(*a, agg, dtype)
+                    want64 = kplain(*[t.double() for t in a], agg, dtype)
+                    want32 = fplain(*a, None, agg)
+                peak = float(want32.abs().max())
+                peak64 = float(want64.abs().max())
+                err = float((got - want).abs().max()) / peak
+                worst = max(worst, err)
+                line = dict(
+                    mode=mode, dtype=str(dtype), ci=ci, co=co, n=n,
+                    agg=agg, tile=tile, norm_err=err, tol=tol,
+                    ok=err <= tol,
+                    repeatable=bool(torch.equal(got, again)),
+                    kernel_plain_vs_f64=[
+                        float((got.double() - want64).abs().max()) / peak64,
+                        float((want.double() - want64).abs().max())
+                        / peak64])
+                if bf16:
+                    gap = float((want - want32).abs().max()) / peak
+                    line.update(bf16_vs_f32_gap=gap, ok=err <= tol < gap / 2)
+                if agg == "right":
+                    # timed on the x of the model's path (bf16 at bf16)
+                    def call(a=a, x=a[0].to(dtype or torch.float32)):
+                        with torch.no_grad():
+                            return op.launch(x, *a[1:], dtype=dtype,
+                                             tile=tile)
+                    ms, by = cs.device_ms(torch, call, 20)
+                    line.update(ms=ms, timed_by=by, calls=count)
+                    total += count * ms
+                    if bf16:
+                        xb = a[0].to(dtype)
+                        x_ms, _ = cs.device_ms(torch, lambda: xb.float(), 20)
+                        o_ms, _ = cs.device_ms(torch,
+                                               lambda: got.to(dtype), 20)
+                        line.update(cast_ms=[x_ms, o_ms])
+                        casts += count * (x_ms + o_ms)
+                emit("check", line)
+        emit("sum", dict(mode=mode, dtype=str(dtype), n=n, tile=tile,
+                         forward=True,
+                         calls=sum(c for (m, _, _), c in calls.items()
+                                   if m == mode),
+                         ms=total, cast_ms=casts, worst_norm_err=worst))
+
+
 def run_cases(torch, fused, which, dtype, fault, emit):
     """The card tests' tile cases of one op (``which``: MODE or
     MODE:TILE) at ``dtype``, through the card tests' ``_tile_case``;
-    ``fault`` alters the backward kernel's dx after each call."""
+    ``fault`` alters the backward kernel's dx (``dx_*``) or the forward
+    kernel's output (``out_*``) after each call."""
     spec = importlib.util.spec_from_file_location(
         "card_tests", os.path.join(HERE, "tests", "test_torch_cuda.py"))
     ct = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ct)
     mode, _, tile_only = which.partition(":")
     bwd = real = getattr(fused, f"dstd_{mode}_bwd")
-    if fault:
+    fwd = real_fwd = getattr(fused, f"dstd_{mode}").launch
+    if fault and fault.startswith("dx_"):
         def bwd(*a, **k):
             out = list(real(*a, **k))
             out[0] = FAULTS[fault](out[0])
             return tuple(out)
+    elif fault:
+        def fwd(*a, **k):
+            return FAULTS[fault](real_fwd(*a, **k))
 
     device = torch.device("cuda")
     for case in ct.TILE_CASES:
         if case[0] != mode or (tile_only and case[1] != int(tile_only)):
             continue
-        held, repeat = ct._tile_case(*case, device, dtype, bwd)
+        held, repeat = ct._tile_case(*case, device, dtype, bwd, fwd)
         emit("case", dict(case=list(case), dtype=str(dtype), fault=fault,
                           held={key: list(d) + [ct._held(dtype, key, *d)]
                                 for key, d in held.items()},

@@ -14,10 +14,12 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    block-sparse library with ``block_spmm``, ``block_sddmm`` and
    ``block_sddmm_spmm``: 15 kernels), with each entry function's registers
    and spills as ``ptxas`` reports them, and the number of tensor-core
-   ``HMMA`` instructions in the SASS of each backward function
-   (``cuobjdump``): some in passes 2 and 3 of every backward kernel (bf16
-   ``mma.sync`` in 5b and 6b, 3xTF32 in 5 and 6: ``MMA_FUNCTIONS``), none
-   in the q/k and reduction launches;
+   ``HMMA`` instructions (of all instructions) in the SASS of each
+   function of the forward, chain and backward libraries (``cuobjdump``):
+   some in passes 2 and 3 of every backward kernel (bf16 ``mma.sync`` in
+   5b and 6b, 3xTF32 in 5 and 6: ``MMA_FUNCTIONS``) and in the bf16
+   one-op forward kernels (1b, 2b: ``MMA_FORWARD``), none in the q/k and
+   reduction launches, the float32 forward kernels or any chain kernel;
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -43,7 +45,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    plain versions of their contract (``ops/dstd.py::kernel_spatial`` /
    ``kernel_temporal``, ``ops/dstd_bwd.py`` with the dtype): the error
    within BF16_TOL and BF16_TOL below half of the check's own
-   bf16-versus-float32 gap, all three printed.  The bf16 chain kernels
+   bf16-versus-float32 gap, all three printed, with the kernel's and the
+   plain version's distance to the plain version run in float64 (the same
+   rounding points; ``kernel_plain_vs_f64``).  The bf16 chain kernels
    (``dstd_encoder_chain_bf16``, ``dstd_chain_bf16``) on the serving
    model's calibrated encoder at N=128 (the bf16 fused slice's batch) and
    at N=1, both aggregations, against their plain versions
@@ -281,16 +285,27 @@ GRADIENTS = ("dx", "dbase", "dalpha", "dwf", "dbf", "dwm1", "dbm1", "dwm2",
              "dbm2", "dwrm", "dbrm")
 #: the four launches of a DSTD-GC backward call (``dstd_bwd_common.cuh``)
 BWD_PASSES = ("qk", "out", "src", "reduce")
-#: the backward functions whose products run on the tensor cores
-#: (``csrc/dstd_mma.cuh``): passes 2 and 3 of every backward kernel, the
-#: bf16 ones (5b, 6b) on bf16 ``mma.sync``, the float32 ones (5, 6) on
-#: 3xTF32, every tile; the q/k and reduction launches keep their CUDA-core
-#: FMAs
+#: the functions whose products run on the tensor cores: passes 2 and 3
+#: of every backward kernel (``csrc/dstd_mma.cuh``; the bf16 ones, 5b and
+#: 6b, on bf16 ``mma.sync``, the float32 ones, 5 and 6, on 3xTF32), every
+#: tile; the q/k and reduction launches keep their CUDA-core FMAs
 MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
+#: the one-op forward kernels whose bf16 instantiations (1b, 2b) run every
+#: product on bf16 ``mma.sync`` (``csrc/dstd_fwd_mma.cuh``); their
+#: ``dstd::Exact`` ones (1, 2) and the chain kernels (3, 3b, 4, 4b) keep
+#: the CUDA-core body of ``csrc/dstd_common.cuh``
+MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<")
+#: the libraries whose SASS phase 2 reads
+SASS_LIBRARIES = ("dstd_spatial", "dstd_temporal", "dstd_chain",
+                  "dstd_spatial_bwd", "dstd_temporal_bwd")
 
 
 def uses_mma(function):
-    return function.startswith(MMA_FUNCTIONS)
+    return function.startswith(MMA_FUNCTIONS) or (
+        function.startswith(MMA_FORWARD)
+        and function.endswith(", dstd::Bf16>"))
+
+
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
 SPARSE_N, SPARSE_V, SPARSE_R, SPARSE_C, SPARSE_BLOCK = 4, 4096, 4, 128, 128
 #: kernel against plain version, max |kernel - plain| <= tol max(|plain|, 1)
@@ -363,7 +378,7 @@ def sass_mma(path):
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.access(tool, os.X_OK), "no cuobjdump: the SASS of the "
-                                    "backward kernels cannot be read")
+                                    "kernels cannot be read")
     proc = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, timeout=300)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
@@ -439,8 +454,9 @@ def op_cost(mode, n, ci, co, backward=False, dtype=None):
     mixing, the aggregation and their backward products) run at the
     tensor cores' rate for the dtype (bf16: dense bf16; float32: 3xTF32,
     the least time for float32-accurate products on this card), the rest
-    at the float32 rate; the bytes are those the kernel moves, float32
-    inputs and outputs at either dtype."""
+    at the float32 rate; the bytes are those the kernel moves: float32
+    inputs and outputs at either dtype, but for the bf16 forward, which
+    reads x as bf16."""
     k = 2 if mode == "spatial" else 1
     r = 2
     ref, pair = (T, V) if mode == "spatial" else (V, T)
@@ -455,7 +471,8 @@ def op_cost(mode, n, ci, co, backward=False, dtype=None):
     if not backward:
         dots = proj + qk + mix + agg
         rest = 2 * scores + 2 * adj
-        nbytes = 4 * (rows * ci + rows * co + weights)
+        x_bytes = 4 if dtype is None else 2
+        nbytes = x_bytes * rows * ci + 4 * (rows * co + weights)
     else:
         dots = (proj + qk + mix                      # recompute
                 + 2 * agg                            # dA, dxf
@@ -889,13 +906,14 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
     against the plain version of its contract at batch ``n`` and every
     (Ci, Co) of ``shapes``, both aggregations: the error, the tolerance and
     the bf16-versus-float32 gap of the plain versions, the error within
-    BF16_TOL and BF16_TOL below half the gap; per gradient of the
-    backward, the kernel's and the plain version's distance to the plain
-    version in float64 (``kernel_plain_vs_f64``).  The forward compares the
-    kernel's float32 output before the wrapper's cast (``FusedOp.launch``).
-    Times (the model's aggregation, right): the kernel, its plain version
-    (the plain forward; the hand-derived plain backward), and the float32
-    kernel at the same shape."""
+    BF16_TOL and BF16_TOL below half the gap; for the forward and per
+    gradient of the backward, the kernel's and the plain version's
+    distance to the plain version in float64 (``kernel_plain_vs_f64``).
+    The forward compares the kernel's float32 output before the wrapper's
+    cast (``FusedOp.launch``).  Times (the model's aggregation, right): the
+    kernel (the forward on a bf16 x, as the model gives it), its plain
+    version (the plain forward; the hand-derived plain backward), and the
+    float32 kernel at the same shape."""
     bf16, lines = torch.bfloat16, []
     for mode in ("spatial", "temporal"):
         op, bwd = getattr(fused, f"dstd_{mode}"), getattr(fused,
@@ -923,6 +941,7 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                     f"the bf16 {mode} kernels did not count their launches")
                 with torch.no_grad():
                     want = kplain(*args, agg, bf16)
+                    want64 = kplain(*[a.double() for a in args], agg, bf16)
                     want32 = fplain(*args, None, agg)
                     gwant = pbwd(args[0], g, *args[1:], agg=agg, dtype=bf16)
                     gwant32 = pbwd(args[0], g, *args[1:], agg=agg)
@@ -930,6 +949,11 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                                    *[a.double() for a in args[1:]], agg=agg,
                                    dtype=bf16)
                 peak = float(want32.abs().max())
+                # the forward's and its plain version's distance to the
+                # plain version in float64, over its peak
+                peak64 = float(want64.abs().max())
+                fwd64 = [float((a.double() - want64).abs().max()) / peak64
+                         for a in (got, want)]
                 results = {}
                 fwd_err = float((got - want).abs().max())
                 results["forward"] = (
@@ -960,14 +984,17 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                                 max_abs_err=abs_err, norm_err=err, tol=tol,
                                 bf16_vs_f32_gap=gap,
                                 ok=err <= tol < gap / 2)
-                    if part == "backward":
-                        line.update(kernel_plain_vs_f64=f64)
+                    line.update(kernel_plain_vs_f64=f64 if part == "backward"
+                                else fwd64)
                     max_err[name] = max(max_err[name], abs_err)
                     if agg == "right":
                         if part == "forward":
-                            def call(args=args):
+                            # timed on the bf16 x of the model's path,
+                            # which the bf16 kernel reads as it is
+                            def call(args=args, xb=args[0].to(bf16)):
                                 with torch.no_grad():
-                                    return op.launch(*args, dtype=bf16)
+                                    return op.launch(xb, *args[1:],
+                                                     dtype=bf16)
 
                             def plain_call(args=args):
                                 with torch.no_grad():
@@ -1642,9 +1669,10 @@ def run_smoke():
         for kernel, regs, stores, loads in usage:
             print(f"  ptxas {name}: {kernel}: {regs} registers, spill "
                   f"{stores} bytes stored / {loads} loaded")
-    # the tensor-core products in the SASS of the backward libraries
+    # the tensor-core products in the SASS of the forward, chain and
+    # backward libraries
     report["sass_hmma"] = {}
-    for name in ("dstd_spatial_bwd", "dstd_temporal_bwd"):
+    for name in SASS_LIBRARIES:
         mma = sass_mma(build.library(name)._name)
         report["sass_hmma"][name] = mma
         for kernel, (count, size) in mma.items():

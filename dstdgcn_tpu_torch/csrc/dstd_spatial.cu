@@ -18,31 +18,35 @@
 // at 3.35 TB/s); the 2*35*484 tanh per output frame also run on the
 // CUDA cores.
 //
-// Design (the body is dstd::spatial_op in dstd_common.cuh, which the chain
-// kernels of dstd_chain.cu share): one block of 512 threads per (sample, tile
-// of output frames), the tile a template parameter.  The adjacency of an
-// output frame mixes the scores of all T source frames, so each block needs
-// the whole sample's q/k: the T/tile blocks of a sample run as one thread-
-// block cluster, each projects its share of the rows and copies the others'
-// from their shared memory (DSMEM).  Then each block builds the tile's
-// adjacency in shared memory, one thread per (k, v, w) pair with the tile's
-// output frames in registers (tanh scores recomputed per tile, mixing weights
-// read as float4), projects the tile's features (float4 register tiles, x read
-// through L1) and aggregates.  The scores and the adjacency never touch device
-// memory.  Everything is plain float32 FMA on the CUDA cores; no tensor cores
-// yet (the projections and the aggregation are small GEMMs that would fit
-// mma/wgmma tiles, in a later step).
+// Float32 design (dstd_spatial_f32; the body is dstd::spatial_op in
+// dstd_common.cuh, which the chain kernels of dstd_chain.cu share): one
+// block of 512 threads per (sample, tile of output frames), the tile a
+// template parameter.  The adjacency of an output frame mixes the scores
+// of all T source frames, so each block needs the whole sample's q/k: the
+// T/tile blocks of a sample run as one thread-block cluster, each projects
+// its share of the rows and copies the others' from their shared memory
+// (DSMEM).  Then each block builds the tile's adjacency in shared memory,
+// one thread per (k, v, w) pair with the tile's output frames in registers
+// (tanh scores recomputed per tile, mixing weights read as float4),
+// projects the tile's features (float4 register tiles, x read through L1)
+// and aggregates.  The scores and the adjacency never touch device memory.
+// Everything is plain float32 FMA on the CUDA cores.
 //
 // bf16 variant (dstd_spatial_bf16): the TPU kernel's compute dtype, which
 // rounds the operands of its four contractions (x wqk, x wf, s wrm,
-// adj xf) to bf16 and accumulates in float32.  The same body with the Bf16
-// rounding policy (dstd_common.cuh): x is rounded as it is loaded, the
-// weights as they are staged, the scores before the mixing FMAs, the
-// features and the adjacency once where they are stored in shared memory;
-// q/k, the sums and the output stay float32, and the products are float32
-// FMAs over the rounded operands (exact), so the variant costs a few
-// conversions more than the float32 kernel and moves the same bytes.
+// adj xf) to bf16 and accumulates in float32.  Its body is
+// dstd_fwd::op_bf16 (dstd_fwd_mma.cuh): the same cluster of a sample's
+// tiles, the feature projection, the mixing and the aggregation on bf16
+// tensor cores (mma.sync, fragments by ldmatrix from operands staged once
+// as bf16; q/k stay CUDA-core sums), each score formed once per
+// sample (the pair rows split over the cluster, the adjacency exchanged
+// through DSMEM).  Measured over the 7 calls of a forward at N=128 on an
+// H100, the CUDA-core body spent 53% of its time in the feature projection
+// (PERF.md).
+#include <type_traits>
+
 #include "dstd_common.cuh"
+#include "dstd_fwd_mma.cuh"
 
 namespace {
 
@@ -54,9 +58,14 @@ template <int TILE, typename Rnd>
 __global__ void __launch_bounds__(kThreads) spatial_kernel(const OpArgs a) {
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, t0 = blockIdx.x * TILE;
-  dstd::spatial_op<TILE, false, Rnd>(
-      a, reinterpret_cast<float*>(smem4), n, t0, min(TILE, a.T - t0),
-      dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
+  if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
+    dstd_fwd::op_bf16<true, TILE>(a, reinterpret_cast<char*>(smem4), n, t0,
+                                  min(TILE, a.T - t0));
+  } else {
+    dstd::spatial_op<TILE, false, Rnd>(
+        a, reinterpret_cast<float*>(smem4), n, t0, min(TILE, a.T - t0),
+        dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
+  }
 }
 
 template <int TILE, typename Rnd>
@@ -85,7 +94,10 @@ int run(const float* x, const float* base, const float* alpha,
   const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
                  wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
   const size_t bytes =
-      dstd::SpatialLayout(T, V, Ci, Co, K, R, tile).total * sizeof(float);
+      std::is_same_v<Rnd, dstd::Bf16>
+          ? dstd_fwd::FwdLayout(true, T, V, Ci, Co, K, R, tile).total
+          : dstd::SpatialLayout(T, V, Ci, Co, K, R, tile).total *
+                sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 1: return (int)launch<1, Rnd>(a, N, bytes, st);
@@ -109,6 +121,11 @@ long long dstd_spatial_smem_bytes(int T, int V, int Ci, int Co, int K, int R,
          (long long)sizeof(float);
 }
 
+long long dstd_spatial_bf16_smem_bytes(int T, int V, int Ci, int Co, int K,
+                                       int R, int tile) {
+  return dstd_fwd::FwdLayout(true, T, V, Ci, Co, K, R, tile).total;
+}
+
 const char* dstd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -126,16 +143,19 @@ int dstd_spatial_f32(const float* x, const float* base, const float* alpha,
                           device, stream);
 }
 
-// bf16 contraction operands, float32 sums (the TPU kernel's bf16 dtype):
-int dstd_spatial_bf16(const float* x, const float* base, const float* alpha,
-                      const float* wf, const float* bf, const float* wm1,
-                      const float* bm1, const float* wm2, const float* bm2,
-                      const float* wrm, const float* brm, float* out, int N,
-                      int T, int V, int Ci, int Co, int K, int R, int agg_left,
-                      int tile, int device, void* stream) {
-  return run<dstd::Bf16>(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
-                         brm, out, N, T, V, Ci, Co, K, R, agg_left, tile,
-                         device, stream);
+// bf16 contraction operands, float32 sums (the TPU kernel's bf16 dtype);
+// x is bf16, the contract's rounding of it:
+int dstd_spatial_bf16(const __nv_bfloat16* x, const float* base,
+                      const float* alpha, const float* wf, const float* bf,
+                      const float* wm1, const float* bm1, const float* wm2,
+                      const float* bm2, const float* wrm, const float* brm,
+                      float* out, int N, int T, int V, int Ci, int Co, int K,
+                      int R, int agg_left, int tile, int device, void* stream) {
+  // the shared argument block carries x as a float pointer; the bf16 body
+  // reads it as bf16
+  return run<dstd::Bf16>(reinterpret_cast<const float*>(x), base, alpha, wf,
+                         bf, wm1, bm1, wm2, bm2, wrm, brm, out, N, T, V, Ci,
+                         Co, K, R, agg_left, tile, device, stream);
 }
 
 }  // extern "C"

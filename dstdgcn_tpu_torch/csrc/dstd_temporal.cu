@@ -17,24 +17,35 @@
 // memory at 3.35 TB/s, so it is operation-bound; its 2*22*1225 tanh per
 // output joint also run on the CUDA cores.
 //
-// Design (the body is dstd::temporal_op in dstd_common.cuh, which the chain
-// kernels of dstd_chain.cu share): one block of 512 threads per (sample, tile
-// of output joints), the tile a template parameter.  The adjacency of an
-// output joint mixes the frame-pair scores of all V source joints, so each
-// block projects q/k for the whole sample into shared memory (the V/tile
-// blocks of a sample each recompute it: with K = 1 the projection is cheap,
-// and sharing it through a cluster measured slower here, unlike the spatial
-// op).  Then each block builds the tile's (T, T) adjacencies in shared memory,
-// one thread per (k, t, u) pair with the tile's joints in registers (tanh
-// scores recomputed per tile, mixing weights read as float4), projects the
-// features of the tile's joints over all frames (float4 register tiles, x read
-// through L1) and aggregates over frames.  The scores and the adjacency never
-// touch device memory.  Plain float32 FMA on the CUDA cores.
+// Float32 design (dstd_temporal_f32; the body is dstd::temporal_op in
+// dstd_common.cuh, which the chain kernels of dstd_chain.cu share): one
+// block of 512 threads per (sample, tile of output joints), the tile a
+// template parameter.  The adjacency of an output joint mixes the
+// frame-pair scores of all V source joints, so each block projects q/k for
+// the whole sample into shared memory (the V/tile blocks of a sample each
+// recompute it: with K = 1 the projection is cheap, and sharing it through
+// a cluster measured slower here, unlike the spatial op).  Then each block
+// builds the tile's (T, T) adjacencies in shared memory, one thread per
+// (k, t, u) pair with the tile's joints in registers (tanh scores
+// recomputed per tile, mixing weights read as float4), projects the
+// features of the tile's joints over all frames (float4 register tiles, x
+// read through L1) and aggregates over frames.  The scores and the
+// adjacency never touch device memory.  Plain float32 FMA on the CUDA
+// cores.
 //
 // bf16 variant (dstd_temporal_bf16): the TPU kernel's compute dtype, bf16
-// operands of the four contractions with float32 sums, through the Bf16
-// rounding policy of the shared body, as in dstd_spatial.cu.
+// operands of the four contractions with float32 sums.  Its body is
+// dstd_fwd::op_bf16 (dstd_fwd_mma.cuh), the spatial op's with frames and
+// joints swapped: the ceil(V / tile) blocks of a sample run as one
+// thread-block cluster (at most 8, so the tile is at least ceil(V / 8)),
+// the feature projection, the mixing and the aggregation on bf16 tensor
+// cores, each score formed once per sample.
+// The cluster that lets the blocks share the scores also shares q/k: each
+// block projects only its own joints' rows.
+#include <type_traits>
+
 #include "dstd_common.cuh"
+#include "dstd_fwd_mma.cuh"
 
 namespace {
 
@@ -46,21 +57,34 @@ template <int TILE, typename Rnd>
 __global__ void __launch_bounds__(kThreads) temporal_kernel(const OpArgs a) {
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, w0 = blockIdx.x * TILE;
-  dstd::temporal_op<TILE, false, Rnd>(
-      a, reinterpret_cast<float*>(smem4), n, w0, min(TILE, a.V - w0),
-      dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
+  if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
+    dstd_fwd::op_bf16<false, TILE>(a, reinterpret_cast<char*>(smem4), n, w0,
+                                   min(TILE, a.V - w0));
+  } else {
+    dstd::temporal_op<TILE, false, Rnd>(
+        a, reinterpret_cast<float*>(smem4), n, w0, min(TILE, a.V - w0),
+        dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
+  }
 }
 
 template <int TILE, typename Rnd>
 cudaError_t launch(const OpArgs& a, int N, size_t bytes,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      temporal_kernel<TILE, Rnd>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.V + TILE - 1) / TILE, N);
-  temporal_kernel<TILE, Rnd><<<grid, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
+  const int nblk = (a.V + TILE - 1) / TILE;
+  if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
+    // the bf16 body runs a sample's tiles as one cluster
+    if (nblk > dstd::kMaxCluster) return cudaErrorInvalidValue;
+    return dstd::launch_clustered(temporal_kernel<TILE, Rnd>, a, nblk, N,
+                                  bytes, stream);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        temporal_kernel<TILE, Rnd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(nblk, N);
+    temporal_kernel<TILE, Rnd><<<grid, kThreads, bytes, stream>>>(a);
+    return cudaGetLastError();
+  }
 }
 
 // One launch of the op on `stream` with rounding policy Rnd; returns the
@@ -80,7 +104,10 @@ int run(const float* x, const float* base, const float* alpha,
   const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
                  wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
   const size_t bytes =
-      dstd::TemporalLayout(T, V, Ci, Co, K, R, tile).total * sizeof(float);
+      std::is_same_v<Rnd, dstd::Bf16>
+          ? dstd_fwd::FwdLayout(false, T, V, Ci, Co, K, R, tile).total
+          : dstd::TemporalLayout(T, V, Ci, Co, K, R, tile).total *
+                sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 1: return (int)launch<1, Rnd>(a, N, bytes, st);
@@ -104,6 +131,11 @@ long long dstd_temporal_smem_bytes(int T, int V, int Ci, int Co, int K,
          (long long)sizeof(float);
 }
 
+long long dstd_temporal_bf16_smem_bytes(int T, int V, int Ci, int Co, int K,
+                                        int R, int tile) {
+  return dstd_fwd::FwdLayout(false, T, V, Ci, Co, K, R, tile).total;
+}
+
 const char* dstd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -121,16 +153,20 @@ int dstd_temporal_f32(const float* x, const float* base, const float* alpha,
                           device, stream);
 }
 
-// bf16 contraction operands, float32 sums (the TPU kernel's bf16 dtype):
-int dstd_temporal_bf16(const float* x, const float* base, const float* alpha,
-                       const float* wf, const float* bf, const float* wm1,
-                       const float* bm1, const float* wm2, const float* bm2,
-                       const float* wrm, const float* brm, float* out, int N,
-                       int T, int V, int Ci, int Co, int K, int R,
-                       int agg_left, int tile, int device, void* stream) {
-  return run<dstd::Bf16>(x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
-                         brm, out, N, T, V, Ci, Co, K, R, agg_left, tile,
-                         device, stream);
+// bf16 contraction operands, float32 sums (the TPU kernel's bf16 dtype);
+// x is bf16, the contract's rounding of it:
+int dstd_temporal_bf16(const __nv_bfloat16* x, const float* base,
+                       const float* alpha, const float* wf, const float* bf,
+                       const float* wm1, const float* bm1, const float* wm2,
+                       const float* bm2, const float* wrm, const float* brm,
+                       float* out, int N, int T, int V, int Ci, int Co, int K,
+                       int R, int agg_left, int tile, int device,
+                       void* stream) {
+  // the shared argument block carries x as a float pointer; the bf16 body
+  // reads it as bf16
+  return run<dstd::Bf16>(reinterpret_cast<const float*>(x), base, alpha, wf,
+                         bf, wm1, bm1, wm2, bm2, wrm, brm, out, N, T, V, Ci,
+                         Co, K, R, agg_left, tile, device, stream);
 }
 
 }  // extern "C"

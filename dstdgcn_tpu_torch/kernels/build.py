@@ -55,8 +55,10 @@ _BWD_LAUNCH = ([_PTR] * 24 + [_INT] * 10 + [_PTR], ctypes.c_int)
 _FORWARD = {
     "f32": _OP_LAUNCH,
     "bf16": _OP_LAUNCH,
-    # (T, V, Ci, Co, K, R, tile)
+    # (T, V, Ci, Co, K, R, tile): the float32 variant's, and the bf16 one's
+    # (its tensor-core body has a layout of its own)
     "smem_bytes": ([_INT] * 7, _SIZE),
+    "bf16_smem_bytes": ([_INT] * 7, _SIZE),
 }
 _BACKWARD = {
     "f32": _BWD_LAUNCH,

@@ -21,11 +21,13 @@ in-kernel contraction rounded to bf16, sums in float32, as the TPU kernels'
 ``dtype`` does; on the CPU their plain version is
 :func:`..ops.dstd.kernel_spatial` / ``kernel_temporal`` and the plain
 backward with the same ``dtype``.  ``x`` (and the cotangent) may then be
-bf16 and go to the kernels as float32; the output is cast to ``dtype`` and
-the gradients come back in the primals' dtypes.  Every wrapper counts its
-kernel launches, float32 in ``.launches`` and bf16 in ``.launches_bf16``
-(plain integers; :func:`reset_launch_counts` zeroes them); one backward
-call is :data:`BWD_LAUNCHES` launches.
+bf16: the bf16 forward kernels read it as bf16 (a float32 x is rounded to
+bf16 first, as the contract rounds it), the backward kernels as float32;
+the output is cast to ``dtype`` and the gradients come back in the
+primals' dtypes.  Every wrapper counts its kernel launches, float32 in
+``.launches`` and bf16 in ``.launches_bf16`` (plain integers;
+:func:`reset_launch_counts` zeroes them); one backward call is
+:data:`BWD_LAUNCHES` launches.
 
 ``dstd_chain`` and ``dstd_encoder_chain`` keep the argument structure of
 their JAX counterparts (``x, blocks_or_layers, agg, dtype, nb``) and run a
@@ -59,8 +61,8 @@ __all__ = ["dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
 #: dynamic shared memory one block may use on Hopper (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
 #: the kernels' largest output tile and cluster (csrc/dstd_common.cuh):
-#: the spatial forward kernel runs the ceil(T / tile) blocks of a sample as
-#: one thread-block cluster
+#: the spatial forward kernels and the bf16 temporal one run the
+#: ceil(extent / tile) blocks of a sample as one thread-block cluster
 MAX_TILE = 8
 MAX_CLUSTER = 8
 #: y-dimension grid limit: one grid row per sample
@@ -150,10 +152,11 @@ class _Counted:
 
 class _Kernel(_Counted):
     """Shape checks, tile choice and the launch count of one CUDA kernel
-    library (``build.SOURCES`` name ``name``)."""
+    library (``build.SOURCES`` name ``name``); ``clustered``: the variants
+    (``f32``, ``bf16``) that run a sample's blocks as one cluster."""
 
     def __init__(self, name: str, mode: str, default_tile: int,
-                 clustered: bool):
+                 clustered: tuple = ()):
         super().__init__(name)
         self.mode = mode
         self.default_tile = default_tile
@@ -181,13 +184,16 @@ class _Kernel(_Counted):
             raise ValueError(f"{self.name}: batch {n} exceeds {MAX_SAMPLES}")
         return n, t, v, ci, co, k, r
 
-    def _tile(self, lib, t, v, ci, co, k, r, tile):
+    def _tile(self, lib, variant, t, v, ci, co, k, r, tile):
         """Largest tile <= the requested one whose block fits in shared
-        memory and, for a clustered kernel, whose sample fits in one cluster
-        of MAX_CLUSTER blocks."""
-        smem = getattr(lib, f"{self.name}_smem_bytes")
+        memory (the variant's own size where its library gives one) and,
+        for a clustered variant, whose sample fits in one cluster of
+        MAX_CLUSTER blocks."""
+        smem = getattr(lib, f"{self.name}_{variant}_smem_bytes", None) or \
+            getattr(lib, f"{self.name}_smem_bytes")
         extent = t if self.mode == "spatial" else v
-        lowest = -(-extent // MAX_CLUSTER) if self.clustered else 1
+        lowest = (-(-extent // MAX_CLUSTER) if variant in self.clustered
+                  else 1)
         tile = min(max(tile or self.default_tile, lowest), extent, MAX_TILE)
         for size in range(tile, lowest - 1, -1):
             if smem(t, v, ci, co, k, r, size) <= SMEM_LIMIT:
@@ -197,14 +203,15 @@ class _Kernel(_Counted):
             f"{lowest}..{MAX_TILE} within {SMEM_LIMIT} bytes of shared "
             "memory")
 
-    def _plan(self, n, t, v, ci, co, k, r, tile):
-        """(library, tile, scratch floats) of a call shape, looked up once:
-        the tile search asks the library for shared-memory sizes."""
-        key = (n, t, v, ci, co, k, r, tile)
+    def _plan(self, variant, n, t, v, ci, co, k, r, tile):
+        """(library, tile, scratch floats) of a variant at a call shape,
+        looked up once: the tile search asks the library for shared-memory
+        sizes."""
+        key = (variant, n, t, v, ci, co, k, r, tile)
         plan = self._plans.get(key)
         if plan is None:
             lib = build.library(self.name)
-            size = self._tile(lib, t, v, ci, co, k, r, tile)
+            size = self._tile(lib, variant, t, v, ci, co, k, r, tile)
             scratch = getattr(lib, f"{self.name}_scratch_floats", None)
             floats = 0 if scratch is None else scratch(n, t, v, ci, co, k,
                                                        r, size)
@@ -221,8 +228,7 @@ class FusedBwd(_Kernel):
 
     def __init__(self, mode: str, plain_fn, default_tile: int,
                  f32_tile: int | None = None):
-        super().__init__(f"dstd_{mode}_bwd", mode, default_tile,
-                         clustered=False)
+        super().__init__(f"dstd_{mode}_bwd", mode, default_tile)
         self.plain = plain_fn
         self.f32_tile = f32_tile or default_tile
 
@@ -244,7 +250,8 @@ class FusedBwd(_Kernel):
         x, g = x.float(), g.float()
         if tile is None and variant == "f32":
             tile = self.f32_tile
-        lib, tile, floats = self._plan(n, t, v, ci, co, k, r, tile)
+        lib, tile, floats = self._plan(variant, n, t, v, ci, co, k, r,
+                                       tile)
         grads = [torch.empty_like(x)] + [torch.empty_like(weights[key])
                                          for key in _WEIGHTS]
         # freed when this call returns: the caching allocator hands it out
@@ -266,7 +273,7 @@ class FusedOp(_Kernel):
     differentiable through :class:`_DSTDFunction`."""
 
     def __init__(self, mode: str, plain_fn, kernel_fn, default_tile: int,
-                 clustered: bool, bwd: FusedBwd):
+                 clustered: tuple, bwd: FusedBwd):
         super().__init__(f"dstd_{mode}", mode, default_tile, clustered)
         self.plain = plain_fn
         self.kernel_plain = kernel_fn
@@ -317,8 +324,11 @@ class FusedOp(_Kernel):
         weights = dict(zip(_WEIGHTS, (base, alpha, wf, bf, wm1, bm1, wm2,
                                       bm2, wrm, brm)))
         n, t, v, ci, co, k, r = self._check(x, weights)
-        x = x.float()
-        lib, tile, _ = self._plan(n, t, v, ci, co, k, r, tile)
+        # the bf16 kernel reads x as bf16 (the contract's rounding of it,
+        # a no-op for the model's bf16 activations), the float32 one as
+        # float32
+        x = x.to(torch.bfloat16) if variant == "bf16" else x.float()
+        lib, tile, _ = self._plan(variant, n, t, v, ci, co, k, r, tile)
         out = torch.empty((n, t, v, co), device=x.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [a.data_ptr() for a in [x] + list(weights.values()) + [out]]
@@ -363,10 +373,11 @@ dstd_spatial_bwd = FusedBwd("spatial", plain_bwd.dstd_spatial_bwd,
 dstd_temporal_bwd = FusedBwd("temporal", plain_bwd.dstd_temporal_bwd,
                              default_tile=5, f32_tile=4)
 dstd_spatial = FusedOp("spatial", plain.dstd_spatial, plain.kernel_spatial,
-                       default_tile=5, clustered=True, bwd=dstd_spatial_bwd)
+                       default_tile=5, clustered=("f32", "bf16"),
+                       bwd=dstd_spatial_bwd)
 dstd_temporal = FusedOp("temporal", plain.dstd_temporal,
                         plain.kernel_temporal, default_tile=6,
-                        clustered=False, bwd=dstd_temporal_bwd)
+                        clustered=("bf16",), bwd=dstd_temporal_bwd)
 
 # -- chains of ops in one launch ------------------------------------------
 

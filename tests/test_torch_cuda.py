@@ -295,15 +295,17 @@ TILE_CASES = (
 F64_NOISE = 2.0
 
 
-def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None):
+def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
+               fwd=None):
     """One tile case (seeded inputs, seed 1; cotangent seed 2) through the
     kernels at ``dtype`` (None: float32): {output: (distance to the plain
     contract, the kernel's distance to the contract's float64 run, the
     plain contract's own distance to it on ``device`` and on the CPU)} for
     the forward (bf16 only, over the peak |output|) and each of the
-    backward's 11 gradients (over max(max |.|, 1)), and whether two
-    backward calls gave the same bits.  ``bwd`` replaces the backward
-    kernel (a broken one, say)."""
+    backward's 11 gradients (over max(max |.|, 1)), and whether two calls
+    gave the same bits (the backward's, and at bf16 the forward's too).
+    ``bwd`` replaces the backward kernel and ``fwd`` the forward launch
+    (a broken one, say)."""
     args = _inputs(mode, n, t, v, cin, co, device, seed=1)
     g = torch.from_numpy(np.random.RandomState(2).randn(
         n, t, v, co).astype(np.float32)).to(device)
@@ -318,10 +320,11 @@ def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None):
         return (dist(got, want, norm), dist(got, want64, norm64),
                 dist(want, want64, norm64), dist(want_cpu, want64, norm64))
 
-    out = {}
+    out, same = {}, True
     if dtype is not None:
-        got = getattr(fused, f"dstd_{mode}").launch(*args, agg=agg,
-                                                    dtype=dtype, tile=tile)
+        fwd = fwd or getattr(fused, f"dstd_{mode}").launch
+        got = fwd(*args, agg=agg, dtype=dtype, tile=tile)
+        same = torch.equal(got, fwd(*args, agg=agg, dtype=dtype, tile=tile))
         ref = getattr(plain, f"kernel_{mode}")
         want, want64 = ref(*args, agg, dtype), ref(*wide, agg, dtype)
         out["forward"] = held(got, want, ref(*on_cpu[1:], agg, dtype),
@@ -338,7 +341,8 @@ def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None):
                                     want64):
         out[name] = held(a, b, b_cpu, c, max(float(b.abs().max()), 1.0),
                          max(float(c.abs().max()), 1.0))
-    return out, all(torch.equal(a, b) for a, b in zip(grads, again))
+    return out, same and all(torch.equal(a, b)
+                             for a, b in zip(grads, again))
 
 
 def _held(dtype, name, err, kernel64, *plain64):

@@ -50,6 +50,17 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("dstd_bwd::qk_kernel<true, dstd::Exact>", False),
     ("dstd_bwd::reduce_kernel<false>", False),
     ("dstd_bwd::reduce_kernel<true>", False),
+    # the one-op forward kernels: the bf16 ones on the tensor cores, the
+    # float32 ones and every chain kernel on the CUDA cores
+    ("spatial_kernel<5, dstd::Bf16>", True),
+    ("spatial_kernel<1, dstd::Bf16>", True),
+    ("temporal_kernel<6, dstd::Bf16>", True),
+    ("temporal_kernel<8, dstd::Bf16>", True),
+    ("spatial_kernel<5, dstd::Exact>", False),
+    ("temporal_kernel<6, dstd::Exact>", False),
+    ("chain_kernel<5, false, dstd::Bf16>", False),
+    ("chain_kernel<5, true, dstd::Bf16>", False),
+    ("chain_kernel<5, true, dstd::Exact>", False),
 ])
 def test_uses_mma_names_the_bf16_out_and_src_passes_of_both_ops(function,
                                                                 mma):
@@ -62,9 +73,11 @@ def test_op_cost_counts_float32_contractions_at_the_3xtf32_rate(mode,
                                                                 backward):
     flops, nbytes, dots, peak = cs.op_cost(mode, 32, 64, 64, backward)
     assert peak == cs.PEAK_TF32_FLOPS / 3
-    # the same split as the bf16 contract's, at the dense bf16 rate there
+    # the same split as the bf16 contract's, at the dense bf16 rate there;
+    # the bf16 forward reads x as bf16, two bytes an element fewer
+    x_saved = 0 if backward else 2 * 32 * cs.T * cs.V * 64
     assert cs.op_cost(mode, 32, 64, 64, backward, "bfloat16") == (
-        flops, nbytes, dots, cs.PEAK_BF16_FLOPS)
+        flops, nbytes - x_saved, dots, cs.PEAK_BF16_FLOPS)
     assert 0 < flops < dots
     least, t_ops, t_mem = cs.bound_of(flops, nbytes, dots, peak)
     assert t_ops == pytest.approx(
