@@ -40,6 +40,15 @@ bf16) and, at bf16, the device ms of the casts around a call in the model
 (``x.float()`` of a bf16 x, which a wrapper that reads x as float32 pays,
 and the output's cast to bf16); the last line per op sums the 7 calls.
 
+With ``--chain`` the whole-encoder kernel (``dstd_encoder_chain``, at
+bf16 ``dstd_encoder_chain_bf16``) instead, one launch a call at its fused
+slice's batch (N = 128 at bf16, 32 at float32) over ``--layers`` layers (default 5; seeded layers and x, the card tests'
+``_chain_layers``), T = 35, V = 22, C = 64, both aggregations: the ptxas
+and ``HMMA`` lines of the chain library, the error against its plain
+version (``_encoder_oracle`` with the dtype) over the peak |plain float32
+output| beside the bf16-versus-float32 gap, whether two calls give the
+same bits, and (agg right) the device ms of a call and its bound.
+
 With ``--cases MODE[:TILE]`` it runs instead the card tests' tile cases of
 that op at the dtype (``tests/test_torch_cuda.py::TILE_CASES``, at one
 tile if given, on the same inputs, through the card tests' own
@@ -48,8 +57,12 @@ contract, its and the plain version's distance to the float64 run of the
 contract, and whether the card test holds it (``_held``).  ``--fault
 dx_joint0`` zeroes the backward kernel's dx at joint 0 after each call,
 ``--fault dx_1pc`` scales it by 1.01, ``out_joint0`` and ``out_1pc`` do
-the same to the forward kernel's output: a broken kernel the card test
-must refuse.
+the same to the forward kernel's output (only that pass then runs, at
+either dtype): a broken kernel the card test must refuse.  ``--cases
+encoder`` runs the card tests' bf16 encoder-chain cases the same way
+(``test_bf16_chain_kernels_match_plain`` at the encoder,
+``BF16_ENCODER_EDGES``, through ``_bf16_chain_case``), an ``out_*`` fault
+applied to the kernel's output.
 
 Writes ``OUT_DIR/bwd_profile_<label>.jsonl`` (one line per check, one per
 op's sum) and prints the same lines.  ``--build-only`` builds the
@@ -93,6 +106,8 @@ def main():
     ap.add_argument("--tile", type=int, default=None)
     ap.add_argument("--fault", default=None, choices=tuple(FAULTS))
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--chain", action="store_true")
+    ap.add_argument("--layers", type=int, default=5)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -115,8 +130,12 @@ def main():
              f"the port came from {dstdgcn_tpu_torch.__file__}, not {tree}")
     # the forward mode lists the chain kernels' SASS too: they share the
     # forward bodies of csrc/dstd_common.cuh
-    libs = ([f"dstd_{mode}" for mode in modes] + ["dstd_chain"]
-            if args.forward else [f"dstd_{mode}_bwd" for mode in modes])
+    if args.chain or args.cases == "encoder":
+        libs = ["dstd_chain"]
+    elif args.forward or (args.fault or "").startswith("out_"):
+        libs = [f"dstd_{mode}" for mode in modes] + ["dstd_chain"]
+    else:
+        libs = [f"dstd_{mode}_bwd" for mode in modes]
     secs = build.build_all(libs)
     print(f"{label}: the port of {tree}; build {secs}", flush=True)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -153,6 +172,12 @@ def main():
         return 0
 
     f32 = args.dtype == "float32"
+    if args.chain:
+        run_chain(torch, cs, fused, None if f32 else torch.bfloat16,
+                  32 if f32 else 128, args.layers, emit)
+        out.close()
+        print(cs.nvidia_smi())
+        return 0
     bcfg = resolve(configs.SYNTHETIC_H36M_TRAIN if f32
                    else configs.SYNTHETIC_H36M_TPU_TRAIN)
     n = bcfg["train_batch_size"]
@@ -295,15 +320,69 @@ def run_forward(torch, np, cs, fused, modes, dtype, n, calls, tile, emit):
                          ms=total, cast_ms=casts, worst_norm_err=worst))
 
 
-def run_cases(torch, fused, which, dtype, fault, emit):
-    """The card tests' tile cases of one op (``which``: MODE or
-    MODE:TILE) at ``dtype``, through the card tests' ``_tile_case``;
-    ``fault`` alters the backward kernel's dx (``dx_*``) or the forward
-    kernel's output (``out_*``) after each call."""
+def card_tests():
+    """The card tests' module (``tests/test_torch_cuda.py``), for its cases
+    and helpers."""
     spec = importlib.util.spec_from_file_location(
         "card_tests", os.path.join(HERE, "tests", "test_torch_cuda.py"))
     ct = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ct)
+    return ct
+
+
+def run_chain(torch, cs, fused, dtype, n, layers, emit):
+    """The whole-encoder kernel at ``dtype`` over ``layers`` seeded layers
+    at batch ``n``, both aggregations: error against its plain version and
+    the bf16-versus-float32 gap, repeat, and (agg right) device ms."""
+    ct = card_tests()
+    device = torch.device("cuda")
+    t, v, c = cs.T, cs.V, 64
+    given = ct._chain_layers(layers, t, v, c, device, encoder=True, seed=3)
+    packed = fused.pack_chain(given)
+    x = torch.randn(n, t, v, c, device=device,
+                    generator=torch.Generator(device).manual_seed(n))
+    kernel = fused.dstd_encoder_chain
+    for agg in ("right", "left"):
+        with torch.no_grad():
+            got = kernel(x, packed, agg, dtype)
+            again = kernel(x, packed, agg, dtype)
+            want = fused._encoder_oracle(x, given, agg, dtype)
+            want32 = fused._encoder_oracle(x, given, agg)
+        peak = float(want32.abs().max())
+        err = float((got - want).abs().max()) / peak
+        line = dict(kernel=kernel.name, dtype=str(dtype), n=n,
+                    layers=layers, agg=agg, norm_err=err,
+                    repeatable=bool(torch.equal(got, again)))
+        if dtype is not None:
+            gap = float((want - want32).abs().max()) / peak
+            line.update(bf16_vs_f32_gap=gap, over_gap=err / gap,
+                        ok=err <= cs.BF16_CHAIN_FRAC * gap)
+        else:
+            line.update(ok=err <= cs.TOL * max(peak, 1.0) / peak)
+        if agg == "right":
+            def call():
+                with torch.no_grad():
+                    return kernel(x, packed, agg, dtype)
+            ms, by = cs.device_ms(torch, call, 10)
+            b_ms, t_ops, t_mem = cs.bound_of(*cs.chain_cost(
+                n, c, layers, True, dtype))
+            line.update(ms=ms, timed_by=by, bound_ms=b_ms,
+                        bound_by="operations" if t_ops >= t_mem
+                        else "bytes")
+        emit("check", line)
+
+
+def run_cases(torch, fused, which, dtype, fault, emit):
+    """The card tests' tile cases of one op (``which``: MODE or
+    MODE:TILE) at ``dtype``, through the card tests' ``_tile_case``, or
+    (``which`` = ``encoder``) their bf16 encoder-chain cases through
+    ``_bf16_chain_case``; ``fault`` alters the backward kernel's dx
+    (``dx_*``) or the forward kernel's output (``out_*``) after each
+    call, and only that pass runs."""
+    ct = card_tests()
+    if which == "encoder":
+        run_chain_cases(torch, fused, ct, fault, emit)
+        return
     mode, _, tile_only = which.partition(":")
     bwd = real = getattr(fused, f"dstd_{mode}_bwd")
     fwd = real_fwd = getattr(fused, f"dstd_{mode}").launch
@@ -316,17 +395,41 @@ def run_cases(torch, fused, which, dtype, fault, emit):
         def fwd(*a, **k):
             return FAULTS[fault](real_fwd(*a, **k))
 
+    passes = (("forward",) if fault and fault.startswith("out_") else
+              ("backward",) if fault else ("forward", "backward"))
     device = torch.device("cuda")
     for case in ct.TILE_CASES:
         if case[0] != mode or (tile_only and case[1] != int(tile_only)):
             continue
-        held, repeat = ct._tile_case(*case, device, dtype, bwd, fwd)
+        held, repeat = ct._tile_case(*case, device, dtype, bwd, fwd, passes)
         emit("case", dict(case=list(case), dtype=str(dtype), fault=fault,
                           held={key: list(d) + [ct._held(dtype, key, *d)]
                                 for key, d in held.items()},
                           ok=all(ct._held(dtype, key, *d)
                                  for key, d in held.items()),
                           repeatable=repeat))
+
+
+
+def run_chain_cases(torch, fused, ct, fault, emit):
+    """The card tests' bf16 encoder-chain cases (N = 1 and 128 at the H36M
+    shape, then ``BF16_ENCODER_EDGES``), both aggregations, with an
+    ``out_*`` fault applied to the kernel's output after each call."""
+    kernel = fused.dstd_encoder_chain
+    call = None
+    if fault:
+        def call(*a, **k):
+            return FAULTS[fault](kernel(*a, **k))
+    device = torch.device("cuda")
+    shapes = [(n, 35, 22, 64) for n in (1, 128)] + ct.BF16_ENCODER_EDGES
+    for shape in shapes:
+        for agg in ("right", "left"):
+            out, same = ct._bf16_chain_case(True, agg, *shape, device, call)
+            emit("case", dict(case=["encoder", agg, *shape], fault=fault,
+                              held={key: list(d) + [d[0] <= d[2] * d[1]]
+                                    for key, d in out.items()},
+                              ok=same and all(d[0] <= d[2] * d[1]
+                                              for d in out.values())))
 
 
 if __name__ == "__main__":

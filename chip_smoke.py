@@ -17,9 +17,11 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    ``HMMA`` instructions (of all instructions) in the SASS of each
    function of the forward, chain and backward libraries (``cuobjdump``):
    some in passes 2 and 3 of every backward kernel (bf16 ``mma.sync`` in
-   5b and 6b, 3xTF32 in 5 and 6: ``MMA_FUNCTIONS``) and in the bf16
-   one-op forward kernels (1b, 2b: ``MMA_FORWARD``), none in the q/k and
-   reduction launches, the float32 forward kernels or any chain kernel;
+   5b and 6b, 3xTF32 in 5 and 6: ``MMA_FUNCTIONS``), in the spatial
+   forward kernel (3xTF32 in 1, bf16 in 1b), the bf16 temporal one (2b)
+   and the bf16 encoder chain (4b: ``MMA_FORWARD``), none in the q/k and
+   reduction launches, the float32 temporal forward kernel (2) or the
+   other chain kernels (3, 3b, 4);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -290,11 +292,24 @@ BWD_PASSES = ("qk", "out", "src", "reduce")
 #: 6b, on bf16 ``mma.sync``, the float32 ones, 5 and 6, on 3xTF32), every
 #: tile; the q/k and reduction launches keep their CUDA-core FMAs
 MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
-#: the one-op forward kernels whose bf16 instantiations (1b, 2b) run every
-#: product on bf16 ``mma.sync`` (``csrc/dstd_fwd_mma.cuh``); their
-#: ``dstd::Exact`` ones (1, 2) and the chain kernels (3, 3b, 4, 4b) keep
-#: the CUDA-core body of ``csrc/dstd_common.cuh``
-MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<")
+#: the forward functions that run every product but q/k on the tensor
+#: cores in the body of ``csrc/dstd_fwd_mma.cuh``: the spatial kernel in
+#: both dtypes (1 on 3xTF32, 1b on bf16 ``mma.sync``), the bf16 temporal
+#: kernel (2b) and the bf16 encoder chain (4b, ``chain_kernel<TILE,
+#: kEncoder, Rnd>``); the float32 temporal kernel (2) and the other chain
+#: kernels (3, 3b, 4) keep the CUDA-core bodies of ``csrc/dstd_common.cuh``
+MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<",
+               "chain_kernel<")
+
+
+def _mma_forward(function):
+    if function.startswith("spatial_kernel<"):
+        return True
+    if function.startswith("temporal_kernel<"):
+        return function.endswith(", dstd::Bf16>")
+    return function.endswith(", true, dstd::Bf16>")
+
+
 #: the libraries whose SASS phase 2 reads
 SASS_LIBRARIES = ("dstd_spatial", "dstd_temporal", "dstd_chain",
                   "dstd_spatial_bwd", "dstd_temporal_bwd")
@@ -302,8 +317,7 @@ SASS_LIBRARIES = ("dstd_spatial", "dstd_temporal", "dstd_chain",
 
 def uses_mma(function):
     return function.startswith(MMA_FUNCTIONS) or (
-        function.startswith(MMA_FORWARD)
-        and function.endswith(", dstd::Bf16>"))
+        function.startswith(MMA_FORWARD) and _mma_forward(function))
 
 
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)

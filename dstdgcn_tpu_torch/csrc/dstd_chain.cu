@@ -20,9 +20,10 @@
 // dstd_temporal.cu.
 //
 // Bound on an H100 SXM: the encoder of the H36M model (N=32, T=35, V=22,
-// C=64, L=5 layers) does about 5 x 1.13 GFLOP of float32 CUDA-core work,
-// about 0.085 ms at 67 TFLOP/s, against 12.6 MB of activation bytes (x in
-// and out once, about 3.8 us at 3.35 TB/s): it is bound by operations.
+// C=64, L=5 layers) does about 5 x 1.13 GFLOP, mostly contractions
+// (float32: 0.036 ms at the 3xTF32 rate beside the tanh and affines on
+// the CUDA cores; PERF.md), against 12.6 MB of activation bytes (x in and
+// out once, about 3.8 us at 3.35 TB/s): it is bound by operations.
 // The one-op kernels move the activation through device memory 4 times per
 // layer and pay a launch per op; here it is read once and written once.
 //
@@ -31,9 +32,17 @@
 // ceil(max(T, V) / TILE) <= 8 (7 at T=35, V=22, TILE=5); in a spatial op
 // rank r owns output frames [r*ts, r*ts + ts), in a temporal op output
 // joints [r*tt, r*tt + tt), ts = ceil(T / size) and tt = ceil(V / size)
-// both <= TILE.  The ops are the shared bodies dstd::spatial_op and
-// dstd::temporal_op; the q/k projections of both ops are split over the
-// cluster and exchanged through distributed shared memory.
+// both <= TILE (at V=22, tt=4: rank 6 owns no joint, yet forms its share
+// of the scores and meets every barrier).  The bf16 encoder
+// (dstd_encoder_chain_bf16) runs each op through the tensor-core body
+// dstd_fwd::op_mma (dstd_fwd_mma.cuh, the body of the bf16 one-op
+// kernels, at the chain's cluster): the layer's float32 activation
+// rounded to bf16 where it is staged (the contract's rounding point), the
+// feature projection, mixing and aggregation on bf16 mma.sync, each score
+// formed once per sample, the epilogue below as its store.  The other
+// three variants keep the CUDA-core bodies dstd::spatial_op and
+// dstd::temporal_op (dstd_common.cuh).  In both the q/k projections are
+// split over the cluster and exchanged through distributed shared memory.
 //
 // Where the activation lives between ops.  Every op couples the whole
 // sample (the spatial op mixes all frames' scores, the temporal op all
@@ -60,16 +69,19 @@
 // the other blocks' rows with ld.global.cg (at L2, never a stale L1 line).
 // The barrier also orders the reuse of each block's shared memory.
 //
-// Occupancy: about 107 KB of shared memory per block and at most 64
-// registers a thread (__launch_bounds__(512, 2); left free the compiler
-// takes 128, one block per SM, and a batch-32 call then runs in two waves),
-// so two blocks per SM: a batch-32 call is 32 clusters of 7 blocks (224
-// blocks on 132 SMs), a batch-1 call one cluster.  Both rounding policies
-// spill under the cap (ptxas -v at tile 5: 156-188 bytes stored), the
-// bf16 one a little less.  Plain float32 FMA on the CUDA cores, as in the
-// one-op kernels; the bf16 variants round each contraction operand where
-// the op bodies load or store it.
+// Occupancy: about 107 KB of shared memory per block (the bf16 encoder's
+// tensor-core layout 106 KB) and at most 64 registers a thread
+// (__launch_bounds__(512, 2); left free the compiler takes 128, one block
+// per SM, and a batch-32 call then runs in two waves), so two blocks per
+// SM: a batch-32 call is 32 clusters of 7 blocks (224 blocks on 132 SMs),
+// a batch-1 call one cluster.  The CUDA-core variants spill under the cap
+// (ptxas -v at tile 5: 156-188 bytes stored): plain float32 FMA, the bf16
+// chain rounding each contraction operand where the op bodies load or
+// store it.
+#include <type_traits>
+
 #include "dstd_common.cuh"
+#include "dstd_fwd_mma.cuh"
 
 namespace {
 
@@ -157,6 +169,21 @@ struct LayerStore {
     out[o] = act(acc, __ldcg(res + o), __ldg(scale + v * Co + c),
                  __ldg(shift + v * Co + c));
   }
+  // channels c and c + 1 (c even; c + 1 may lie past Co), the tensor-core
+  // body's store
+  __device__ void put2(int row, int v, int c, float a0, float a1) const {
+    if ((Co & 1) == 0) {
+      const size_t o = (size_t)row * Co + c;
+      const float2 r = __ldcg(reinterpret_cast<const float2*>(res + o));
+      const float2 s = __ldg(reinterpret_cast<const float2*>(scale + v * Co + c));
+      const float2 h = __ldg(reinterpret_cast<const float2*>(shift + v * Co + c));
+      *reinterpret_cast<float2*>(out + o) =
+          make_float2(act(a0, r.x, s.x, h.x), act(a1, r.y, s.y, h.y));
+    } else {
+      put(row, v, c, a0);
+      if (c + 1 < Co) put(row, v, c + 1, a1);
+    }
+  }
 };
 
 // Makes this block's global writes visible to the cluster and waits for
@@ -165,6 +192,12 @@ __device__ inline void publish() {
   __threadfence();
   cg::this_cluster().sync();
 }
+
+// Whether a chain instantiation runs its ops on the tensor-core body
+// (dstd_fwd_mma.cuh): the bf16 encoder; the others keep the CUDA-core op
+// bodies of dstd_common.cuh.
+template <bool kEncoder, typename Rnd>
+constexpr bool kMma = kEncoder && std::is_same_v<Rnd, dstd::Bf16>;
 
 template <int TILE, bool kEncoder, typename Rnd>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -185,15 +218,29 @@ __global__ void __launch_bounds__(kThreads, 2)
       const size_t VC = (size_t)c.V * c.C;
       const float* a1 = c.aff1 + 2 * l * VC;
       const float* a2 = c.aff2 + 2 * l * VC;
-      dstd::spatial_op<TILE, true, Rnd>(
-          sa, smem, n, t0, tn,
-          LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
-                           __ldg(c.prelu + 2 * l), c.C});
-      publish();
-      dstd::temporal_op<TILE, true, Rnd>(
-          ta, smem, n, w0, wn,
-          LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
-                            __ldg(c.prelu + 2 * l + 1), c.C});
+      if constexpr (kMma<kEncoder, Rnd>) {
+        const int nblk = (int)cg::this_cluster().num_blocks();
+        char* bytes = reinterpret_cast<char*>(smem4);
+        dstd_fwd::op_mma<true, dstd_mma::Bf16Mma, true>(
+            sa, bytes, n, t0, tn, c.ts, nblk,
+            LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
+                             __ldg(c.prelu + 2 * l), c.C});
+        publish();
+        dstd_fwd::op_mma<false, dstd_mma::Bf16Mma, true>(
+            ta, bytes, n, w0, wn, c.tt, nblk,
+            LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
+                              __ldg(c.prelu + 2 * l + 1), c.C});
+      } else {
+        dstd::spatial_op<TILE, true, Rnd>(
+            sa, smem, n, t0, tn,
+            LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
+                             __ldg(c.prelu + 2 * l), c.C});
+        publish();
+        dstd::temporal_op<TILE, true, Rnd>(
+            ta, smem, n, w0, wn,
+            LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
+                              __ldg(c.prelu + 2 * l + 1), c.C});
+      }
     } else {
       dstd::spatial_op<TILE, true, Rnd>(sa, smem, n, t0, tn,
                                         dstd::PlainStore{c.mid + sample, c.C});
@@ -212,6 +259,20 @@ long long smem_floats(int T, int V, int C, int Ks, int Kt, int R, int tile) {
   return s > t ? s : t;
 }
 
+// The tensor-core body's shared memory, in bytes, for the chain's cluster
+// of ceil(max(T, V) / tile) blocks: the larger of its two ops' layouts,
+// each at the share of output indices one rank owns.
+long long mma_smem_bytes(int T, int V, int C, int Ks, int Kt, int R,
+                         int tile) {
+  const int nblk = ((T > V ? T : V) + tile - 1) / tile;
+  const int ts = (T + nblk - 1) / nblk, tt = (V + nblk - 1) / nblk;
+  const long long s =
+      dstd_fwd::FwdLayout(true, T, V, C, C, Ks, R, ts, nblk, false).total;
+  const long long t =
+      dstd_fwd::FwdLayout(false, T, V, C, C, Kt, R, tt, nblk, false).total;
+  return s > t ? s : t;
+}
+
 template <bool kEncoder, typename Rnd>
 cudaError_t launch(ChainArgs c, int N, int tile, int device,
                    cudaStream_t stream) {
@@ -225,8 +286,10 @@ cudaError_t launch(ChainArgs c, int N, int tile, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t bytes =
-      (size_t)smem_floats(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile) *
-      sizeof(float);
+      kMma<kEncoder, Rnd>
+          ? (size_t)mma_smem_bytes(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile)
+          : (size_t)smem_floats(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile) *
+                sizeof(float);
   switch (tile) {
 #define DSTD_CHAIN_CASE(TL)                                                 \
   case TL:                                                                  \
@@ -280,10 +343,17 @@ int run_chain(const float* x, const float* const* w, const float* aff1,
 
 extern "C" {
 
-// Shared memory of one block at (T, V, C, Ks, Kt, R, tile), in bytes.
+// Shared memory of one block at (T, V, C, Ks, Kt, R, tile), in bytes: the
+// CUDA-core bodies' (every variant but the bf16 encoder), then the bf16
+// encoder's.
 long long dstd_chain_smem_bytes(int T, int V, int C, int Ks, int Kt, int R,
                                 int tile) {
   return smem_floats(T, V, C, Ks, Kt, R, tile) * (long long)sizeof(float);
+}
+
+long long dstd_encoder_chain_bf16_smem_bytes(int T, int V, int C, int Ks,
+                                             int Kt, int R, int tile) {
+  return mma_smem_bytes(T, V, C, Ks, Kt, R, tile);
 }
 
 const char* dstd_error_string(int err) {

@@ -1,4 +1,5 @@
-// Tensor-core block products for the DSTD-GC backward kernels.
+// Tensor-core block products for the DSTD-GC backward kernels, and the
+// element kinds the forward body (dstd_fwd_mma.cuh) runs its products in.
 //
 // block_mma computes a batch of block products inside one thread block on
 // Hopper's tensor cores: for every batch entry b < batch,
@@ -155,6 +156,32 @@ struct Tf32x3Mma {
       small[i] = __float_as_uint(bv[i] - __uint_as_float(big[i]));
     }
     // the small terms first, then the big one
+    mma_tf32(d, a.small, big);
+    mma_tf32(d, a.big, small);
+    mma_tf32(d, a.big, big);
+  }
+  // The same from fragment registers that hold float32 bits (ldmatrix on
+  // staged float32 operands, csrc/dstd_fwd_mma.cuh): the A fragment's
+  // split, then the product with a B fragment in the same order.
+  __device__ static A a_bits(const uint32_t (&r)[4]) {
+    A f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = __uint_as_float(r[i]);
+      f.big[i] = tf32(v);
+      f.small[i] = __float_as_uint(v - __uint_as_float(f.big[i]));
+    }
+    return f;
+  }
+  __device__ static void mma_bits(float (&d)[4], const A& a,
+                                  const uint32_t (&b)[2]) {
+    uint32_t big[2], small[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float v = __uint_as_float(b[i]);
+      big[i] = tf32(v);
+      small[i] = __float_as_uint(v - __uint_as_float(big[i]));
+    }
     mma_tf32(d, a.small, big);
     mma_tf32(d, a.big, small);
     mma_tf32(d, a.big, big);

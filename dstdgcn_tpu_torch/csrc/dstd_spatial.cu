@@ -13,36 +13,41 @@
 //
 // Bound on an H100 SXM: at N=32, T=35, V=22, 64->64 channels, K=2, R=2 the
 // op does about 0.72 GFLOP (projections 0.40, mixing 0.15, aggregation
-// 0.14) against 12.7 MB of activations, so it is bound by float32 CUDA-core
-// operations (about 11 us at 67 TFLOP/s) rather than memory (about 3.8 us
-// at 3.35 TB/s); the 2*35*484 tanh per output frame also run on the
-// CUDA cores.
+// 0.14) against 12.7 MB of activations: about 4.4 us of contractions at
+// the 3xTF32 rate (the dense TF32 rate over 3) beside about 3.8 us of
+// memory at 3.35 TB/s, so it is bound by operations; the 2*35*484 tanh of
+// a sample run on the CUDA cores.
 //
-// Float32 design (dstd_spatial_f32; the body is dstd::spatial_op in
-// dstd_common.cuh, which the chain kernels of dstd_chain.cu share): one
-// block of 512 threads per (sample, tile of output frames), the tile a
+// Design (both variants): the body dstd_fwd::op_mma (dstd_fwd_mma.cuh),
+// one block of 512 threads per (sample, tile of output frames), the tile a
 // template parameter.  The adjacency of an output frame mixes the scores
-// of all T source frames, so each block needs the whole sample's q/k: the
-// T/tile blocks of a sample run as one thread-block cluster, each projects
-// its share of the rows and copies the others' from their shared memory
-// (DSMEM).  Then each block builds the tile's adjacency in shared memory,
-// one thread per (k, v, w) pair with the tile's output frames in registers
-// (tanh scores recomputed per tile, mixing weights read as float4),
-// projects the tile's features (float4 register tiles, x read through L1)
-// and aggregates.  The scores and the adjacency never touch device memory.
-// Everything is plain float32 FMA on the CUDA cores.
+// of all T source frames, so the T/tile blocks of a sample run as one
+// thread-block cluster: each projects q/k of its own rows on the CUDA cores
+// and copies the others' through distributed shared memory (DSMEM), forms
+// its share of the sample's scores once (the pair rows split over the
+// cluster), mixes them on the tensor cores and exchanges the adjacency
+// through DSMEM; the feature projection, the mixing and the aggregation
+// run on the tensor cores from operands staged once in shared memory.  The
+// scores and the adjacency never touch device memory.
+//
+// Float32 (dstd_spatial_f32): the products are 3xTF32
+// (dstd_mma::Tf32x3Mma, float32-accurate) on operands staged as float32,
+// in a layout that holds fewer regions at once (the scores formed in the
+// mixing's fragments, the features projected one group of 16 output
+// channels at a time after the adjacency is gathered), so that two blocks
+// share an SM and a batch-32 call runs in one wave; q/k stay float32
+// CUDA-core sums in the order of the CUDA-core body and of the backward's
+// q/k launch.  Measured
+// over the 7 calls of a forward at N=32 on an H100, its CUDA-core
+// predecessor (dstd::spatial_op in dstd_common.cuh, still the spatial body
+// of the chain kernels) ran 25.7x its bound (PERF.md).
 //
 // bf16 variant (dstd_spatial_bf16): the TPU kernel's compute dtype, which
 // rounds the operands of its four contractions (x wqk, x wf, s wrm,
-// adj xf) to bf16 and accumulates in float32.  Its body is
-// dstd_fwd::op_bf16 (dstd_fwd_mma.cuh): the same cluster of a sample's
-// tiles, the feature projection, the mixing and the aggregation on bf16
-// tensor cores (mma.sync, fragments by ldmatrix from operands staged once
-// as bf16; q/k stay CUDA-core sums), each score formed once per
-// sample (the pair rows split over the cluster, the adjacency exchanged
-// through DSMEM).  Measured over the 7 calls of a forward at N=128 on an
-// H100, the CUDA-core body spent 53% of its time in the feature projection
-// (PERF.md).
+// adj xf) to bf16 and accumulates in float32: bf16 mma.sync on operands
+// staged once as bf16 (x read as bf16).  Measured over the 7 calls of a
+// forward at N=128 on an H100, the CUDA-core body spent 53% of its time in
+// the feature projection (PERF.md).
 #include <type_traits>
 
 #include "dstd_common.cuh"
@@ -54,18 +59,20 @@ using dstd::kMaxTile;
 using dstd::kThreads;
 using dstd::OpArgs;
 
+// two blocks an SM (at most 64 registers): both layouts leave room for
+// two at T = 35, V = 22, 64->64, tile 5 (101 KB at float32, 105 KB at
+// bf16)
 template <int TILE, typename Rnd>
-__global__ void __launch_bounds__(kThreads) spatial_kernel(const OpArgs a) {
+__global__ void __launch_bounds__(kThreads, 2)
+    spatial_kernel(const OpArgs a) {
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, t0 = blockIdx.x * TILE;
-  if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
-    dstd_fwd::op_bf16<true, TILE>(a, reinterpret_cast<char*>(smem4), n, t0,
-                                  min(TILE, a.T - t0));
-  } else {
-    dstd::spatial_op<TILE, false, Rnd>(
-        a, reinterpret_cast<float*>(smem4), n, t0, min(TILE, a.T - t0),
-        dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
-  }
+  using Mma = std::conditional_t<std::is_same_v<Rnd, dstd::Bf16>,
+                                 dstd_mma::Bf16Mma, dstd_mma::Tf32x3Mma>;
+  dstd_fwd::op_mma<true, Mma>(
+      a, reinterpret_cast<char*>(smem4), n, t0, min(TILE, a.T - t0), TILE,
+      (a.T + TILE - 1) / TILE,
+      dstd_fwd::PairStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
 }
 
 template <int TILE, typename Rnd>
@@ -93,11 +100,9 @@ int run(const float* x, const float* base, const float* alpha,
   if (err != cudaSuccess) return (int)err;
   const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
                  wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
-  const size_t bytes =
-      std::is_same_v<Rnd, dstd::Bf16>
-          ? dstd_fwd::FwdLayout(true, T, V, Ci, Co, K, R, tile).total
-          : dstd::SpatialLayout(T, V, Ci, Co, K, R, tile).total *
-                sizeof(float);
+  const size_t bytes = dstd_fwd::op_layout(true, T, V, Ci, Co, K, R, tile,
+                                           !std::is_same_v<Rnd, dstd::Bf16>)
+                           .total;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 1: return (int)launch<1, Rnd>(a, N, bytes, st);
@@ -115,15 +120,16 @@ int run(const float* x, const float* base, const float* alpha,
 
 extern "C" {
 
+// Shared memory of one block, in bytes: the float32 variant's, then the
+// bf16 one's (the same body in other elements).
 long long dstd_spatial_smem_bytes(int T, int V, int Ci, int Co, int K, int R,
                                   int tile) {
-  return dstd::SpatialLayout(T, V, Ci, Co, K, R, tile).total *
-         (long long)sizeof(float);
+  return dstd_fwd::op_layout(true, T, V, Ci, Co, K, R, tile, true).total;
 }
 
 long long dstd_spatial_bf16_smem_bytes(int T, int V, int Ci, int Co, int K,
                                        int R, int tile) {
-  return dstd_fwd::FwdLayout(true, T, V, Ci, Co, K, R, tile).total;
+  return dstd_fwd::op_layout(true, T, V, Ci, Co, K, R, tile, false).total;
 }
 
 const char* dstd_error_string(int err) {

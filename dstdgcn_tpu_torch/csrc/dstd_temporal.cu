@@ -35,7 +35,7 @@
 //
 // bf16 variant (dstd_temporal_bf16): the TPU kernel's compute dtype, bf16
 // operands of the four contractions with float32 sums.  Its body is
-// dstd_fwd::op_bf16 (dstd_fwd_mma.cuh), the spatial op's with frames and
+// dstd_fwd::op_mma (dstd_fwd_mma.cuh), the spatial op's with frames and
 // joints swapped: the ceil(V / tile) blocks of a sample run as one
 // thread-block cluster (at most 8, so the tile is at least ceil(V / 8)),
 // the feature projection, the mixing and the aggregation on bf16 tensor
@@ -58,8 +58,10 @@ __global__ void __launch_bounds__(kThreads) temporal_kernel(const OpArgs a) {
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, w0 = blockIdx.x * TILE;
   if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
-    dstd_fwd::op_bf16<false, TILE>(a, reinterpret_cast<char*>(smem4), n, w0,
-                                   min(TILE, a.V - w0));
+    dstd_fwd::op_mma<false, dstd_mma::Bf16Mma>(
+        a, reinterpret_cast<char*>(smem4), n, w0, min(TILE, a.V - w0), TILE,
+        (a.V + TILE - 1) / TILE,
+        dstd_fwd::PairStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
   } else {
     dstd::temporal_op<TILE, false, Rnd>(
         a, reinterpret_cast<float*>(smem4), n, w0, min(TILE, a.V - w0),
@@ -105,7 +107,7 @@ int run(const float* x, const float* base, const float* alpha,
                  wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
   const size_t bytes =
       std::is_same_v<Rnd, dstd::Bf16>
-          ? dstd_fwd::FwdLayout(false, T, V, Ci, Co, K, R, tile).total
+          ? dstd_fwd::op_layout(false, T, V, Ci, Co, K, R, tile, false).total
           : dstd::TemporalLayout(T, V, Ci, Co, K, R, tile).total *
                 sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -133,7 +135,7 @@ long long dstd_temporal_smem_bytes(int T, int V, int Ci, int Co, int K,
 
 long long dstd_temporal_bf16_smem_bytes(int T, int V, int Ci, int Co, int K,
                                         int R, int tile) {
-  return dstd_fwd::FwdLayout(false, T, V, Ci, Co, K, R, tile).total;
+  return dstd_fwd::op_layout(false, T, V, Ci, Co, K, R, tile, false).total;
 }
 
 const char* dstd_error_string(int err) {

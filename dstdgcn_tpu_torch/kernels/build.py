@@ -56,7 +56,8 @@ _FORWARD = {
     "f32": _OP_LAUNCH,
     "bf16": _OP_LAUNCH,
     # (T, V, Ci, Co, K, R, tile): the float32 variant's, and the bf16 one's
-    # (its tensor-core body has a layout of its own)
+    # (the spatial op's variants share one tensor-core body in elements of
+    # their own; the temporal op's bf16 one runs it)
     "smem_bytes": ([_INT] * 7, _SIZE),
     "bf16_smem_bytes": ([_INT] * 7, _SIZE),
 }
@@ -90,8 +91,10 @@ SIGNATURES = {
         **{f"dstd_encoder_chain_{v}": ([_PTR, _PTRS] + [_PTR] * 5
                                        + [_INT] * 11 + [_PTR], ctypes.c_int)
            for v in ("f32", "bf16")},
-        # (T, V, C, Ks, Kt, R, tile)
+        # (T, V, C, Ks, Kt, R, tile): the CUDA-core bodies', and the bf16
+        # encoder's (its tensor-core body has a layout of its own)
         "dstd_chain_smem_bytes": ([_INT] * 7, _SIZE),
+        "dstd_encoder_chain_bf16_smem_bytes": ([_INT] * 7, _SIZE),
     },
     "block_sparse": {
         # (adj, x, row_ptr, cols, out, N, V, Vj, C, block, device, stream)

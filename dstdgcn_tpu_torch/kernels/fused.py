@@ -519,15 +519,18 @@ class ChainOp(_Counted):
             raise ValueError(f"{self.name}: batch {n} exceeds {MAX_SAMPLES}")
         return n, t, v, c, layers, ks, kt, r
 
-    def _tile(self, lib, t, v, c, ks, kt, r):
+    def _tile(self, lib, variant, t, v, c, ks, kt, r):
         """The smallest tile that fits a sample's ops in one cluster of
-        MAX_CLUSTER blocks, if its block fits in shared memory."""
-        key = (t, v, c, ks, kt, r)
+        MAX_CLUSTER blocks, if its block fits in shared memory (the
+        variant's own size where its library gives one)."""
+        key = (variant, t, v, c, ks, kt, r)
         tile = self._tiles.get(key)
         if tile is None:
             tile = -(-max(t, v) // MAX_CLUSTER)
-            if tile > MAX_TILE or lib.dstd_chain_smem_bytes(
-                    t, v, c, ks, kt, r, tile) > SMEM_LIMIT:
+            smem = getattr(lib, f"{self.name}_{variant}_smem_bytes", None) \
+                or lib.dstd_chain_smem_bytes
+            if tile > MAX_TILE or smem(t, v, c, ks, kt, r,
+                                       tile) > SMEM_LIMIT:
                 raise ValueError(
                     f"{self.name}: T={t}, V={v}, C={c} do not fit one "
                     f"cluster of {MAX_CLUSTER} blocks of tile <= {MAX_TILE} "
@@ -543,7 +546,7 @@ class ChainOp(_Counted):
         variant = self._variant(dtype)
         n, t, v, c, layers, ks, kt, r = self._check(x, w)
         lib = build.library("dstd_chain")
-        tile = self._tile(lib, t, v, c, ks, kt, r)
+        tile = self._tile(lib, variant, t, v, c, ks, kt, r)
         out = torch.empty_like(x)
         # mid and ping activations; freed when this call returns, handed out
         # again only to work queued after the kernel on the same stream

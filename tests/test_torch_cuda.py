@@ -296,16 +296,15 @@ F64_NOISE = 2.0
 
 
 def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
-               fwd=None):
+               fwd=None, passes=("forward", "backward")):
     """One tile case (seeded inputs, seed 1; cotangent seed 2) through the
-    kernels at ``dtype`` (None: float32): {output: (distance to the plain
-    contract, the kernel's distance to the contract's float64 run, the
-    plain contract's own distance to it on ``device`` and on the CPU)} for
-    the forward (bf16 only, over the peak |output|) and each of the
+    kernels at ``dtype`` (None: float32) in ``passes``: {output: (distance
+    to the plain contract, the kernel's distance to the contract's float64
+    run, the plain contract's own distance to it on ``device`` and on the
+    CPU)} for the forward (over the peak |output|) and each of the
     backward's 11 gradients (over max(max |.|, 1)), and whether two calls
-    gave the same bits (the backward's, and at bf16 the forward's too).
-    ``bwd`` replaces the backward kernel and ``fwd`` the forward launch
-    (a broken one, say)."""
+    of each pass gave the same bits.  ``bwd`` replaces the backward kernel
+    and ``fwd`` the forward launch (a broken one, say)."""
     args = _inputs(mode, n, t, v, cin, co, device, seed=1)
     g = torch.from_numpy(np.random.RandomState(2).randn(
         n, t, v, co).astype(np.float32)).to(device)
@@ -321,7 +320,7 @@ def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
                 dist(want, want64, norm64), dist(want_cpu, want64, norm64))
 
     out, same = {}, True
-    if dtype is not None:
+    if "forward" in passes:
         fwd = fwd or getattr(fused, f"dstd_{mode}").launch
         got = fwd(*args, agg=agg, dtype=dtype, tile=tile)
         same = torch.equal(got, fwd(*args, agg=agg, dtype=dtype, tile=tile))
@@ -330,6 +329,8 @@ def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
         out["forward"] = held(got, want, ref(*on_cpu[1:], agg, dtype),
                               want64, float(want.abs().max()),
                               float(want64.abs().max()))
+    if "backward" not in passes:
+        return out, same
     bwd = bwd or getattr(fused, f"dstd_{mode}_bwd")
     grads = bwd(args[0], g, *args[1:], agg=agg, dtype=dtype, tile=tile)
     again = bwd(args[0], g, *args[1:], agg=agg, dtype=dtype, tile=tile)
@@ -368,7 +369,21 @@ def test_bf16_kernels_tiles_and_ragged_shapes(cuda, mode, tile, n, t, v, cin,
 @pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", TILE_CASES)
 def test_float32_backward_kernels_tiles_and_ragged_shapes(
         cuda, mode, tile, n, t, v, cin, co, agg):
-    held, repeat = _tile_case(mode, tile, n, t, v, cin, co, agg, cuda, None)
+    held, repeat = _tile_case(mode, tile, n, t, v, cin, co, agg, cuda, None,
+                              passes=("backward",))
+    assert repeat
+    assert all(_held(None, name, *d) for name, d in held.items()), held
+
+
+@pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", TILE_CASES)
+def test_float32_forward_kernels_tiles_and_ragged_shapes(
+        cuda, mode, tile, n, t, v, cin, co, agg):
+    """The float32 forward kernels at the tile cases: the spatial one's
+    projection, mixing and aggregation run on 3xTF32 tensor-core products
+    (16 x 8 x 8 tiles: V of 7, 22 and 25 joints are ragged rows and depths
+    of the aggregation, T = 35 of the mixing's depth R T = 70)."""
+    held, repeat = _tile_case(mode, tile, n, t, v, cin, co, agg, cuda, None,
+                              passes=("forward",))
     assert repeat
     assert all(_held(None, name, *d) for name, d in held.items()), held
 
@@ -540,40 +555,70 @@ BF16_LAYER_FRAC = 0.3
 BF16_CHAIN_FRAC = 0.9
 
 
-@pytest.mark.parametrize("n", [1, 128])
-@pytest.mark.parametrize("agg", ["right", "left"])
-@pytest.mark.parametrize("encoder", [True, False])
-def test_bf16_chain_kernels_match_plain(cuda, encoder, agg, n):
-    layers = _chain_layers(5, 35, 22, 64, cuda, encoder=encoder, seed=3)
-    x = torch.randn(n, 35, 22, 64, device=cuda,
-                    generator=torch.Generator(cuda).manual_seed(n))
+def _bf16_chain_case(encoder, agg, n, t, v, c, device, call=None):
+    """One bf16 chain case (5 seeded layers, seed 3; x seeded by n) at
+    (N, T, V, C): {check: (error, gap, fraction)} for each layer on the
+    kernel's own input (``layer<i>``, BF16_LAYER_FRAC) and for the five
+    layers (``chain``, BF16_CHAIN_FRAC), each error and gap over the peak
+    |plain float32 output|; and whether the launches counted, two calls
+    gave the same bits and the one-layer launches equal the five-layer
+    one.  ``call`` replaces the kernel call (a broken one, say)."""
+    layers = _chain_layers(5, t, v, c, device, encoder=encoder, seed=3)
+    x = torch.randn(n, t, v, c, device=device,
+                    generator=torch.Generator(device).manual_seed(n))
     name = "dstd_encoder_chain" if encoder else "dstd_chain"
-    kernel = getattr(fused, name)
+    call = call or getattr(fused, name)
     ref = fused._encoder_oracle if encoder else fused._chain_oracle
     bf16 = torch.bfloat16
 
     def held(got, x, given, frac):
         want, want32 = ref(x, given, agg, bf16), ref(x, given, agg)
         peak = float(want32.abs().max())
-        err = float((got - want).abs().max()) / peak
-        gap = float((want - want32).abs().max()) / peak
-        assert err <= frac * gap, (err, gap)
+        return (float((got - want).abs().max()) / peak,
+                float((want - want32).abs().max()) / peak, frac)
 
+    out = {}
     fused.reset_launch_counts()
     with torch.no_grad():
-        got = kernel(x, layers, agg, bf16)
-        again = kernel(x, fused.pack_chain(layers), agg, bf16)
+        got = call(x, layers, agg, bf16)
+        again = call(x, fused.pack_chain(layers), agg, bf16)
         h = x
         for i in range(len(layers)):      # layer by layer, its own input
-            y = kernel(h, layers[i:i + 1], agg, bf16)
-            held(y, h, layers[i:i + 1], BF16_LAYER_FRAC)
+            y = call(h, layers[i:i + 1], agg, bf16)
+            out[f"layer{i}"] = held(y, h, layers[i:i + 1], BF16_LAYER_FRAC)
             h = y
+        out["chain"] = held(got, x, layers, BF16_CHAIN_FRAC)
     torch.cuda.synchronize()
     counts = fused.launch_counts()
-    assert counts[f"{name}_bf16"] == 2 + len(layers) and counts[name] == 0
-    assert got.dtype == torch.float32
-    assert torch.equal(got, again) and torch.equal(got, h)
-    held(got, x, layers, BF16_CHAIN_FRAC)
+    same = (counts[f"{name}_bf16"] == 2 + len(layers) and counts[name] == 0
+            and got.dtype == torch.float32 and torch.equal(got, again)
+            and torch.equal(got, h))
+    return out, same
+
+
+@pytest.mark.parametrize("n", [1, 128])
+@pytest.mark.parametrize("agg", ["right", "left"])
+@pytest.mark.parametrize("encoder", [True, False])
+def test_bf16_chain_kernels_match_plain(cuda, encoder, agg, n):
+    out, same = _bf16_chain_case(encoder, agg, n, 35, 22, 64, cuda)
+    assert same
+    assert all(err <= frac * gap for err, gap, frac in out.values()), out
+
+
+#: (N, T, V, C) of the bf16 encoder kernel's cluster edges: the cluster is
+#: ceil(T / tile) = 7 blocks at T = 35, and the temporal op's tiles of
+#: ceil(V / 7) = 4 joints leave rank 6 without output joints at V = 22 and
+#: with one at V = 25 (the CMU joints), where ceil(V / tile) = 5 differs
+#: from the cluster
+BF16_ENCODER_EDGES = [(3, 35, 22, 64), (3, 35, 25, 64)]
+
+
+@pytest.mark.parametrize("n,t,v,c", BF16_ENCODER_EDGES)
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_bf16_encoder_chain_kernel_at_cluster_edges(cuda, agg, n, t, v, c):
+    out, same = _bf16_chain_case(True, agg, n, t, v, c, cuda)
+    assert same
+    assert all(err <= frac * gap for err, gap, frac in out.values()), out
 
 
 @pytest.mark.parametrize("agg", ["right", "left"])

@@ -50,17 +50,24 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("dstd_bwd::qk_kernel<true, dstd::Exact>", False),
     ("dstd_bwd::reduce_kernel<false>", False),
     ("dstd_bwd::reduce_kernel<true>", False),
-    # the one-op forward kernels: the bf16 ones on the tensor cores, the
-    # float32 ones and every chain kernel on the CUDA cores
+    # the forward kernels: the spatial one in both dtypes, the bf16
+    # temporal one and the bf16 encoder chain on the tensor cores; the
+    # float32 temporal one and the other chain kernels on the CUDA cores
     ("spatial_kernel<5, dstd::Bf16>", True),
     ("spatial_kernel<1, dstd::Bf16>", True),
     ("temporal_kernel<6, dstd::Bf16>", True),
     ("temporal_kernel<8, dstd::Bf16>", True),
-    ("spatial_kernel<5, dstd::Exact>", False),
+    ("spatial_kernel<5, dstd::Exact>", True),
+    ("spatial_kernel<2, dstd::Exact>", True),
+    ("spatial_kernel<8, dstd::Exact>", True),
     ("temporal_kernel<6, dstd::Exact>", False),
+    ("temporal_kernel<1, dstd::Exact>", False),
     ("chain_kernel<5, false, dstd::Bf16>", False),
-    ("chain_kernel<5, true, dstd::Bf16>", False),
+    ("chain_kernel<5, true, dstd::Bf16>", True),
+    ("chain_kernel<1, true, dstd::Bf16>", True),
+    ("chain_kernel<8, true, dstd::Bf16>", True),
     ("chain_kernel<5, true, dstd::Exact>", False),
+    ("chain_kernel<5, false, dstd::Exact>", False),
 ])
 def test_uses_mma_names_the_bf16_out_and_src_passes_of_both_ops(function,
                                                                 mma):

@@ -1,5 +1,6 @@
-"""The numerics of the float32 backward kernels' tensor-core products
-(``dstdgcn_tpu_torch/csrc/dstd_mma.cuh::Tf32x3Mma``), emulated in numpy.
+"""The numerics of the float32 kernels' tensor-core products
+(``dstdgcn_tpu_torch/csrc/dstd_mma.cuh::Tf32x3Mma``: the backward kernels
+and the spatial forward kernel), emulated in numpy.
 
 A TF32 operand keeps 10 mantissa bits.  3xTF32 splits each operand x into
 big = tf32(x), rounded to nearest with ties away from zero (the rounding
@@ -10,7 +11,10 @@ contraction depths (REF = 22 output joints for ds, Co = 64 channels for dA
 and dx, P^2 = 1225 frame pairs for dwrm) its error stays within a small
 factor of float32's own distance from float64, while a single TF32 pass
 lies beyond the 1e-4 of max(|g|, 1) that the float32 kernels are held to.
-That is why the float32 kernels use three passes and not one.
+That is why the float32 kernels use three passes and not one.  The
+forward's depths: K V = 44 (the spatial aggregation, two 22-deep sums
+into one accumulator), Ci = 64 (the feature projection) and R T = 70 (the
+spatial mixing).
 """
 
 import numpy as np
@@ -19,11 +23,12 @@ import pytest
 #: the float32 kernels' bound against their plain versions
 #: (tests/test_torch_cuda.py, chip_smoke.py ``TOL``)
 F32_TOL = 1e-4
-#: 3xTF32 against float32's own distance to float64: measured 0.76x, 0.42x
-#: and 0.69x at depths 22, 64 and 1225 (fewer float32 roundings, one per
-#: step of 8 and pass, than the CUDA cores' sequential sum)
+#: 3xTF32 against float32's own distance to float64: measured 0.76x,
+#: 0.81x, 0.42x, 0.77x and 0.69x at depths 22, 44, 64, 70 and 1225 (fewer
+#: float32 roundings, one per step of 8 and pass, than the CUDA cores'
+#: sequential sum)
 X3_FACTOR = 2.0
-DEPTHS = (22, 64, 1225)
+DEPTHS = (22, 44, 64, 70, 1225)
 
 
 def tf32(x):
