@@ -4,7 +4,9 @@ forward) kernels on one NVIDIA GPU, for the A/B of kernel versions.
 
     python3 bwd_profile.py OUT_DIR [--tree DIR] [--label L]
                            [--modes temporal,spatial] [--dtype D]
-                           [--tile K] [--forward] [--build-only]
+                           [--tile K] [--forward] [--chain [--layers L]]
+                           [--chain-grad [--draws D]]
+                           [--cases MODE [--fault F]] [--build-only]
 
 For the kernels of the port in ``--tree`` (default: this checkout; another
 checkout's kernels are built in its own tree): the registers and spills of
@@ -64,6 +66,20 @@ encoder`` runs the card tests' bf16 encoder-chain cases the same way
 ``BF16_ENCODER_EDGES``, through ``_bf16_chain_case``), an ``out_*`` fault
 applied to the kernel's output.
 
+With ``--chain-grad`` the float32 chain-gradient card test
+(``test_chain_gradient_replays_the_op_kernels``, through its
+``_chain_grad_case``) over ``--draws`` seeded draws (seeds 1000, 1001,
+...), both aggregations, for three gradient paths: the kernels; the same
+with the plain forward ops (``ops/dstd.py``) in place of the forward
+kernels; the same with the plain backward (``ops/dstd_bwd.py``) in place
+of the backward kernels.  Per draw and path: the worst gradient's
+distance to the plain float32 chain and to the plain chain's float64
+run, and the plain chain's own distance to that run (each over 1e-4
+max(|.|, 1): past 1 is past the bound), whether the card test's rule
+(``_held``, the plain run on the card only) holds every gradient, and
+(the kernels) whether a second call gives the same bits; the last line
+counts the draws past the bound under each rule.
+
 Writes ``OUT_DIR/bwd_profile_<label>.jsonl`` (one line per check, one per
 op's sum) and prints the same lines.  ``--build-only`` builds the
 profiled libraries and stops (to build several trees in parallel before
@@ -108,6 +124,8 @@ def main():
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--chain", action="store_true")
     ap.add_argument("--layers", type=int, default=5)
+    ap.add_argument("--chain-grad", action="store_true")
+    ap.add_argument("--draws", type=int, default=100)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -132,6 +150,9 @@ def main():
     # forward bodies of csrc/dstd_common.cuh
     if args.chain or args.cases == "encoder":
         libs = ["dstd_chain"]
+    elif args.chain_grad:
+        libs = ["dstd_chain", "dstd_spatial", "dstd_temporal",
+                "dstd_spatial_bwd", "dstd_temporal_bwd"]
     elif args.forward or (args.fault or "").startswith("out_"):
         libs = [f"dstd_{mode}" for mode in modes] + ["dstd_chain"]
     else:
@@ -171,6 +192,10 @@ def main():
         out.close()
         return 0
 
+    if args.chain_grad:
+        run_chain_grad(torch, fused, args.draws, emit)
+        out.close()
+        return 0
     f32 = args.dtype == "float32"
     if args.chain:
         run_chain(torch, cs, fused, None if f32 else torch.bfloat16,
@@ -370,6 +395,68 @@ def run_chain(torch, cs, fused, dtype, n, layers, emit):
                         bound_by="operations" if t_ops >= t_mem
                         else "bytes")
         emit("check", line)
+
+
+def run_chain_grad(torch, fused, draws, emit):
+    """The card test's float32 chain gradient over seeded draws, for the
+    kernels and with the plain forward or the plain backward in their
+    place (module docstring)."""
+    from dstdgcn_tpu_torch.ops import dstd as plain
+    from dstdgcn_tpu_torch.ops import dstd_bwd as plain_bwd
+    ct = card_tests()
+    device = torch.device("cuda")
+    ops = (fused.dstd_spatial, fused.dstd_temporal)
+    kept = [(op.launch, op.bwd) for op in ops]
+
+    def plain_launch(fn):
+        def launch(x, *w, agg="right", dtype=None, tile=None):
+            # contiguous, as the kernel's output (the next op's backward
+            # kernel reads it as its saved input)
+            return fn(x, *w, None, agg).contiguous()
+        return launch
+
+    def plain_backward(fn):
+        def bwd(x, g, *w, agg="right", dtype=None):
+            return fn(x, g, *w, agg=agg, dtype=dtype)
+        return bwd
+
+    def path(name):
+        for op, (launch, bwd) in zip(ops, kept):
+            op.launch, op.bwd = launch, bwd
+        for op, mode in zip(ops, ("spatial", "temporal")):
+            if name == "plain_forward":
+                op.launch = plain_launch(getattr(plain, f"dstd_{mode}"))
+            if name == "plain_backward":
+                op.bwd = plain_backward(getattr(plain_bwd,
+                                                f"dstd_{mode}_bwd"))
+
+    past = {}
+    try:
+        for seed in range(1000, 1000 + draws):
+            for agg in ("right", "left"):
+                for name in ("kernels", "plain_forward", "plain_backward"):
+                    path(name)
+                    rows, _, got = ct._chain_grad_case(agg, seed, device,
+                                                       cpu=False)
+                    again = got
+                    if name == "kernels":
+                        _, _, again = ct._chain_grad_case(agg, seed, device,
+                                                          cpu=False)
+                    worst = [max(r[i] for r in rows) / 1e-4
+                             for i in range(3)]
+                    held = all(ct._held(None, "gradient", *r) for r in rows)
+                    emit("draw", dict(seed=seed, agg=agg, path=name,
+                                      to_plain=worst[0], to_f64=worst[1],
+                                      plain_to_f64=worst[2], held=held,
+                                      repeatable=all(
+                                          torch.equal(a, b)
+                                          for a, b in zip(got, again))))
+                    n = past.setdefault(name, dict(bound=0, rule=0))
+                    n["bound"] += worst[0] > 1.0
+                    n["rule"] += not held
+    finally:
+        path("kernels")
+    emit("sum", dict(draws=2 * draws, past_bound=past))
 
 
 def run_cases(torch, fused, which, dtype, fault, emit):

@@ -83,7 +83,10 @@
 // 64->64, tile 5 (one block to an SM; measured 1.15x the CUDA-core body
 // it replaces, PERF.md): there the scores are formed in the mixing's
 // fragments and the features projected one group of output channels at a
-// time after the gather (FwdLayout), 101 KB, two blocks to an SM.
+// time after the gather (FwdLayout), 101 KB, two blocks to an SM.  The
+// bf16 kernels keep their own order: the float32 order at bf16 matched
+// their errors to the last digit but measured 1b 1.13x and 2b 1.03x
+// slower (4b 0.92x; PERF.md).
 #pragma once
 
 #include <cooperative_groups.h>

@@ -17,12 +17,13 @@
 //    nearest, ties away, 10 mantissa bits: the rounding of
 //    cvt.rna.tf32.f32) and small = x - big (exact in float32), which the
 //    tensor core reads as TF32 by ignoring its low 13 bits (round toward
-//    zero); each m16n8k8 step adds small_a big_b + big_a small_b +
-//    big_a big_b into the float32 accumulators, three
-//    mma.sync.aligned.m16n8k8 .tf32.  big + small is within 2^-21 of each
-//    operand and the term left out, small_a small_b, is below 2^-22 of the
-//    product; one TF32 pass alone would err by about 2^-11 of each
-//    operand, beyond the float32 kernels' 1e-4 bound over long sums
+//    zero); each m16n8k8 step sums small_a big_b + big_a small_b +
+//    big_a big_b in a zeroed float32 accumulator, three
+//    mma.sync.aligned.m16n8k8 .tf32, and adds it to the running sum on
+//    the CUDA cores.  big + small is within 2^-21 of each operand and the
+//    term left out, small_a small_b, is below 2^-22 of the product; one
+//    TF32 pass alone would err by about 2^-11 of each operand, beyond the
+//    float32 kernels' 1e-4 bound over long sums
 //    (tests/test_torch_tf32x3.py).
 //
 // Each warp owns one 16 x 8 TILES_N tile of C[b] (TILES_N m16n8 tiles
@@ -155,10 +156,16 @@ struct Tf32x3Mma {
       big[i] = tf32(bv[i]);
       small[i] = __float_as_uint(bv[i] - __uint_as_float(big[i]));
     }
-    // the small terms first, then the big one
-    mma_tf32(d, a.small, big);
-    mma_tf32(d, a.big, small);
-    mma_tf32(d, a.big, big);
+    // the small terms first, then the big one, into a zeroed accumulator
+    // added to d on the CUDA cores: the tensor cores truncate each add
+    // relative to the accumulator, so adding into d would bias the sum by
+    // about 2^-23 of d a step (step accumulation, as the forward's mma_step)
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(s, a.small, big);
+    mma_tf32(s, a.big, small);
+    mma_tf32(s, a.big, big);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] += s[i];
   }
   // The same from fragment registers that hold float32 bits (ldmatrix on
   // staged float32 operands, csrc/dstd_fwd_mma.cuh): the A fragment's

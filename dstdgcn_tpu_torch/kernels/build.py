@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "SIGNATURES", "build_all", "library", "build_log"]
+__all__ = ["SOURCES", "SIGNATURES", "SMEM_BYTES", "build_all", "library",
+           "build_log"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -107,6 +108,23 @@ SIGNATURES = {
         "block_sddmm_spmm_f32": ([_PTR] * 7 + [_INT] * 6 + [_PTR],
                                  ctypes.c_int),
     },
+}
+
+#: (kernel, variant) -> the C function of its library giving one block's
+#: shared memory in bytes at (T, V, Ci, Co, K, R, tile), the chains' at
+#: (T, V, C, Ks, Kt, R, tile); the wrappers' tile searches read it
+SMEM_BYTES = {
+    **{(op, "f32"): f"{op}_smem_bytes"
+       for op in ("dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
+                  "dstd_temporal_bwd")},
+    **{(op, "bf16"): f"{op}_bf16_smem_bytes"
+       for op in ("dstd_spatial", "dstd_temporal")},
+    **{(op, "bf16"): f"{op}_smem_bytes"
+       for op in ("dstd_spatial_bwd", "dstd_temporal_bwd")},
+    ("dstd_chain", "f32"): "dstd_chain_smem_bytes",
+    ("dstd_chain", "bf16"): "dstd_chain_smem_bytes",
+    ("dstd_encoder_chain", "f32"): "dstd_chain_smem_bytes",
+    ("dstd_encoder_chain", "bf16"): "dstd_encoder_chain_bf16_smem_bytes",
 }
 
 

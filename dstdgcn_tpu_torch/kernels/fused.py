@@ -186,11 +186,10 @@ class _Kernel(_Counted):
 
     def _tile(self, lib, variant, t, v, ci, co, k, r, tile):
         """Largest tile <= the requested one whose block fits in shared
-        memory (the variant's own size where its library gives one) and,
-        for a clustered variant, whose sample fits in one cluster of
+        memory (the variant's size, ``build.SMEM_BYTES``) and, for a
+        clustered variant, whose sample fits in one cluster of
         MAX_CLUSTER blocks."""
-        smem = getattr(lib, f"{self.name}_{variant}_smem_bytes", None) or \
-            getattr(lib, f"{self.name}_smem_bytes")
+        smem = getattr(lib, build.SMEM_BYTES[self.name, variant])
         extent = t if self.mode == "spatial" else v
         lowest = (-(-extent // MAX_CLUSTER) if variant in self.clustered
                   else 1)
@@ -522,13 +521,12 @@ class ChainOp(_Counted):
     def _tile(self, lib, variant, t, v, c, ks, kt, r):
         """The smallest tile that fits a sample's ops in one cluster of
         MAX_CLUSTER blocks, if its block fits in shared memory (the
-        variant's own size where its library gives one)."""
+        variant's size, ``build.SMEM_BYTES``)."""
         key = (variant, t, v, c, ks, kt, r)
         tile = self._tiles.get(key)
         if tile is None:
             tile = -(-max(t, v) // MAX_CLUSTER)
-            smem = getattr(lib, f"{self.name}_{variant}_smem_bytes", None) \
-                or lib.dstd_chain_smem_bytes
+            smem = getattr(lib, build.SMEM_BYTES[self.name, variant])
             if tile > MAX_TILE or smem(t, v, c, ks, kt, r,
                                        tile) > SMEM_LIMIT:
                 raise ValueError(

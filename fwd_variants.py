@@ -13,8 +13,9 @@ OUT_ROOT/<variant> --forward`` (or ``--chain``) in one chip call beside
 the tree it came from; the difference of two times is the removed phase's.
 
 Variants of the CUDA-core op body ``dstd::spatial_op``
-(``csrc/dstd_common.cuh``), the body of the float32 spatial kernel up to
-its tensor-core redesign and of the chain kernels:
+(``csrc/dstd_common.cuh``), the spatial body of the chain kernels
+``dstd_chain_{f32,bf16}`` and ``dstd_encoder_chain_f32`` (and of the
+float32 spatial kernel before its tensor-core redesign):
 
 - ``notanh``: the score is q - k, no ``tanhf``;
 - ``nomix``: one add per score instead of the mixing FMAs of the tile;
@@ -26,10 +27,9 @@ its tensor-core redesign and of the chain kernels:
 Variants of the whole-encoder kernel (``csrc/dstd_chain.cu``, the encoder
 instantiations ``chain_kernel<*, true, *>``): ``nospatial`` and
 ``notemporal`` skip that op in every layer (its output buffer is then
-left as it was) in the CUDA-core bodies of the float32 encoder (and of
-the bf16 one before its tensor-core body); ``nospatial_mma`` and
-``notemporal_mma`` do the same in the bf16 encoder's tensor-core body
-(``dstd_fwd::op_mma``).  Variants change what the kernel computes: their
+left as it was) in the CUDA-core bodies of the float32 encoder;
+``nospatial_mma`` and ``notemporal_mma`` do the same in the bf16
+encoder's tensor-core body (``dstd_fwd::op_mma``).  Variants change what the kernel computes: their
 errors mean nothing, only their times.
 """
 
@@ -59,6 +59,14 @@ _AGG4 = """    for (int i = threadIdx.x; i < rows * C4; i += blockDim.x) {
 _AGG1 = """    for (int i = threadIdx.x; i < rows * Co; i += blockDim.x) {
       const int row = i / Co, c = i - row * Co;
       const int tt = row / V, av = row - tt * V;"""
+# the encoder's op calls in chain_kernel (the CUDA-core bodies, then the
+# bf16 encoder's tensor-core body)
+_ENC_SPATIAL = ("dstd::spatial_op<TILE, true, Rnd>(\n"
+                "            sa, smem, n, t0, tn,\n            LayerStore")
+_ENC_TEMPORAL = ("dstd::temporal_op<TILE, true, Rnd>(\n"
+                 "            ta, smem, n, w0, wn,\n            LayerStore")
+_MMA_SPATIAL = "dstd_fwd::op_mma<true, dstd_mma::Bf16Mma, true>("
+_MMA_TEMPORAL = "dstd_fwd::op_mma<false, dstd_mma::Bf16Mma, true>("
 _COMMON = "dstdgcn_tpu_torch/csrc/dstd_common.cuh"
 _CHAIN = "dstdgcn_tpu_torch/csrc/dstd_chain.cu"
 
@@ -82,20 +90,11 @@ VARIANTS = {
     **_REMOVE,
     "qkonly": [edit for name in ("noadj", "nofeat", "noagg")
                for edit in _REMOVE[name]],
-    "nospatial": [(_CHAIN, "      dstd::spatial_op<TILE, true, Rnd>(\n"
-                   "          sa, smem, n, t0, tn,\n          LayerStore",
-                   "      if (false) dstd::spatial_op<TILE, true, Rnd>(\n"
-                   "          sa, smem, n, t0, tn,\n          LayerStore")],
-    "notemporal": [(_CHAIN, "      dstd::temporal_op<TILE, true, Rnd>(\n"
-                    "          ta, smem, n, w0, wn,\n          LayerStore",
-                    "      if (false) dstd::temporal_op<TILE, true, Rnd>(\n"
-                    "          ta, smem, n, w0, wn,\n          LayerStore")],
-    "nospatial_mma": [(_CHAIN, "dstd_fwd::op_mma<true, dstd_mma::Bf16Mma, "
-                       "true>(", "if (false) dstd_fwd::op_mma<true, "
-                       "dstd_mma::Bf16Mma, true>(")],
-    "notemporal_mma": [(_CHAIN, "dstd_fwd::op_mma<false, dstd_mma::Bf16Mma, "
-                        "true>(", "if (false) dstd_fwd::op_mma<false, "
-                        "dstd_mma::Bf16Mma, true>(")],
+    "nospatial": [(_CHAIN, _ENC_SPATIAL, "if (false) " + _ENC_SPATIAL)],
+    "notemporal": [(_CHAIN, _ENC_TEMPORAL, "if (false) " + _ENC_TEMPORAL)],
+    "nospatial_mma": [(_CHAIN, _MMA_SPATIAL, "if (false) " + _MMA_SPATIAL)],
+    "notemporal_mma": [(_CHAIN, _MMA_TEMPORAL,
+                        "if (false) " + _MMA_TEMPORAL)],
 }
 
 

@@ -165,3 +165,15 @@ def test_bad_agg_raises():
     x, base, alpha, w = _case("spatial", 3, 5, 4)
     with pytest.raises(ValueError):
         tops.dstd_spatial(*_torch_args(x, base, alpha, w), None, "middle")
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", [op.name for op in tfused._KERNELS])
+def test_every_kernel_variant_names_its_shared_memory_function(kernel,
+                                                               variant):
+    """The tile searches read a block's shared memory through
+    ``build.SMEM_BYTES``: every variant of every wrapper has an entry, and
+    it names a function its library declares (loading binds each one)."""
+    from dstdgcn_tpu_torch.kernels import build
+    lib = "dstd_chain" if kernel == "dstd_encoder_chain" else kernel
+    assert build.SMEM_BYTES[kernel, variant] in build.SIGNATURES[lib]

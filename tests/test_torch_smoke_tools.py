@@ -7,11 +7,16 @@ tensor-core ``HMMA`` instructions per function from ``cuobjdump -sass``
 of a backward call's four launches from ``torch.profiler`` keys
 (``bwd_split``).  These tests feed them listings in the tools' formats.  The
 bf16 train step's judgement (``step_verdict``) is held on made-up distances.
+The removal variants of ``fwd_variants.py`` (a kernel's split by phase) must
+each apply to this checkout's CUDA sources.
 """
+
+import os
 
 import pytest
 
 import chip_smoke as cs
+import fwd_variants
 
 SASS = """
 \tcode for sm_90a
@@ -179,3 +184,16 @@ def test_step_verdict_holds_each_group_to_the_plain_paths_noise(errs,
         sum(errs[n][3] for n in gates) / 2)
     assert verdict["gates"][3] == "encoder_0.block.alpha_sm"
     assert verdict["others"][3] == "encoder_0.block.spatial.wf"
+
+
+@pytest.mark.parametrize("name", sorted(fwd_variants.VARIANTS))
+def test_fwd_variants_each_remove_their_phase_from_this_checkout(name,
+                                                                 tmp_path):
+    """Each variant's substitutions match this checkout's sources exactly
+    once (``make`` exits otherwise) and change them."""
+    root = os.path.dirname(os.path.abspath(fwd_variants.__file__))
+    dst = fwd_variants.make(root, str(tmp_path), name)
+    for rel, old, new in fwd_variants.VARIANTS[name]:
+        with open(os.path.join(dst, rel)) as f:
+            text = f.read()
+        assert text.count(new) == 1 and old != new
