@@ -6,6 +6,7 @@ forward) kernels on one NVIDIA GPU, for the A/B of kernel versions.
                            [--modes temporal,spatial] [--dtype D]
                            [--tile K] [--forward] [--chain [--layers L]]
                            [--chain-grad [--draws D]]
+                           [--autograd-draws D]
                            [--cases MODE [--fault F]] [--build-only]
 
 For the kernels of the port in ``--tree`` (default: this checkout; another
@@ -63,7 +64,7 @@ the same to the forward kernel's output (only that pass then runs, at
 either dtype): a broken kernel the card test must refuse.  ``--cases
 encoder`` runs the card tests' bf16 encoder-chain cases the same way
 (``test_bf16_chain_kernels_match_plain`` at the encoder,
-``BF16_ENCODER_EDGES``, through ``_bf16_chain_case``), an ``out_*`` fault
+``ENCODER_EDGES``, through ``_bf16_chain_case``), an ``out_*`` fault
 applied to the kernel's output.
 
 With ``--chain-grad`` the float32 chain-gradient card test
@@ -79,6 +80,12 @@ max(|.|, 1): past 1 is past the bound), whether the card test's rule
 (``_held``, the plain run on the card only) holds every gradient, and
 (the kernels) whether a second call gives the same bits; the last line
 counts the draws past the bound under each rule.
+
+With ``--autograd-draws D`` the bf16 autograd card test
+(``test_bf16_autograd_through_the_kernels``) runs D times for each op in
+one process, each run on a new cotangent from torch's global generator
+as the test draws it; the last line per op counts the runs that failed
+and gives the first failures' messages.
 
 Writes ``OUT_DIR/bwd_profile_<label>.jsonl`` (one line per check, one per
 op's sum) and prints the same lines.  ``--build-only`` builds the
@@ -126,6 +133,7 @@ def main():
     ap.add_argument("--layers", type=int, default=5)
     ap.add_argument("--chain-grad", action="store_true")
     ap.add_argument("--draws", type=int, default=100)
+    ap.add_argument("--autograd-draws", type=int, default=0)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -150,6 +158,9 @@ def main():
     # forward bodies of csrc/dstd_common.cuh
     if args.chain or args.cases == "encoder":
         libs = ["dstd_chain"]
+    elif args.autograd_draws:
+        libs = ["dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
+                "dstd_temporal_bwd"]
     elif args.chain_grad:
         libs = ["dstd_chain", "dstd_spatial", "dstd_temporal",
                 "dstd_spatial_bwd", "dstd_temporal_bwd"]
@@ -192,6 +203,10 @@ def main():
         out.close()
         return 0
 
+    if args.autograd_draws:
+        run_autograd_draws(torch, args.autograd_draws, emit)
+        out.close()
+        return 0
     if args.chain_grad:
         run_chain_grad(torch, fused, args.draws, emit)
         out.close()
@@ -397,6 +412,22 @@ def run_chain(torch, cs, fused, dtype, n, layers, emit):
         emit("check", line)
 
 
+def run_autograd_draws(torch, draws, emit):
+    """The bf16 autograd card test ``draws`` times for each op, each run
+    on a new cotangent from the global generator (module docstring)."""
+    ct = card_tests()
+    device = torch.device("cuda")
+    for mode in ("temporal", "spatial"):
+        failed = []
+        for _ in range(draws):
+            try:
+                ct.test_bf16_autograd_through_the_kernels(device, mode)
+            except AssertionError as err:
+                failed.append(str(err).split("\n")[0][:80])
+        emit("sum", dict(mode=mode, draws=draws, failed=len(failed),
+                         messages=failed[:5]))
+
+
 def run_chain_grad(torch, fused, draws, emit):
     """The card test's float32 chain gradient over seeded draws, for the
     kernels and with the plain forward or the plain backward in their
@@ -500,7 +531,7 @@ def run_cases(torch, fused, which, dtype, fault, emit):
 
 def run_chain_cases(torch, fused, ct, fault, emit):
     """The card tests' bf16 encoder-chain cases (N = 1 and 128 at the H36M
-    shape, then ``BF16_ENCODER_EDGES``), both aggregations, with an
+    shape, then ``ENCODER_EDGES``), both aggregations, with an
     ``out_*`` fault applied to the kernel's output after each call."""
     kernel = fused.dstd_encoder_chain
     call = None
@@ -508,7 +539,7 @@ def run_chain_cases(torch, fused, ct, fault, emit):
         def call(*a, **k):
             return FAULTS[fault](kernel(*a, **k))
     device = torch.device("cuda")
-    shapes = [(n, 35, 22, 64) for n in (1, 128)] + ct.BF16_ENCODER_EDGES
+    shapes = [(n, 35, 22, 64) for n in (1, 128)] + ct.ENCODER_EDGES
     for shape in shapes:
         for agg in ("right", "left"):
             out, same = ct._bf16_chain_case(True, agg, *shape, device, call)

@@ -19,9 +19,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    some in passes 2 and 3 of every backward kernel (bf16 ``mma.sync`` in
    5b and 6b, 3xTF32 in 5 and 6: ``MMA_FUNCTIONS``), in the spatial
    forward kernel (3xTF32 in 1, bf16 in 1b), the bf16 temporal one (2b)
-   and the bf16 encoder chain (4b: ``MMA_FORWARD``), none in the q/k and
-   reduction launches, the float32 temporal forward kernel (2) or the
-   other chain kernels (3, 3b, 4);
+   and both encoder chains (3xTF32 in 4, bf16 in 4b: ``MMA_FORWARD``),
+   none in the q/k and reduction launches, the float32 temporal forward
+   kernel (2) or the chain kernels (3, 3b);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -295,19 +295,18 @@ MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 #: the forward functions that run every product but q/k on the tensor
 #: cores in the body of ``csrc/dstd_fwd_mma.cuh``: the spatial kernel in
 #: both dtypes (1 on 3xTF32, 1b on bf16 ``mma.sync``), the bf16 temporal
-#: kernel (2b) and the bf16 encoder chain (4b, ``chain_kernel<TILE,
-#: kEncoder, Rnd>``); the float32 temporal kernel (2) and the other chain
-#: kernels (3, 3b, 4) keep the CUDA-core bodies of ``csrc/dstd_common.cuh``
+#: kernel (2b) and the encoder chain in both (4 on 3xTF32, 4b on bf16:
+#: ``chain_kernel<TILE, kEncoder, Rnd>`` with kEncoder true); the float32
+#: temporal kernel (2) and the chain kernels (3, 3b) keep the CUDA-core
+#: bodies of ``csrc/dstd_common.cuh``
 MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<",
                "chain_kernel<")
 
 
 def _mma_forward(function):
-    if function.startswith("spatial_kernel<"):
-        return True
     if function.startswith("temporal_kernel<"):
         return function.endswith(", dstd::Bf16>")
-    return function.endswith(", true, dstd::Bf16>")
+    return not function.startswith("chain_kernel<") or ", true, " in function
 
 
 #: the libraries whose SASS phase 2 reads

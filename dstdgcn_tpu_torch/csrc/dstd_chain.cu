@@ -33,16 +33,18 @@
 // rank r owns output frames [r*ts, r*ts + ts), in a temporal op output
 // joints [r*tt, r*tt + tt), ts = ceil(T / size) and tt = ceil(V / size)
 // both <= TILE (at V=22, tt=4: rank 6 owns no joint, yet forms its share
-// of the scores and meets every barrier).  The bf16 encoder
-// (dstd_encoder_chain_bf16) runs each op through the tensor-core body
-// dstd_fwd::op_mma (dstd_fwd_mma.cuh, the body of the bf16 one-op
-// kernels, at the chain's cluster): the layer's float32 activation
-// rounded to bf16 where it is staged (the contract's rounding point), the
-// feature projection, mixing and aggregation on bf16 mma.sync, each score
-// formed once per sample, the epilogue below as its store.  The other
-// three variants keep the CUDA-core bodies dstd::spatial_op and
-// dstd::temporal_op (dstd_common.cuh).  In both the q/k projections are
-// split over the cluster and exchanged through distributed shared memory.
+// of the scores and meets every barrier).  The encoder, in both variants,
+// runs each op through the tensor-core body dstd_fwd::op_mma
+// (dstd_fwd_mma.cuh, the body of the one-op forward kernels, at the
+// chain's cluster), each score formed once per sample, the epilogue below
+// as its store: dstd_encoder_chain_bf16 on bf16 mma.sync, the layer's
+// float32 activation rounded to bf16 where it is staged (the contract's
+// rounding point); dstd_encoder_chain_f32 on 3xTF32 (float32-accurate,
+// each depth step summed in a zeroed accumulator) in the body's float32
+// order and layout.  The chain kernels dstd_chain_{f32,bf16} keep the
+// CUDA-core bodies dstd::spatial_op and dstd::temporal_op
+// (dstd_common.cuh).  In all of them the q/k projections are split over
+// the cluster and exchanged through distributed shared memory.
 //
 // Where the activation lives between ops.  Every op couples the whole
 // sample (the spatial op mixes all frames' scores, the temporal op all
@@ -69,15 +71,15 @@
 // the other blocks' rows with ld.global.cg (at L2, never a stale L1 line).
 // The barrier also orders the reuse of each block's shared memory.
 //
-// Occupancy: about 107 KB of shared memory per block (the bf16 encoder's
-// tensor-core layout 106 KB) and at most 64 registers a thread
-// (__launch_bounds__(512, 2); left free the compiler takes 128, one block
-// per SM, and a batch-32 call then runs in two waves), so two blocks per
-// SM: a batch-32 call is 32 clusters of 7 blocks (224 blocks on 132 SMs),
-// a batch-1 call one cluster.  The CUDA-core variants spill under the cap
-// (ptxas -v at tile 5: 156-188 bytes stored): plain float32 FMA, the bf16
-// chain rounding each contraction operand where the op bodies load or
-// store it.
+// Occupancy: at T=35, V=22, C=64 about 107 KB of shared memory per block
+// (the encoders' tensor-core layouts 106 KB at bf16, 101 KB at float32)
+// and at most 64 registers a thread (__launch_bounds__(512, 2); left free
+// the compiler takes 128, one block per SM, and a batch-32 call then runs
+// in two waves), so two blocks per SM: a batch-32 call is 32 clusters of 7
+// blocks (224 blocks on 132 SMs), a batch-1 call one cluster.  Every
+// variant spills under the cap (ptxas -v, PERF.md): the chain kernels'
+// CUDA-core bodies are plain float32 FMA, the bf16 chain rounding each
+// contraction operand where the op bodies load or store it.
 #include <type_traits>
 
 #include "dstd_common.cuh"
@@ -150,20 +152,6 @@ struct LayerStore {
     const float y = kAffineFirst ? acc * s + h + r : (acc + r) * s + h;
     return y >= 0.f ? y : slope * y;
   }
-  __device__ void put4(int row, int v, int c4, const float4& acc) const {
-    const size_t o = (size_t)row * Co + 4 * c4;
-    const float4 r = __ldcg(reinterpret_cast<const float4*>(res + o));
-    const float4 s =
-        __ldg(reinterpret_cast<const float4*>(scale + v * Co) + c4);
-    const float4 h =
-        __ldg(reinterpret_cast<const float4*>(shift + v * Co) + c4);
-    float4 y;
-    y.x = act(acc.x, r.x, s.x, h.x);
-    y.y = act(acc.y, r.y, s.y, h.y);
-    y.z = act(acc.z, r.z, s.z, h.z);
-    y.w = act(acc.w, r.w, s.w, h.w);
-    *reinterpret_cast<float4*>(out + o) = y;
-  }
   __device__ void put(int row, int v, int c, float acc) const {
     const size_t o = (size_t)row * Co + c;
     out[o] = act(acc, __ldcg(res + o), __ldg(scale + v * Co + c),
@@ -193,11 +181,12 @@ __device__ inline void publish() {
   cg::this_cluster().sync();
 }
 
-// Whether a chain instantiation runs its ops on the tensor-core body
-// (dstd_fwd_mma.cuh): the bf16 encoder; the others keep the CUDA-core op
-// bodies of dstd_common.cuh.
-template <bool kEncoder, typename Rnd>
-constexpr bool kMma = kEncoder && std::is_same_v<Rnd, dstd::Bf16>;
+// The tensor-core products of an encoder's ops: bf16 mma.sync at Bf16,
+// 3xTF32 at Exact (the chain kernels keep the CUDA-core op bodies of
+// dstd_common.cuh).
+template <typename Rnd>
+using MmaOf = std::conditional_t<std::is_same_v<Rnd, dstd::Bf16>,
+                                 dstd_mma::Bf16Mma, dstd_mma::Tf32x3Mma>;
 
 template <int TILE, bool kEncoder, typename Rnd>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -218,29 +207,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       const size_t VC = (size_t)c.V * c.C;
       const float* a1 = c.aff1 + 2 * l * VC;
       const float* a2 = c.aff2 + 2 * l * VC;
-      if constexpr (kMma<kEncoder, Rnd>) {
-        const int nblk = (int)cg::this_cluster().num_blocks();
-        char* bytes = reinterpret_cast<char*>(smem4);
-        dstd_fwd::op_mma<true, dstd_mma::Bf16Mma, true>(
-            sa, bytes, n, t0, tn, c.ts, nblk,
-            LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
-                             __ldg(c.prelu + 2 * l), c.C});
-        publish();
-        dstd_fwd::op_mma<false, dstd_mma::Bf16Mma, true>(
-            ta, bytes, n, w0, wn, c.tt, nblk,
-            LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
-                              __ldg(c.prelu + 2 * l + 1), c.C});
-      } else {
-        dstd::spatial_op<TILE, true, Rnd>(
-            sa, smem, n, t0, tn,
-            LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
-                             __ldg(c.prelu + 2 * l), c.C});
-        publish();
-        dstd::temporal_op<TILE, true, Rnd>(
-            ta, smem, n, w0, wn,
-            LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
-                              __ldg(c.prelu + 2 * l + 1), c.C});
-      }
+      const int nblk = (int)cg::this_cluster().num_blocks();
+      char* bytes = reinterpret_cast<char*>(smem4);
+      dstd_fwd::op_mma<true, MmaOf<Rnd>, true>(
+          sa, bytes, n, t0, tn, c.ts, nblk,
+          LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
+                           __ldg(c.prelu + 2 * l), c.C});
+      publish();
+      dstd_fwd::op_mma<false, MmaOf<Rnd>, true>(
+          ta, bytes, n, w0, wn, c.tt, nblk,
+          LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
+                            __ldg(c.prelu + 2 * l + 1), c.C});
     } else {
       dstd::spatial_op<TILE, true, Rnd>(sa, smem, n, t0, tn,
                                         dstd::PlainStore{c.mid + sample, c.C});
@@ -260,16 +237,17 @@ long long smem_floats(int T, int V, int C, int Ks, int Kt, int R, int tile) {
 }
 
 // The tensor-core body's shared memory, in bytes, for the chain's cluster
-// of ceil(max(T, V) / tile) blocks: the larger of its two ops' layouts,
-// each at the share of output indices one rank owns.
+// of ceil(max(T, V) / tile) blocks in the element kind's layout (f32:
+// 3xTF32): the larger of its two ops' layouts, each at the share of output
+// indices one rank owns.
 long long mma_smem_bytes(int T, int V, int C, int Ks, int Kt, int R,
-                         int tile) {
+                         int tile, bool f32) {
   const int nblk = ((T > V ? T : V) + tile - 1) / tile;
   const int ts = (T + nblk - 1) / nblk, tt = (V + nblk - 1) / nblk;
   const long long s =
-      dstd_fwd::FwdLayout(true, T, V, C, C, Ks, R, ts, nblk, false).total;
+      dstd_fwd::FwdLayout(true, T, V, C, C, Ks, R, ts, nblk, f32).total;
   const long long t =
-      dstd_fwd::FwdLayout(false, T, V, C, C, Kt, R, tt, nblk, false).total;
+      dstd_fwd::FwdLayout(false, T, V, C, C, Kt, R, tt, nblk, f32).total;
   return s > t ? s : t;
 }
 
@@ -286,10 +264,10 @@ cudaError_t launch(ChainArgs c, int N, int tile, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t bytes =
-      kMma<kEncoder, Rnd>
-          ? (size_t)mma_smem_bytes(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile)
-          : (size_t)smem_floats(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile) *
-                sizeof(float);
+      kEncoder ? (size_t)mma_smem_bytes(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile,
+                                        !std::is_same_v<Rnd, dstd::Bf16>)
+               : (size_t)smem_floats(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile) *
+                     sizeof(float);
   switch (tile) {
 #define DSTD_CHAIN_CASE(TL)                                                 \
   case TL:                                                                  \
@@ -344,16 +322,21 @@ int run_chain(const float* x, const float* const* w, const float* aff1,
 extern "C" {
 
 // Shared memory of one block at (T, V, C, Ks, Kt, R, tile), in bytes: the
-// CUDA-core bodies' (every variant but the bf16 encoder), then the bf16
-// encoder's.
+// chain kernels' CUDA-core bodies (both variants), then the float32 and the
+// bf16 encoder's tensor-core body.
 long long dstd_chain_smem_bytes(int T, int V, int C, int Ks, int Kt, int R,
                                 int tile) {
   return smem_floats(T, V, C, Ks, Kt, R, tile) * (long long)sizeof(float);
 }
 
+long long dstd_encoder_chain_f32_smem_bytes(int T, int V, int C, int Ks,
+                                            int Kt, int R, int tile) {
+  return mma_smem_bytes(T, V, C, Ks, Kt, R, tile, true);
+}
+
 long long dstd_encoder_chain_bf16_smem_bytes(int T, int V, int C, int Ks,
                                              int Kt, int R, int tile) {
-  return mma_smem_bytes(T, V, C, Ks, Kt, R, tile);
+  return mma_smem_bytes(T, V, C, Ks, Kt, R, tile, false);
 }
 
 const char* dstd_error_string(int err) {

@@ -1,10 +1,11 @@
 // The DSTD-GC forward op on Hopper's tensor cores, one body templated on
 // the element kind of its products: 3xTF32 (dstd_mma::Tf32x3Mma) for the
-// float32 spatial kernel dstd_spatial_f32, bf16 (dstd_mma::Bf16Mma) for
+// float32 spatial kernel dstd_spatial_f32 and the ten ops of
+// dstd_encoder_chain_f32 (dstd_chain.cu), bf16 (dstd_mma::Bf16Mma) for
 // dstd_spatial_bf16, dstd_temporal_bf16 and the ten ops of
-// dstd_encoder_chain_bf16 (dstd_chain.cu).  The float32 temporal kernel
-// and the chain kernels dstd_chain_{f32,bf16} and dstd_encoder_chain_f32
-// keep the CUDA-core bodies of dstd_common.cuh.
+// dstd_encoder_chain_bf16.  The float32 temporal kernel and the chain
+// kernels dstd_chain_{f32,bf16} keep the CUDA-core bodies of
+// dstd_common.cuh.
 //
 // Contract: dstdgcn_tpu_torch/ops/dstd.py::kernel_spatial / kernel_temporal
 // with the kernel's dtype.  At bf16, the TPU kernels' compute dtype, the

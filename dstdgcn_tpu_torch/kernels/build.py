@@ -92,10 +92,12 @@ SIGNATURES = {
         **{f"dstd_encoder_chain_{v}": ([_PTR, _PTRS] + [_PTR] * 5
                                        + [_INT] * 11 + [_PTR], ctypes.c_int)
            for v in ("f32", "bf16")},
-        # (T, V, C, Ks, Kt, R, tile): the CUDA-core bodies', and the bf16
-        # encoder's (its tensor-core body has a layout of its own)
+        # (T, V, C, Ks, Kt, R, tile): the chain kernels' CUDA-core bodies,
+        # and each encoder's (its tensor-core body has a layout of its own
+        # in each element kind)
         "dstd_chain_smem_bytes": ([_INT] * 7, _SIZE),
-        "dstd_encoder_chain_bf16_smem_bytes": ([_INT] * 7, _SIZE),
+        **{f"dstd_encoder_chain_{v}_smem_bytes": ([_INT] * 7, _SIZE)
+           for v in ("f32", "bf16")},
     },
     "block_sparse": {
         # (adj, x, row_ptr, cols, out, N, V, Vj, C, block, device, stream)
@@ -123,8 +125,8 @@ SMEM_BYTES = {
        for op in ("dstd_spatial_bwd", "dstd_temporal_bwd")},
     ("dstd_chain", "f32"): "dstd_chain_smem_bytes",
     ("dstd_chain", "bf16"): "dstd_chain_smem_bytes",
-    ("dstd_encoder_chain", "f32"): "dstd_chain_smem_bytes",
-    ("dstd_encoder_chain", "bf16"): "dstd_encoder_chain_bf16_smem_bytes",
+    **{("dstd_encoder_chain", v): f"dstd_encoder_chain_{v}_smem_bytes"
+       for v in ("f32", "bf16")},
 }
 
 

@@ -14,8 +14,8 @@ the tree it came from; the difference of two times is the removed phase's.
 
 Variants of the CUDA-core op body ``dstd::spatial_op``
 (``csrc/dstd_common.cuh``), the spatial body of the chain kernels
-``dstd_chain_{f32,bf16}`` and ``dstd_encoder_chain_f32`` (and of the
-float32 spatial kernel before its tensor-core redesign):
+``dstd_chain_{f32,bf16}`` (and of the float32 spatial kernel and the
+float32 encoder before their tensor-core redesigns):
 
 - ``notanh``: the score is q - k, no ``tanhf``;
 - ``nomix``: one add per score instead of the mixing FMAs of the tile;
@@ -24,13 +24,18 @@ float32 spatial kernel before its tensor-core redesign):
 - ``noagg``: no aggregation;
 - ``qkonly``: the last three removed (staging, q/k, syncs remain).
 
+The same six of the CUDA-core temporal body ``dstd::temporal_op`` (the
+body of the float32 temporal kernel and the temporal body of the chain
+kernels ``dstd_chain_{f32,bf16}``, and of the float32 encoder before its
+tensor-core redesign), named with a ``_t``: ``notanh_t``, ``nomix_t``,
+``noadj_t``, ``nofeat_t``, ``noagg_t``, ``qkonly_t``.
+
 Variants of the whole-encoder kernel (``csrc/dstd_chain.cu``, the encoder
-instantiations ``chain_kernel<*, true, *>``): ``nospatial`` and
-``notemporal`` skip that op in every layer (its output buffer is then
-left as it was) in the CUDA-core bodies of the float32 encoder;
-``nospatial_mma`` and ``notemporal_mma`` do the same in the bf16
-encoder's tensor-core body (``dstd_fwd::op_mma``).  Variants change what the kernel computes: their
-errors mean nothing, only their times.
+instantiations ``chain_kernel<*, true, *>``, both dtypes):
+``nospatial_mma`` and ``notemporal_mma`` skip that op's tensor-core body
+(``dstd_fwd::op_mma``) in every layer (its output buffer is then left as
+it was).  Variants change what the kernel computes: their errors mean
+nothing, only their times.
 """
 
 import argparse
@@ -59,14 +64,23 @@ _AGG4 = """    for (int i = threadIdx.x; i < rows * C4; i += blockDim.x) {
 _AGG1 = """    for (int i = threadIdx.x; i < rows * Co; i += blockDim.x) {
       const int row = i / Co, c = i - row * Co;
       const int tt = row / V, av = row - tt * V;"""
-# the encoder's op calls in chain_kernel (the CUDA-core bodies, then the
-# bf16 encoder's tensor-core body)
-_ENC_SPATIAL = ("dstd::spatial_op<TILE, true, Rnd>(\n"
-                "            sa, smem, n, t0, tn,\n            LayerStore")
-_ENC_TEMPORAL = ("dstd::temporal_op<TILE, true, Rnd>(\n"
-                 "            ta, smem, n, w0, wn,\n            LayerStore")
-_MMA_SPATIAL = "dstd_fwd::op_mma<true, dstd_mma::Bf16Mma, true>("
-_MMA_TEMPORAL = "dstd_fwd::op_mma<false, dstd_mma::Bf16Mma, true>("
+# the same phases of the CUDA-core temporal body dstd::temporal_op
+_TANH_T = "const float sc = Rnd::r(tanhf(qr[v * T] - kr[v * T]));"
+_MIX_T = _MIX.replace("qr[s * V] - kr[s * V]", "qr[v * T] - kr[v * T]") \
+    .replace("wm[s * (TP / 4) + q]", "wm[v * (TP / 4) + q]")
+_ADJ_T = "for (int p = threadIdx.x; wn > 0 && p < K * TT; p += blockDim.x) {"
+_FEAT_T = """  project_features<kCoherent, Rnd>(
+      a, xn, xf, rows, T * TILE * Co,"""
+_AGG4_T = """    for (int i = threadIdx.x; i < rows * C4; i += blockDim.x) {
+      const int row = i / C4, c4 = i - row * C4;
+      const int at = row / wn, j = row - at * wn;"""
+_AGG1_T = """    for (int i = threadIdx.x; i < rows * Co; i += blockDim.x) {
+      const int row = i / Co, c = i - row * Co;
+      const int at = row / wn, j = row - at * wn;"""
+# the encoder's op calls in chain_kernel (the tensor-core body of both
+# dtypes)
+_MMA_SPATIAL = "dstd_fwd::op_mma<true, MmaOf<Rnd>, true>("
+_MMA_TEMPORAL = "dstd_fwd::op_mma<false, MmaOf<Rnd>, true>("
 _COMMON = "dstdgcn_tpu_torch/csrc/dstd_common.cuh"
 _CHAIN = "dstdgcn_tpu_torch/csrc/dstd_chain.cu"
 
@@ -82,6 +96,10 @@ _REMOVE = {
     "nofeat": [(_COMMON, _FEAT, "  if (false)\n" + _FEAT)],
     "noagg": [(_COMMON, _AGG4, _off(_AGG4)),
               (_COMMON, _AGG1, _off(_AGG1))],
+    "noadj_t": [(_COMMON, _ADJ_T, _off(_ADJ_T))],
+    "nofeat_t": [(_COMMON, _FEAT_T, "  if (false)\n" + _FEAT_T)],
+    "noagg_t": [(_COMMON, _AGG4_T, _off(_AGG4_T)),
+                (_COMMON, _AGG1_T, _off(_AGG1_T))],
 }
 #: variant -> [(file, text, replacement)]
 VARIANTS = {
@@ -90,8 +108,11 @@ VARIANTS = {
     **_REMOVE,
     "qkonly": [edit for name in ("noadj", "nofeat", "noagg")
                for edit in _REMOVE[name]],
-    "nospatial": [(_CHAIN, _ENC_SPATIAL, "if (false) " + _ENC_SPATIAL)],
-    "notemporal": [(_CHAIN, _ENC_TEMPORAL, "if (false) " + _ENC_TEMPORAL)],
+    "notanh_t": [(_COMMON, _TANH_T, _TANH_T.replace("tanhf(", "("))],
+    "nomix_t": [(_COMMON, _MIX_T,
+                 _MIX_T.split("\n")[0] + "\n        acc[0] += sc;")],
+    "qkonly_t": [edit for name in ("noadj_t", "nofeat_t", "noagg_t")
+                 for edit in _REMOVE[name]],
     "nospatial_mma": [(_CHAIN, _MMA_SPATIAL, "if (false) " + _MMA_SPATIAL)],
     "notemporal_mma": [(_CHAIN, _MMA_TEMPORAL,
                         "if (false) " + _MMA_TEMPORAL)],

@@ -491,12 +491,13 @@ CHAIN_SHAPES = [(32, 35, 64), (1, 35, 64), (3, 35, 64), (3, 8, 64),
                 (2, 10, 6)]
 
 
-@pytest.mark.parametrize("n,t,c", CHAIN_SHAPES)
-@pytest.mark.parametrize("agg", ["right", "left"])
-def test_encoder_chain_kernel_matches_plain(cuda, n, t, c, agg):
-    layers = _chain_layers(5, t, 22, c, cuda, encoder=True)
-    x = torch.randn(n, t, 22, c, device=cuda,
-                    generator=torch.Generator(cuda).manual_seed(n))
+def _encoder_case(agg, n, t, v, c, device):
+    """The float32 encoder kernel (5 seeded layers; x seeded by n) at
+    (N, T, V, C): two launches, the same bits, within 1e-4 of max(|plain|,
+    1) of ``_encoder_oracle``."""
+    layers = _chain_layers(5, t, v, c, device, encoder=True)
+    x = torch.randn(n, t, v, c, device=device,
+                    generator=torch.Generator(device).manual_seed(n))
     kernel = fused.dstd_encoder_chain
     before = kernel.launches
     with torch.no_grad():
@@ -506,6 +507,12 @@ def test_encoder_chain_kernel_matches_plain(cuda, n, t, c, agg):
     assert kernel.launches == before + 2
     assert torch.equal(got, again)
     _assert_chain_close(got, fused._encoder_oracle(x, layers, agg))
+
+
+@pytest.mark.parametrize("n,t,c", CHAIN_SHAPES)
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_encoder_chain_kernel_matches_plain(cuda, n, t, c, agg):
+    _encoder_case(agg, n, t, 22, c, cuda)
 
 
 @pytest.mark.parametrize("n,t,c", CHAIN_SHAPES)
@@ -657,20 +664,27 @@ def test_bf16_chain_kernels_match_plain(cuda, encoder, agg, n):
     assert all(err <= frac * gap for err, gap, frac in out.values()), out
 
 
-#: (N, T, V, C) of the bf16 encoder kernel's cluster edges: the cluster is
-#: ceil(T / tile) = 7 blocks at T = 35, and the temporal op's tiles of
-#: ceil(V / 7) = 4 joints leave rank 6 without output joints at V = 22 and
-#: with one at V = 25 (the CMU joints), where ceil(V / tile) = 5 differs
-#: from the cluster
-BF16_ENCODER_EDGES = [(3, 35, 22, 64), (3, 35, 25, 64)]
+#: (N, T, V, C) of the encoder kernels' cluster edges (both dtypes): the
+#: cluster is ceil(T / tile) = 7 blocks at T = 35, and the temporal op's
+#: tiles of ceil(V / 7) = 4 joints leave rank 6 without output joints at
+#: V = 22 and with one at V = 25 (the CMU joints), where ceil(V / tile) = 5
+#: differs from the cluster
+ENCODER_EDGES = [(3, 35, 22, 64), (3, 35, 25, 64)]
 
 
-@pytest.mark.parametrize("n,t,v,c", BF16_ENCODER_EDGES)
+@pytest.mark.parametrize("n,t,v,c", ENCODER_EDGES)
 @pytest.mark.parametrize("agg", ["right", "left"])
 def test_bf16_encoder_chain_kernel_at_cluster_edges(cuda, agg, n, t, v, c):
     out, same = _bf16_chain_case(True, agg, n, t, v, c, cuda)
     assert same
     assert all(err <= frac * gap for err, gap, frac in out.values()), out
+
+
+@pytest.mark.parametrize("n,t,v,c", ENCODER_EDGES)
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_float32_encoder_chain_kernel_at_cluster_edges(cuda, agg, n, t, v,
+                                                       c):
+    _encoder_case(agg, n, t, v, c, cuda)
 
 
 @pytest.mark.parametrize("agg", ["right", "left"])

@@ -55,9 +55,9 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("dstd_bwd::qk_kernel<true, dstd::Exact>", False),
     ("dstd_bwd::reduce_kernel<false>", False),
     ("dstd_bwd::reduce_kernel<true>", False),
-    # the forward kernels: the spatial one in both dtypes, the bf16
-    # temporal one and the bf16 encoder chain on the tensor cores; the
-    # float32 temporal one and the other chain kernels on the CUDA cores
+    # the forward kernels: the spatial one and the encoder chain in both
+    # dtypes and the bf16 temporal one on the tensor cores; the float32
+    # temporal one and the chain kernels on the CUDA cores
     ("spatial_kernel<5, dstd::Bf16>", True),
     ("spatial_kernel<1, dstd::Bf16>", True),
     ("temporal_kernel<6, dstd::Bf16>", True),
@@ -71,7 +71,7 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("chain_kernel<5, true, dstd::Bf16>", True),
     ("chain_kernel<1, true, dstd::Bf16>", True),
     ("chain_kernel<8, true, dstd::Bf16>", True),
-    ("chain_kernel<5, true, dstd::Exact>", False),
+    ("chain_kernel<5, true, dstd::Exact>", True),
     ("chain_kernel<5, false, dstd::Exact>", False),
 ])
 def test_uses_mma_names_the_bf16_out_and_src_passes_of_both_ops(function,

@@ -1,6 +1,6 @@
 """The numerics of the float32 kernels' tensor-core products
-(``dstdgcn_tpu_torch/csrc/dstd_mma.cuh::Tf32x3Mma``: the backward kernels
-and the spatial forward kernel), emulated in numpy.
+(``dstdgcn_tpu_torch/csrc/dstd_mma.cuh::Tf32x3Mma``: the backward kernels,
+the spatial forward kernel and the float32 encoder), emulated in numpy.
 
 A TF32 operand keeps 10 mantissa bits.  3xTF32 splits each operand x into
 big = tf32(x), rounded to nearest with ties away from zero (the rounding
@@ -13,8 +13,11 @@ factor of float32's own distance from float64, while a single TF32 pass
 lies beyond the 1e-4 of max(|g|, 1) that the float32 kernels are held to.
 That is why the float32 kernels use three passes and not one.  The
 forward's depths: K V = 44 (the spatial aggregation, two 22-deep sums
-into one accumulator), Ci = 64 (the feature projection) and R T = 70 (the
-spatial mixing).
+into one accumulator; the encoder's temporal mixing R V over the 22 H36M
+joints), Ci = 64 (the feature projection), R T = 70 (the spatial mixing),
+T = 35 and 40 (sums over the frames of the card tests' sequences: the
+encoder's temporal aggregation, the temporal backward's dA and dxf) and
+R V = 50 (the temporal mixing over the 25 CMU joints).
 """
 
 import numpy as np
@@ -24,11 +27,11 @@ import pytest
 #: (tests/test_torch_cuda.py, chip_smoke.py ``TOL``)
 F32_TOL = 1e-4
 #: 3xTF32 against float32's own distance to float64: measured 0.76x,
-#: 0.81x, 0.42x, 0.77x and 0.69x at depths 22, 44, 64, 70 and 1225 (fewer
-#: float32 roundings, one per step of 8 and pass, than the CUDA cores'
-#: sequential sum)
+#: 0.39x, 1.02x, 0.81x, 0.69x, 0.42x, 0.77x and 0.69x at depths 22, 35,
+#: 40, 44, 50, 64, 70 and 1225 (fewer float32 roundings, one per step of 8
+#: and pass, than the CUDA cores' sequential sum)
 X3_FACTOR = 2.0
-DEPTHS = (22, 44, 64, 70, 1225)
+DEPTHS = (22, 35, 40, 44, 50, 64, 70, 1225)
 
 
 def tf32(x):
