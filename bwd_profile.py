@@ -5,8 +5,10 @@ forward) kernels on one NVIDIA GPU, for the A/B of kernel versions.
     python3 bwd_profile.py OUT_DIR [--tree DIR] [--label L]
                            [--modes temporal,spatial] [--dtype D]
                            [--tile K] [--forward] [--chain [--layers L]]
-                           [--chain-grad [--draws D]]
-                           [--autograd-draws D]
+                           [--chain [encoder|chain]]
+                           [--chain-grad [--draws D | --card-seeds]
+                                         [--fault F]]
+                           [--autograd-draws D [--fault F]]
                            [--cases MODE [--fault F]] [--build-only]
 
 For the kernels of the port in ``--tree`` (default: this checkout; another
@@ -44,13 +46,16 @@ bf16) and, at bf16, the device ms of the casts around a call in the model
 and the output's cast to bf16); the last line per op sums the 7 calls.
 
 With ``--chain`` the whole-encoder kernel (``dstd_encoder_chain``, at
-bf16 ``dstd_encoder_chain_bf16``) instead, one launch a call at its fused
-slice's batch (N = 128 at bf16, 32 at float32) over ``--layers`` layers (default 5; seeded layers and x, the card tests'
+bf16 ``dstd_encoder_chain_bf16``) instead, or with ``--chain chain`` the
+chain kernel (``dstd_chain``, ``dstd_chain_bf16``), one launch a call at
+the fused slice's batch (N = 128 at bf16, 32 at float32) over
+``--layers`` layers (default 5; seeded layers and x, the card tests'
 ``_chain_layers``), T = 35, V = 22, C = 64, both aggregations: the ptxas
 and ``HMMA`` lines of the chain library, the error against its plain
-version (``_encoder_oracle`` with the dtype) over the peak |plain float32
-output| beside the bf16-versus-float32 gap, whether two calls give the
-same bits, and (agg right) the device ms of a call and its bound.
+version (``_encoder_oracle`` / ``_chain_oracle`` with the dtype) over the
+peak |plain float32 output| beside the bf16-versus-float32 gap, whether
+two calls give the same bits, and (agg right) the device ms of a call and
+its bound.
 
 With ``--cases MODE[:TILE]`` it runs instead the card tests' tile cases of
 that op at the dtype (``tests/test_torch_cuda.py::TILE_CASES``, at one
@@ -64,28 +69,40 @@ the same to the forward kernel's output (only that pass then runs, at
 either dtype): a broken kernel the card test must refuse.  ``--cases
 encoder`` runs the card tests' bf16 encoder-chain cases the same way
 (``test_bf16_chain_kernels_match_plain`` at the encoder,
-``ENCODER_EDGES``, through ``_bf16_chain_case``), an ``out_*`` fault
-applied to the kernel's output.
+``ENCODER_EDGES``, through ``_bf16_chain_case``, held by
+``chip_smoke.chain_held``), ``--cases chain`` those of ``dstd_chain``; an
+``out_*`` fault applied to the kernel's output, ``f32_chain`` the float32
+kernel called in the bf16 one's place (an error the size of the gap).
 
 With ``--chain-grad`` the float32 chain-gradient card test
 (``test_chain_gradient_replays_the_op_kernels``, through its
 ``_chain_grad_case``) over ``--draws`` seeded draws (seeds 1000, 1001,
-...), both aggregations, for three gradient paths: the kernels; the same
-with the plain forward ops (``ops/dstd.py``) in place of the forward
-kernels; the same with the plain backward (``ops/dstd_bwd.py``) in place
-of the backward kernels.  Per draw and path: the worst gradient's
-distance to the plain float32 chain and to the plain chain's float64
-run, and the plain chain's own distance to that run (each over 1e-4
-max(|.|, 1): past 1 is past the bound), whether the card test's rule
-(``_held``, the plain run on the card only) holds every gradient, and
-(the kernels) whether a second call gives the same bits; the last line
-counts the draws past the bound under each rule.
+...; with ``--card-seeds`` the card test's ``CHAIN_GRAD_SEEDS``), both
+aggregations, for three gradient paths: the kernels; the same with the
+plain forward ops (``ops/dstd.py``) in place of the forward kernels; the
+same with the plain backward (``ops/dstd_bwd.py``) in place of the
+backward kernels.  Per draw and path: the worst gradient's distance to
+the plain float32 chain and to the plain chain's float64 run, the plain
+chain's own distance to that run and the farthest of the rounded plain
+chains' (``chip_smoke.rounded_chain``; each over 1e-4 max(|.|, 1): past 1
+is past the bound), whether the rule of two orders (``_held`` over the
+plain run on the card only, the rule before F7's repair) and the card
+test's rule (``_held`` over the plain run and the rounded runs) hold
+every gradient, and (the kernels) whether a second call gives the same
+bits; the last line counts the draws past the bound and past each rule.
+``--fault out_1pc`` or ``out_joint0`` alters the forward kernels' output
+(both ops) after each call, and only the kernels' path runs: a broken
+forward the rule must refuse (an accuracy fault: ``--tree`` a
+``fwd_variants.py`` tree, ``tf32x1``).
 
 With ``--autograd-draws D`` the bf16 autograd card test
-(``test_bf16_autograd_through_the_kernels``) runs D times for each op in
-one process, each run on a new cotangent from torch's global generator
-as the test draws it; the last line per op counts the runs that failed
-and gives the first failures' messages.
+(``test_bf16_autograd_through_the_kernels``, through its
+``_bf16_autograd_case``) runs D times for each op in one process, on
+the cotangents of seeds 0 .. D - 1; the last line per op counts the runs
+that failed under the card test's rule (x's gradient by ``_held``) and
+under the rule before F6's repair (x's gradient within ``BF16_TOL``),
+and gives the first failures' numbers.  ``--fault dx_1pc`` or
+``dx_joint0`` alters the backward kernel's dx: every draw must fail.
 
 Writes ``OUT_DIR/bwd_profile_<label>.jsonl`` (one line per check, one per
 op's sum) and prints the same lines.  ``--build-only`` builds the
@@ -114,6 +131,9 @@ def _zero_joint0(t):
 #: each call
 FAULTS = {"dx_joint0": _zero_joint0, "dx_1pc": lambda t: t * 1.01,
           "out_joint0": _zero_joint0, "out_1pc": lambda t: t * 1.01}
+#: the bf16 chain cases' fault that is not an alteration of the output:
+#: the float32 kernel in the bf16 one's place
+F32_CHAIN = "f32_chain"
 
 
 def main():
@@ -127,12 +147,15 @@ def main():
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
     ap.add_argument("--tile", type=int, default=None)
-    ap.add_argument("--fault", default=None, choices=tuple(FAULTS))
+    ap.add_argument("--fault", default=None,
+                    choices=tuple(FAULTS) + (F32_CHAIN,))
     ap.add_argument("--forward", action="store_true")
-    ap.add_argument("--chain", action="store_true")
+    ap.add_argument("--chain", nargs="?", const="encoder", default=None,
+                    choices=("encoder", "chain"))
     ap.add_argument("--layers", type=int, default=5)
     ap.add_argument("--chain-grad", action="store_true")
     ap.add_argument("--draws", type=int, default=100)
+    ap.add_argument("--card-seeds", action="store_true")
     ap.add_argument("--autograd-draws", type=int, default=0)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -143,6 +166,8 @@ def main():
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    # the card tests import it: this checkout's, not the tree's
+    sys.modules["chip_smoke"] = cs
 
     import numpy as np
     import torch
@@ -156,7 +181,7 @@ def main():
              f"the port came from {dstdgcn_tpu_torch.__file__}, not {tree}")
     # the forward mode lists the chain kernels' SASS too: they share the
     # forward bodies of csrc/dstd_common.cuh
-    if args.chain or args.cases == "encoder":
+    if args.chain or args.cases in ("encoder", "chain"):
         libs = ["dstd_chain"]
     elif args.autograd_draws:
         libs = ["dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
@@ -204,17 +229,22 @@ def main():
         return 0
 
     if args.autograd_draws:
-        run_autograd_draws(torch, args.autograd_draws, emit)
+        run_autograd_draws(torch, fused, args.autograd_draws, args.fault,
+                           emit)
         out.close()
         return 0
     if args.chain_grad:
-        run_chain_grad(torch, fused, args.draws, emit)
+        ct = card_tests()
+        seeds = (ct.CHAIN_GRAD_SEEDS if args.card_seeds
+                 else range(1000, 1000 + args.draws))
+        run_chain_grad(torch, fused, ct, seeds, args.fault, emit)
         out.close()
         return 0
     f32 = args.dtype == "float32"
     if args.chain:
         run_chain(torch, cs, fused, None if f32 else torch.bfloat16,
-                  32 if f32 else 128, args.layers, emit)
+                  32 if f32 else 128, args.layers, args.chain == "encoder",
+                  emit)
         out.close()
         print(cs.nvidia_smi())
         return 0
@@ -370,24 +400,27 @@ def card_tests():
     return ct
 
 
-def run_chain(torch, cs, fused, dtype, n, layers, emit):
-    """The whole-encoder kernel at ``dtype`` over ``layers`` seeded layers
-    at batch ``n``, both aggregations: error against its plain version and
-    the bf16-versus-float32 gap, repeat, and (agg right) device ms."""
+def run_chain(torch, cs, fused, dtype, n, layers, encoder, emit):
+    """The whole-encoder kernel (``encoder``) or the chain kernel at
+    ``dtype`` over ``layers`` seeded layers at batch ``n``, both
+    aggregations: error against its plain version and the
+    bf16-versus-float32 gap, repeat, and (agg right) device ms."""
     ct = card_tests()
     device = torch.device("cuda")
     t, v, c = cs.T, cs.V, 64
-    given = ct._chain_layers(layers, t, v, c, device, encoder=True, seed=3)
+    given = ct._chain_layers(layers, t, v, c, device, encoder=encoder,
+                             seed=3)
     packed = fused.pack_chain(given)
     x = torch.randn(n, t, v, c, device=device,
                     generator=torch.Generator(device).manual_seed(n))
-    kernel = fused.dstd_encoder_chain
+    kernel = fused.dstd_encoder_chain if encoder else fused.dstd_chain
+    ref = fused._encoder_oracle if encoder else fused._chain_oracle
     for agg in ("right", "left"):
         with torch.no_grad():
             got = kernel(x, packed, agg, dtype)
             again = kernel(x, packed, agg, dtype)
-            want = fused._encoder_oracle(x, given, agg, dtype)
-            want32 = fused._encoder_oracle(x, given, agg)
+            want = ref(x, given, agg, dtype)
+            want32 = ref(x, given, agg)
         peak = float(want32.abs().max())
         err = float((got - want).abs().max()) / peak
         line = dict(kernel=kernel.name, dtype=str(dtype), n=n,
@@ -405,36 +438,55 @@ def run_chain(torch, cs, fused, dtype, n, layers, emit):
                     return kernel(x, packed, agg, dtype)
             ms, by = cs.device_ms(torch, call, 10)
             b_ms, t_ops, t_mem = cs.bound_of(*cs.chain_cost(
-                n, c, layers, True, dtype))
+                n, c, layers, encoder, dtype))
             line.update(ms=ms, timed_by=by, bound_ms=b_ms,
                         bound_by="operations" if t_ops >= t_mem
                         else "bytes")
         emit("check", line)
 
 
-def run_autograd_draws(torch, draws, emit):
-    """The bf16 autograd card test ``draws`` times for each op, each run
-    on a new cotangent from the global generator (module docstring)."""
+def run_autograd_draws(torch, fused, draws, fault, emit):
+    """The bf16 autograd card test on the cotangents of seeds 0 ..
+    ``draws`` - 1 for each op, with an optional ``dx_*`` fault of the
+    backward kernel (module docstring)."""
     ct = card_tests()
     device = torch.device("cuda")
+    bf16 = torch.bfloat16
     for mode in ("temporal", "spatial"):
-        failed = []
-        for _ in range(draws):
-            try:
-                ct.test_bf16_autograd_through_the_kernels(device, mode)
-            except AssertionError as err:
-                failed.append(str(err).split("\n")[0][:80])
-        emit("sum", dict(mode=mode, draws=draws, failed=len(failed),
-                         messages=failed[:5]))
+        real = getattr(fused, f"dstd_{mode}_bwd")
+        bwd = None
+        if fault:
+            def bwd(*a, real=real, **k):
+                out = list(real(*a, **k))
+                out[0] = FAULTS[fault](out[0])
+                return tuple(out)
+        failed, failed_before, worst = [], 0, []
+        for seed in range(draws):
+            counts, typed, dx, rest = ct._bf16_autograd_case(mode, seed,
+                                                             device, bwd)
+            ok = (typed and ct._held(bf16, "backward", *dx)
+                  and max(rest) <= ct.BF16_TOL["backward"]
+                  and counts[f"dstd_{mode}_bf16"] == 1)
+            failed_before += not (dx[0] <= ct.BF16_TOL["backward"]
+                                  and max(rest) <= ct.BF16_TOL["backward"])
+            bound = max(ct.BF16_TOL["backward"],
+                        ct.F64_NOISE * max(dx[2:]))
+            worst.append(dx[1] / bound)
+            if not ok:
+                failed.append(dict(seed=seed, dx=list(dx),
+                                   weights=max(rest)))
+        emit("sum", dict(mode=mode, draws=draws, fault=fault,
+                         failed=len(failed), failed_two_orders=failed_before,
+                         kernel64_over_bound=[min(worst), max(worst)],
+                         first=failed[:5]))
 
 
-def run_chain_grad(torch, fused, draws, emit):
+def run_chain_grad(torch, fused, ct, seeds, fault, emit):
     """The card test's float32 chain gradient over seeded draws, for the
     kernels and with the plain forward or the plain backward in their
-    place (module docstring)."""
+    place, or with a broken forward (module docstring)."""
     from dstdgcn_tpu_torch.ops import dstd as plain
     from dstdgcn_tpu_torch.ops import dstd_bwd as plain_bwd
-    ct = card_tests()
     device = torch.device("cuda")
     ops = (fused.dstd_spatial, fused.dstd_temporal)
     kept = [(op.launch, op.bwd) for op in ops]
@@ -451,6 +503,11 @@ def run_chain_grad(torch, fused, draws, emit):
             return fn(x, g, *w, agg=agg, dtype=dtype)
         return bwd
 
+    def faulty(launch):
+        def run(*a, **k):
+            return FAULTS[fault](launch(*a, **k))
+        return run
+
     def path(name):
         for op, (launch, bwd) in zip(ops, kept):
             op.launch, op.bwd = launch, bwd
@@ -460,34 +517,48 @@ def run_chain_grad(torch, fused, draws, emit):
             if name == "plain_backward":
                 op.bwd = plain_backward(getattr(plain_bwd,
                                                 f"dstd_{mode}_bwd"))
+            if name == "fault":
+                op.launch = faulty(op.launch)
 
-    past = {}
+    names = (("fault",) if fault else
+             ("kernels", "plain_forward", "plain_backward"))
+    past, count = {}, 0
     try:
-        for seed in range(1000, 1000 + draws):
+        for seed in seeds:
             for agg in ("right", "left"):
-                for name in ("kernels", "plain_forward", "plain_backward"):
+                count += 1
+                refs = {}
+                for name in names:
                     path(name)
                     rows, _, got = ct._chain_grad_case(agg, seed, device,
-                                                       cpu=False)
+                                                       cpu=False, refs=refs)
                     again = got
                     if name == "kernels":
-                        _, _, again = ct._chain_grad_case(agg, seed, device,
-                                                          cpu=False)
+                        _, _, again = ct._chain_grad_case(
+                            agg, seed, device, cpu=False, refs=refs)
                     worst = [max(r[i] for r in rows) / 1e-4
                              for i in range(3)]
+                    rounded = max(max(r[4:]) for r in rows) / 1e-4
+                    two = all(ct._held(None, "gradient", *r[:4])
+                              for r in rows)
                     held = all(ct._held(None, "gradient", *r) for r in rows)
                     emit("draw", dict(seed=seed, agg=agg, path=name,
-                                      to_plain=worst[0], to_f64=worst[1],
-                                      plain_to_f64=worst[2], held=held,
+                                      fault=fault, to_plain=worst[0],
+                                      to_f64=worst[1],
+                                      plain_to_f64=worst[2],
+                                      rounded_to_f64=rounded,
+                                      held_two_orders=two, held=held,
                                       repeatable=all(
                                           torch.equal(a, b)
                                           for a, b in zip(got, again))))
-                    n = past.setdefault(name, dict(bound=0, rule=0))
+                    n = past.setdefault(name, dict(bound=0, two_orders=0,
+                                                   rule=0))
                     n["bound"] += worst[0] > 1.0
+                    n["two_orders"] += not two
                     n["rule"] += not held
     finally:
         path("kernels")
-    emit("sum", dict(draws=2 * draws, past_bound=past))
+    emit("sum", dict(draws=count, fault=fault, past=past))
 
 
 def run_cases(torch, fused, which, dtype, fault, emit):
@@ -498,8 +569,8 @@ def run_cases(torch, fused, which, dtype, fault, emit):
     (``dx_*``) or the forward kernel's output (``out_*``) after each
     call, and only that pass runs."""
     ct = card_tests()
-    if which == "encoder":
-        run_chain_cases(torch, fused, ct, fault, emit)
+    if which in ("encoder", "chain"):
+        run_chain_cases(torch, fused, ct, which, fault, emit)
         return
     mode, _, tile_only = which.partition(":")
     bwd = real = getattr(fused, f"dstd_{mode}_bwd")
@@ -529,24 +600,33 @@ def run_cases(torch, fused, which, dtype, fault, emit):
 
 
 
-def run_chain_cases(torch, fused, ct, fault, emit):
-    """The card tests' bf16 encoder-chain cases (N = 1 and 128 at the H36M
-    shape, then ``ENCODER_EDGES``), both aggregations, with an
-    ``out_*`` fault applied to the kernel's output after each call."""
-    kernel = fused.dstd_encoder_chain
+def run_chain_cases(torch, fused, ct, which, fault, emit):
+    """The card tests' bf16 chain cases of the encoder kernel (``which``
+    ``encoder``) or of ``dstd_chain`` (N = 1 and 128 at the H36M shape,
+    then ``ENCODER_EDGES``), both aggregations, held by
+    ``chip_smoke.chain_held``, with an ``out_*`` fault applied to the
+    kernel's output after each call, or (``f32_chain``) the float32 kernel
+    in the bf16 one's place."""
+    import chip_smoke as cs
+    encoder = which == "encoder"
+    kernel = fused.dstd_encoder_chain if encoder else fused.dstd_chain
     call = None
-    if fault:
+    if fault == F32_CHAIN:
+        def call(x, given, agg, dtype=None):
+            return kernel(x, given, agg)
+    elif fault:
         def call(*a, **k):
             return FAULTS[fault](kernel(*a, **k))
     device = torch.device("cuda")
     shapes = [(n, 35, 22, 64) for n in (1, 128)] + ct.ENCODER_EDGES
     for shape in shapes:
         for agg in ("right", "left"):
-            out, same = ct._bf16_chain_case(True, agg, *shape, device, call)
-            emit("case", dict(case=["encoder", agg, *shape], fault=fault,
-                              held={key: list(d) + [d[0] <= d[2] * d[1]]
+            out, same = ct._bf16_chain_case(encoder, agg, *shape, device,
+                                            call)
+            emit("case", dict(case=[which, agg, *shape], fault=fault,
+                              held={key: list(d) + [cs.chain_held(*d)]
                                     for key, d in out.items()},
-                              ok=same and all(d[0] <= d[2] * d[1]
+                              ok=same and all(cs.chain_held(*d)
                                               for d in out.values())))
 
 

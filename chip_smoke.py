@@ -36,7 +36,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    call's four launches (``launch_ms``: qk, out, src, reduce) beside the
    call's.  Chain kernels
    on the serving model's 5 encoder layers (BatchNorm
-   calibrated, ``models/infer.py::encoder_chain_params``) at C=64:
+   calibrated, ``models/infer.py::encoder_chain_params``) at C=64, the
+   encoder's input computed by the model on the plain ops (no kernel under
+   test computes it: ``encoder_case``):
    ``dstd_encoder_chain`` and ``dstd_chain`` (the layers' ops, each scaled
    to an output peak of 1) against their plain versions, and the gradients
    of ``dstd_chain`` (x and all 100 weights) against autograd through the
@@ -58,7 +60,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    bf16-versus-float32 gap; the five one-layer launches
    bit-equal to the five-layer launch, two calls bit-equal; the five-layer
    error within BF16_CHAIN_FRAC of its gap (rounding flips spread over the
-   layers); the N=128 call timed beside the float32 kernel at N=128 and the
+   layers); a layer or the five layers past the fraction still held where
+   the kernel lies near the float64 run of the bf16 contract
+   (``chain_held``: F64_NOISE times the plain contract's distance to it,
+   printed beside); the N=128 call timed beside the float32 kernel at N=128 and the
    bf16 kernel at N=32;
 4. the serving slice: ``dstdgcn_tpu_torch.main.run`` on the config
    ``synthetic_h36m_serving`` (full-width H36M DSTD-GCN, random weights from
@@ -217,6 +222,28 @@ BF16_STEP_NOISE = 2.0
 #: within BF16_CHAIN_FRAC of their own gap (measured up to 0.69 of it).
 BF16_LAYER_FRAC = 0.3
 BF16_CHAIN_FRAC = 0.9
+#: a check past its bound is still held where the kernel lies near the
+#: float64 run of its contract (the same rounding points, sums in
+#: float64): within F64_NOISE times the plain contract's own distance to
+#: that run (F4: the card tests' tile cases; F7: the chain checks below).
+#: A bf16 rounding flip moves an output by a bf16 step in one summation
+#: order and not in another, so the kernel and the plain contract are runs
+#: of the same rounding noise about the float64 run, and a fixed fraction
+#: of the gap on one input measures which of them flipped, not a fault
+#: (``chain_held``).  The factor of the train steps' GRAD_TOL and
+#: BF16_STEP_NOISE.
+F64_NOISE = 2.0
+#: the right float32 orders of the float32 chain gradient (F7): besides
+#: the plain chain on the card and on the CPU, ROUNDING_RUNS plain chains
+#: that each move every op's output by one float32 rounding (y + y d, d
+#: uniform in +-ROUNDING_UNIT from a generator seeded with the draw:
+#: ``rounding_deltas``, ``rounded_chain``), the errors a right float32
+#: forward kernel may make.  The gate gradients sum about a million
+#: products that cancel, so such a rounding moves them far more than the
+#: one op it enters; two orders alone measure how close they happened to
+#: land
+ROUNDING_RUNS = 8
+ROUNDING_UNIT = 2.0 ** -24
 #: published H100 SXM peaks (float32 outside the tensor cores, dense bf16
 #: and TF32 on the tensor cores, HBM3)
 PEAK_F32_FLOPS = 67e12
@@ -854,16 +881,55 @@ def calibrate_batchnorm(torch, model, inputs):
     model.eval()
 
 
+def chain_held(err, gap, frac, kernel64, *plain64):
+    """Whether a bf16 chain check holds (F7; ``chip_smoke.py`` phase 3 and
+    the card tests' ``_bf16_chain_case``): the kernel's distance to its
+    plain version ``err`` within ``frac`` of their bf16-versus-float32
+    ``gap``, or, failing that, its distance to the float64 run of the bf16
+    contract ``kernel64`` within max(frac gap, F64_NOISE times the plain
+    contract's own distance to that run, the largest of ``plain64``); all
+    over one norm."""
+    return err <= frac * gap or kernel64 <= max(frac * gap,
+                                                F64_NOISE * max(plain64))
+
+
+def rounding_deltas(torch, shape, ops, seed, device="cpu",
+                    runs=ROUNDING_RUNS, unit=ROUNDING_UNIT):
+    """[[d of each of ``ops`` ops] for each of ``runs`` runs]: float32
+    tensors of ``shape`` uniform in +-``unit`` from a generator on
+    ``device`` seeded with ``seed``, the same for the same arguments."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return [[(torch.rand(shape, generator=gen, device=device) * 2 - 1) * unit
+             for _ in range(ops)] for _ in range(runs)]
+
+
+def rounded_chain(fused, x, blocks, agg, deltas):
+    """The plain float32 chain (``kernels/fused.py::_chain_oracle``) with
+    each op's output y replaced by y + y d (``deltas``, one per op in
+    order): a run of the chain that rounds every op's output once more,
+    as a right float32 forward kernel may."""
+    it = iter(deltas)
+    for sp, tm in blocks:
+        for mode, w in (("spatial", sp), ("temporal", tm)):
+            x = fused._plain_op(mode, x, w, agg, None)
+            x = x + x * next(it)
+    return x
+
+
 def encoder_case(torch, cfg, batch, device="cuda"):
     """The serving model (weights from seed 777, every parameter moved by
     seeded noise, BatchNorm calibrated on ``batch``) with the encoder's
     input for ``batch`` (the in-layer, BatchNorm and PReLU of the model)
     and its encoder layers (``models/infer.py::encoder_chain_params``):
-    the activations the encoder kernel sees in a trained model."""
+    the activations the encoder kernel sees in a trained model.  The model
+    runs on the plain ops (``use_pallas`` False), so that no kernel under
+    test computes the chain checks' input: a change of a forward kernel's
+    low bits would otherwise redraw the checks of the chain kernels."""
     from dstdgcn_tpu_torch.engine import PredictionEngine
     from dstdgcn_tpu_torch.models import get_model, infer
     from dstdgcn_tpu_torch.utils.config import resolve
     opts = {k: v for k, v in resolve(cfg)["model"].items() if k != "name"}
+    opts["use_pallas"] = False
     engine = PredictionEngine(cfg["engine"], get_model("dstdgcn", **opts),
                               device=device)
     model = engine.init()
@@ -1052,20 +1118,33 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
     return lines
 
 
+def widened(given):
+    """Chain layers (nested tuples of tensors) in float64."""
+    if isinstance(given, (tuple, list)):
+        return type(given)(widened(a) for a in given)
+    return given.double()
+
+
 def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
                       timings, max_err):
     """The bf16 chain kernels against their plain versions (the oracles
     with the dtype) on the serving model's calibrated encoder at batch
     ``n_big`` and at batch 1, both aggregations, each op of the chain scaled
-    to an output peak of 1 (``chain_blocks``).  Layer by layer: one launch
-    of each layer on the kernel's own activation against the plain layer on
-    the same input, the error over the peak |plain float32 layer output|
-    within BF16_LAYER_FRAC of the layer's bf16-versus-float32 gap; the five
+    to an output peak of 1 (``chain_blocks``); the input is computed on the
+    plain ops (``encoder_case``).  Layer by layer: one launch of each layer
+    on the kernel's own activation against the plain layer on the same
+    input, the error over the peak |plain float32 layer output| within
+    BF16_LAYER_FRAC of the layer's bf16-versus-float32 gap; the five
     one-layer launches equal the one five-layer launch bit for bit, and two
     five-layer calls are bit-equal.  End to end, a rounding flip of one
     layer moves the next layers' inputs and so their roundings, and the
     flips spread: the five-layer error is held within BF16_CHAIN_FRAC of
-    its own gap, both printed.  Times at
+    its own gap, both printed.  Each layer and the five layers are held by
+    ``chain_held``: past its fraction, a check still holds where the kernel
+    lies as near the float64 run of the bf16 contract (the oracle on
+    float64 inputs with the dtype) as F64_NOISE says, beside the plain
+    contract's own distance to it (``kernel_plain_vs_f64``, over the same
+    peak).  Times at
     ``agg_main`` and batch ``n_big``: the kernel, its plain version and the
     float32 kernel, and the bf16 kernel at batch N (the activation buffers
     of a batch-``n_big`` call no longer fit in the 50 MB L2)."""
@@ -1092,44 +1171,54 @@ def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
                     with torch.no_grad():
                         return ref(h, given, agg, dtype)
 
+                def held(got, h, given, frac):
+                    """(abs error, error, gap, kernel and plain distance
+                    to the float64 run) over the peak |plain float32
+                    output|, and chain_held's verdict."""
+                    want = plain_call(h=h, given=given)
+                    want32 = plain_call(h=h, given=given, dtype=None)
+                    want64 = plain_call(h=h.double(), given=widened(given))
+                    peak = float(want32.abs().max())
+                    abs_err = float((got - want).abs().max())
+                    d = [abs_err / peak,
+                         float((want - want32).abs().max()) / peak,
+                         float((got.double() - want64).abs().max()) / peak,
+                         float((want.double() - want64).abs().max()) / peak]
+                    return (abs_err, *d,
+                            chain_held(d[0], d[1], frac, d[2], d[3]))
+
                 before = kernel.launches_bf16
                 got, again = call(), call()
                 x, per_layer = h, []
                 for i, packed in enumerate(one):
                     y = call(h=x, arg=packed)
-                    want = plain_call(h=x, given=given[i:i + 1])
-                    want32 = plain_call(h=x, given=given[i:i + 1],
-                                        dtype=None)
-                    peak = float(want32.abs().max())
-                    abs_err = float((y - want).abs().max())
-                    per_layer.append((abs_err, abs_err / peak, float(
-                        (want - want32).abs().max()) / peak))
+                    per_layer.append(held(y, x, given[i:i + 1],
+                                          BF16_LAYER_FRAC))
                     x = y
                 torch.cuda.synchronize()
                 check(kernel.launches_bf16 == before + 2 + len(one),
                       f"{name} did not count its launches")
-                want, want32 = plain_call(), plain_call(dtype=None)
-                peak = float(want32.abs().max())
-                abs_err = float((got - want).abs().max())
-                err = abs_err / peak
-                gap = float((want - want32).abs().max()) / peak
+                abs_err, err, gap, k64, p64, chain_ok = held(
+                    got, h, given, BF16_CHAIN_FRAC)
                 repeat = bool(torch.equal(got, again))
                 layered = bool(torch.equal(got, x))
                 worst = max(range(len(per_layer)),
                             key=lambda i: per_layer[i][1] / per_layer[i][2])
-                l_abs, l_err, l_gap = per_layer[worst]
+                l_err, l_gap = per_layer[worst][1:3]
                 line = dict(kernel=name, agg=agg, n=n, c=h.shape[-1],
                             layers=len(given),
                             layer_norm_err=[e[1] for e in per_layer],
                             layer_gap=[e[2] for e in per_layer],
+                            layer_plain_vs_f64=[e[3:5] for e in per_layer],
+                            layer_held=[e[5] for e in per_layer],
                             layer_frac=BF16_LAYER_FRAC,
                             worst_layer_over_gap=l_err / l_gap,
                             max_abs_err=abs_err, norm_err=err,
                             bf16_vs_f32_gap=gap, over_gap=err / gap,
+                            kernel_plain_vs_f64=[k64, p64],
                             frac=BF16_CHAIN_FRAC, repeatable=repeat,
                             layers_equal_one_launch=layered,
-                            ok=(l_err <= BF16_LAYER_FRAC * l_gap
-                                and err <= BF16_CHAIN_FRAC * gap
+                            ok=(all(e[5] for e in per_layer) and chain_ok
                                 and repeat and layered))
                 max_err[name] = max(max_err[name], abs_err,
                                     *(e[0] for e in per_layer))
@@ -1155,11 +1244,13 @@ def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
                                 else "bytes")
                 lines.append(line)
                 print("check " + json.dumps(line))
-                check(line["ok"], f"{name} agg={agg} n={n}: layer {worst} "
-                                  f"{l_err} against its plain version "
-                                  f"(within {BF16_LAYER_FRAC} of the gap "
-                                  f"{l_gap}); five layers {err} (within "
-                                  f"{BF16_CHAIN_FRAC} of the gap {gap}); "
+                check(line["ok"], f"{name} agg={agg} n={n}: layers held "
+                                  f"{line['layer_held']} (worst {worst}: "
+                                  f"{l_err} against its plain version, gap "
+                                  f"{l_gap}, frac {BF16_LAYER_FRAC}); five "
+                                  f"layers {err} (gap {gap}, frac "
+                                  f"{BF16_CHAIN_FRAC}, to float64 {k64}, "
+                                  f"plain {p64}): held {chain_ok}; "
                                   f"repeatable {repeat}, one-layer launches "
                                   f"equal {layered}")
     return lines

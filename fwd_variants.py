@@ -36,6 +36,13 @@ instantiations ``chain_kernel<*, true, *>``, both dtypes):
 (``dstd_fwd::op_mma``) in every layer (its output buffer is then left as
 it was).  Variants change what the kernel computes: their errors mean
 nothing, only their times.
+
+An accuracy fault of the float32 forward bodies: ``tf32x1`` runs the
+3xTF32 product of ``dstd_mma::Tf32x3Mma::mma_bits`` (``csrc/dstd_mma.cuh``,
+the products of every float32 forward kernel on the tensor-core body)
+without its two correction products (a.small x big, a.big x small): one
+TF32 product, about 2^-11 relative, the fault the float32 checks must
+refuse.
 """
 
 import argparse
@@ -81,7 +88,12 @@ _AGG1_T = """    for (int i = threadIdx.x; i < rows * Co; i += blockDim.x) {
 # dtypes)
 _MMA_SPATIAL = "dstd_fwd::op_mma<true, MmaOf<Rnd>, true>("
 _MMA_TEMPORAL = "dstd_fwd::op_mma<false, MmaOf<Rnd>, true>("
+# the forward's 3xTF32 product from fragment registers
+_TF32X3 = """    mma_tf32(d, a.small, big);
+    mma_tf32(d, a.big, small);
+    mma_tf32(d, a.big, big);"""
 _COMMON = "dstdgcn_tpu_torch/csrc/dstd_common.cuh"
+_MMA = "dstdgcn_tpu_torch/csrc/dstd_mma.cuh"
 _CHAIN = "dstdgcn_tpu_torch/csrc/dstd_chain.cu"
 
 
@@ -116,6 +128,7 @@ VARIANTS = {
     "nospatial_mma": [(_CHAIN, _MMA_SPATIAL, "if (false) " + _MMA_SPATIAL)],
     "notemporal_mma": [(_CHAIN, _MMA_TEMPORAL,
                         "if (false) " + _MMA_TEMPORAL)],
+    "tf32x1": [(_MMA, _TF32X3, _TF32X3.split("\n")[-1])],
 }
 
 

@@ -186,6 +186,84 @@ def test_step_verdict_holds_each_group_to_the_plain_paths_noise(errs,
     assert verdict["others"][3] == "encoder_0.block.spatial.wf"
 
 
+@pytest.mark.parametrize("err,k64,p64,held", [
+    # within the fraction of the gap: held, wherever float64 lies
+    (0.25, 0.9, 0.01, True),
+    (0.3, 0.9, 0.01, True),
+    # past the fraction, but as near float64 as twice the plain contract
+    (0.4, 0.38, 0.2, True),
+    # past the fraction; near float64 within the fraction itself
+    (0.4, 0.3, 0.01, True),
+    # past both
+    (0.4, 0.42, 0.2, False),
+    (1.0, 0.31, 0.01, False),
+])
+def test_chain_held_past_its_fraction_only_near_float64(err, k64, p64,
+                                                        held):
+    gap, frac = 2.0, 0.3
+    assert cs.chain_held(err * gap, gap, frac, k64 * gap,
+                         p64 * gap) is held
+    # the plain contract's farthest run sets the bound
+    assert cs.chain_held(err * gap, gap, frac, k64 * gap, 0.0,
+                         p64 * gap) is held
+
+
+@pytest.mark.parametrize("seed", [1044, 1079])
+def test_rounding_deltas_are_seeded_and_one_rounding_wide(seed):
+    import torch
+    shape = (2, 5, 3, 4)
+    first = cs.rounding_deltas(torch, shape, 6, seed)
+    again = cs.rounding_deltas(torch, shape, 6, seed)
+    other = cs.rounding_deltas(torch, shape, 6, seed + 1)
+    assert len(first) == cs.ROUNDING_RUNS
+    assert all(len(run) == 6 for run in first)
+    for run, run2, run3 in zip(first, again, other):
+        for d, d2, d3 in zip(run, run2, run3):
+            assert d.shape == shape and d.dtype == torch.float32
+            assert torch.equal(d, d2) and not torch.equal(d, d3)
+            assert float(d.abs().max()) <= cs.ROUNDING_UNIT
+    # the ops of a run and the runs draw apart
+    assert not torch.equal(first[0][0], first[0][1])
+    assert not torch.equal(first[0][0], first[1][0])
+
+
+@pytest.mark.parametrize("agg", ["right", "left"])
+def test_rounded_chain_is_the_plain_chain_one_rounding_apart(agg):
+    """With zero deltas the plain chain bit for bit; with the seeded ones
+    each op's output at most one float32 step from the plain op's on the
+    same input."""
+    import numpy as np
+    import torch
+    from dstdgcn_tpu_torch.kernels import fused
+    rng = np.random.RandomState(0)
+    t, v, c = 6, 5, 4
+
+    def nrm(std, *shape):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(np.float32))
+
+    blocks = [tuple((nrm(0.3, k, p, p), torch.tensor([0.5]), nrm(0.5, k, c, c),
+                     nrm(0.1, k, c), nrm(0.5, k, c, 2), nrm(0.1, k, 2),
+                     nrm(0.5, k, c, 2), nrm(0.1, k, 2),
+                     nrm(0.3, k, 2, r, r), nrm(0.1, k, r))
+                    for k, r, p in ((2, t, v), (1, v, t)))
+              for _ in range(2)]
+    x = nrm(1.0, 2, t, v, c)
+    zeros = [torch.zeros_like(x)] * 4
+    assert torch.equal(cs.rounded_chain(fused, x, blocks, agg, zeros),
+                       fused._chain_oracle(x, blocks, agg))
+    deltas = iter(cs.rounding_deltas(torch, x.shape, 4, 7)[0])
+    h = x
+    for sp, tm in blocks:
+        for mode, w in (("spatial", sp), ("temporal", tm)):
+            y = fused._plain_op(mode, h, w, agg, None)
+            h = y + y * next(deltas)
+            step = torch.abs(torch.nextafter(y, 2 * y) - y)
+            assert bool(((h - y).abs() <= step).all())
+    assert torch.equal(cs.rounded_chain(
+        fused, x, blocks, agg, cs.rounding_deltas(torch, x.shape, 4, 7)[0]),
+        h)
+
+
 @pytest.mark.parametrize("name", sorted(fwd_variants.VARIANTS))
 def test_fwd_variants_each_remove_their_phase_from_this_checkout(name,
                                                                  tmp_path):
