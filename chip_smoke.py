@@ -941,7 +941,9 @@ def encoder_case(torch, cfg, batch, device="cuda"):
     calibrate_batchnorm(torch, model, x)
     with torch.no_grad():
         h = torch.cat([x, x - x[:, -1:]], dim=-1)
-        h = model.prelu(model.bn_in(model.conv_st_in(h)))
+        # the plain ops may return another layout; the chain kernels
+        # read a contiguous x
+        h = model.prelu(model.bn_in(model.conv_st_in(h))).contiguous()
         layers = infer.encoder_chain_params(model)
     return h, layers
 
