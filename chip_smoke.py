@@ -14,14 +14,14 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    block-sparse library with ``block_spmm``, ``block_sddmm`` and
    ``block_sddmm_spmm``: 15 kernels), with each entry function's registers
    and spills as ``ptxas`` reports them, and the number of tensor-core
-   ``HMMA`` instructions (of all instructions) in the SASS of each
-   function of the forward, chain and backward libraries (``cuobjdump``):
-   some in passes 2 and 3 of every backward kernel (bf16 ``mma.sync`` in
-   5b and 6b, 3xTF32 in 5 and 6: ``MMA_FUNCTIONS``), in the spatial
-   forward kernel (3xTF32 in 1, bf16 in 1b), the bf16 temporal one (2b)
-   and both encoder chains (3xTF32 in 4, bf16 in 4b: ``MMA_FORWARD``),
-   none in the q/k and reduction launches, the float32 temporal forward
-   kernel (2) or the chain kernels (3, 3b);
+   instructions (``HMMA``, and ``DMMA`` for float64 products; of all
+   instructions) in the SASS of each function of the forward, chain and
+   backward libraries (``cuobjdump``): some in passes 2 and 3 of every
+   backward kernel (bf16 ``mma.sync`` in 5b and 6b, 3xTF32 in 5 and 6:
+   ``MMA_FUNCTIONS``), in both forward kernels (float64 in 1 and 2, bf16
+   in 1b and 2b) and both encoder chains (3xTF32 in 4, bf16 in 4b:
+   ``MMA_FORWARD``), none in the q/k and reduction launches or the chain
+   kernels (3, 3b);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -320,19 +320,16 @@ BWD_PASSES = ("qk", "out", "src", "reduce")
 #: tile; the q/k and reduction launches keep their CUDA-core FMAs
 MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 #: the forward functions that run every product but q/k on the tensor
-#: cores in the body of ``csrc/dstd_fwd_mma.cuh``: the spatial kernel in
-#: both dtypes (1 on 3xTF32, 1b on bf16 ``mma.sync``), the bf16 temporal
-#: kernel (2b) and the encoder chain in both (4 on 3xTF32, 4b on bf16:
-#: ``chain_kernel<TILE, kEncoder, Rnd>`` with kEncoder true); the float32
-#: temporal kernel (2) and the chain kernels (3, 3b) keep the CUDA-core
-#: bodies of ``csrc/dstd_common.cuh``
+#: cores in the body of ``csrc/dstd_fwd_mma.cuh``: the spatial and the
+#: temporal kernel in both dtypes (1 and 2 on float64 ``mma.sync``, 1b and
+#: 2b on bf16) and the encoder chain in both (4 on 3xTF32, 4b on bf16:
+#: ``chain_kernel<TILE, kEncoder, Rnd>`` with kEncoder true); the chain
+#: kernels (3, 3b) keep the CUDA-core bodies of ``csrc/dstd_common.cuh``
 MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<",
                "chain_kernel<")
 
 
 def _mma_forward(function):
-    if function.startswith("temporal_kernel<"):
-        return function.endswith(", dstd::Bf16>")
     return not function.startswith("chain_kernel<") or ", true, " in function
 
 
@@ -411,8 +408,8 @@ def demangle(names):
 
 
 def sass_mma(path):
-    """{kernel: (number of tensor-core ``HMMA`` instructions, of all
-    instructions)} of each function in the SASS of the built library at
+    """{kernel: (number of tensor-core ``HMMA`` and ``DMMA``
+    instructions, of all instructions)} of each function in the SASS of the built library at
     ``path`` (``cuobjdump -sass``); fails where the toolkit has no
     cuobjdump, since the tensor-core check cannot run without it."""
     import shutil
@@ -427,7 +424,8 @@ def sass_mma(path):
 
 
 def sass_counts(text):
-    """{mangled kernel: (HMMA instructions, instructions)} of a
+    """{mangled kernel: (tensor-core instructions, HMMA or DMMA;
+    instructions)} of a
     ``cuobjdump -sass`` listing: an instruction is a line with an address
     comment (``/*0a70*/``), a function starts at ``Function : name``."""
     import re
@@ -439,7 +437,7 @@ def sass_counts(text):
             counts[name] = (0, 0)
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             hmma, total = counts[name]
-            counts[name] = (hmma + bool(re.search(r"\bHMMA\b", line)),
+            counts[name] = (hmma + bool(re.search(r"\b[HD]MMA\b", line)),
                             total + 1)
     return counts
 
@@ -1782,10 +1780,10 @@ def run_smoke():
         mma = sass_mma(build.library(name)._name)
         report["sass_hmma"][name] = mma
         for kernel, (count, size) in mma.items():
-            print(f"  sass {name}: {kernel}: {count} HMMA of {size} "
+            print(f"  sass {name}: {kernel}: {count} HMMA / DMMA of {size} "
                   "instructions")
             check((count > 0) == uses_mma(kernel),
-                  f"{kernel}: {count} HMMA instructions in its SASS, "
+                  f"{kernel}: {count} HMMA / DMMA instructions in its SASS, "
                   f"expected {'some' if uses_mma(kernel) else 'none'}")
 
     # 3. each kernel against its plain version at the serving and training

@@ -1,10 +1,10 @@
 // The DSTD-GC forward op on Hopper's tensor cores, one body templated on
-// the element kind of its products: 3xTF32 (dstd_mma::Tf32x3Mma) for the
-// float32 spatial kernel dstd_spatial_f32 and the ten ops of
-// dstd_encoder_chain_f32 (dstd_chain.cu), bf16 (dstd_mma::Bf16Mma) for
-// dstd_spatial_bf16, dstd_temporal_bf16 and the ten ops of
-// dstd_encoder_chain_bf16.  The float32 temporal kernel and the chain
-// kernels dstd_chain_{f32,bf16} keep the CUDA-core bodies of
+// the element kind of its products: float64 (F64Mma, below) for the
+// float32 one-op kernels dstd_spatial_f32 and dstd_temporal_f32, 3xTF32
+// (dstd_mma::Tf32x3Mma) for the ten ops of dstd_encoder_chain_f32
+// (dstd_chain.cu), bf16 (dstd_mma::Bf16Mma) for dstd_spatial_bf16,
+// dstd_temporal_bf16 and the ten ops of dstd_encoder_chain_bf16.  The
+// chain kernels dstd_chain_{f32,bf16} keep the CUDA-core bodies of
 // dstd_common.cuh.
 //
 // Contract: dstdgcn_tpu_torch/ops/dstd.py::kernel_spatial / kernel_temporal
@@ -12,8 +12,9 @@
 // operands of the four contractions (x wqk, x wf, the scores s wrm, adj xf)
 // are rounded to bf16, products and sums in float32; q/k, the tanh, the
 // mixing sums, the adjacency's affine and the output stay float32.  At
-// float32 nothing is rounded: the products run as 3xTF32, float32-accurate
-// (tests/test_torch_tf32x3.py), in another order than the plain op's sums.
+// float32 nothing is rounded: the products run in float64 or as 3xTF32,
+// float32-accurate (tests/test_torch_tf32x3.py), in another order than the
+// plain op's sums.
 //
 // The two ops are one body in the names of the mixing: for output "ref"
 // index o (spatial: the frame t; temporal: the joint), source ref index s
@@ -28,8 +29,8 @@
 //
 // Design.  One block of 512 threads per (sample, tile of `tile` output ref
 // indices); the blocks of a sample run as one thread-block cluster of
-// nblk blocks (the one-op kernels: ceil(Q / tile); the encoder chain: its
-// own cluster of ceil(max(T, V) / TILE), where a rank may own no output
+// nblk blocks (the one-op kernels: ceil(Q / tile); the chain kernels:
+// their own cluster of ceil(max(T, V) / TILE), where a rank may own no output
 // index and still forms its share of the scores and meets every barrier).
 // Every operand of a product is staged once in shared memory in the
 // kind's element (bf16, or float32 split into TF32 halves when a fragment
@@ -71,8 +72,8 @@
 //  6. the aggregation as a product per output ref index (batch), summed
 //     over k: M = the P output pair indices, N = Co, depth the P source
 //     pair indices; the float32 sums go through the caller's store (the
-//     one-op kernels: device memory; the encoder: its affine, residual
-//     and PReLU); then the block waits at barrier 3, so no block leaves
+//     one-op kernels and the bf16 chain: device memory; the encoder: its
+//     affine, residual and PReLU); then the block waits at barrier 3, so no block leaves
 //     while another reads its shared memory.
 // The order of every sum is fixed (no atomics): two calls give the same
 // bits.  Row strides are multiples of 16 bytes with an odd number of
@@ -107,6 +108,27 @@ using dstd::OpArgs;
 using dstd_mma::Bf16Mma;
 using dstd_mma::Tf32x3Mma;
 
+// The third element kind: float32 operands staged and read as for 3xTF32,
+// each m16n8k8 step as four float64 tensor-core products (DMMA, mma.sync
+// m8n8k4 .f64) summed in float64 accumulators, rounded to float32 once at
+// the store.  Its A fragment is the float32 bits as ldmatrix reads them.
+struct F64Mma {
+  struct A {
+    uint32_t r[4];
+  };
+  __device__ static A a_bits(const uint32_t (&r)[4]) {
+    return {{r[0], r[1], r[2], r[3]}};
+  }
+};
+
+// The kinds that stage their operands as float32 (FwdLayout's f32), and
+// the accumulator of a kind
+template <typename Mma>
+constexpr bool kStagedF32 =
+    std::is_same_v<Mma, Tf32x3Mma> || std::is_same_v<Mma, F64Mma>;
+template <typename Mma>
+using AccOf = std::conditional_t<std::is_same_v<Mma, F64Mma>, double, float>;
+
 // The staged element of an element kind and the depth of one mma step
 // (32 bytes of an operand row in both)
 template <typename Mma>
@@ -121,6 +143,8 @@ struct Elem<Tf32x3Mma> {
   using E = float;
   static constexpr int kStep = 8;
 };
+template <>
+struct Elem<F64Mma> : Elem<Tf32x3Mma> {};
 
 __device__ inline float tof(bf16 v) { return __bfloat162float(v); }
 __device__ inline float tof(float v) { return v; }
@@ -143,7 +167,8 @@ __host__ __device__ constexpr long long align16(long long bytes) {
 }
 
 // Sizes and shared-memory layout (byte offsets, 16-byte aligned) of one
-// block of the forward of either op, for the bf16 kind or (f32) 3xTF32.
+// block of the forward of either op, for the bf16 kind or (f32) the kinds
+// that stage float32 (3xTF32, float64).
 // `tile`: the output ref indices a block owns; nblk: the blocks of the
 // cluster.  Depths are padded to the kind's step (kd: 16 or 8).
 //
@@ -352,7 +377,7 @@ struct PairStore {
 // kStepAcc each depth step's products go into a zeroed accumulator
 // (truncated relative to that step alone) and are added to the running
 // sum on the CUDA cores, rounded to nearest: always at 3xTF32, and in the
-// encoder chain at bf16 (the bf16 one-op kernels keep the accumulation
+// chain kernels at bf16 (the bf16 one-op kernels keep the accumulation
 // they were measured and tested with).
 __device__ inline void add4(float (&acc)[4], const float (&step)[4]) {
 #pragma unroll
@@ -376,14 +401,40 @@ __device__ inline void mma_step(float (&acc)[4], const Tf32x3Mma::A& a,
   add4(acc, step);
 }
 
-// acc[j] += A B_j in 3xTF32 for the live of NT n8 tiles B_j at columns
-// n0 + 8j, depth step ks: B staged (n x depth), b_col(r) pointing at its
-// column r; two tiles a ldmatrix.x4 (lanes 0-7 and 16-23 the columns of
-// depths 0-3, lanes 8-15 and 24-31 of depths 4-7).
-template <int NT, typename BCol>
-__device__ inline void tf32_tiles(float (&acc)[NT][4],
-                                  const Tf32x3Mma::A& a3, BCol b_col,
-                                  int n0, int ks, int live) {
+// d (8 x 8, float64) += a (8 x 4) b (4 x 8): a lane holds a[g][t], b[t][g]
+// and d[g][2t], d[g][2t + 1] (g = lane / 4, t = lane % 4)
+__device__ inline void mma_f64(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+// One m16n8k8 step in float64: the m16n8k8 fragments (a0 (g, t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4, g))
+// as four m8n8k4 products into the rows g and g + 8 of acc
+__device__ inline void mma_step(double (&acc)[4], const F64Mma::A& a,
+                                const uint32_t (&b)[2]) {
+  const double b0 = __uint_as_float(b[0]), b1 = __uint_as_float(b[1]);
+  double lo[2] = {acc[0], acc[1]}, hi[2] = {acc[2], acc[3]};
+  mma_f64(lo, __uint_as_float(a.r[0]), b0);
+  mma_f64(lo, __uint_as_float(a.r[2]), b1);
+  mma_f64(hi, __uint_as_float(a.r[1]), b0);
+  mma_f64(hi, __uint_as_float(a.r[3]), b1);
+  acc[0] = lo[0];
+  acc[1] = lo[1];
+  acc[2] = hi[0];
+  acc[3] = hi[1];
+}
+
+// acc[j] += A B_j in a float32-staged kind (3xTF32 or float64) for the
+// live of NT n8 tiles B_j at columns n0 + 8j, depth step ks: B staged
+// (n x depth), b_col(r) pointing at its column r; two tiles a ldmatrix.x4
+// (lanes 0-7 and 16-23 the columns of depths 0-3, lanes 8-15 and 24-31 of
+// depths 4-7).
+template <int NT, typename Acc, typename AFrag, typename BCol>
+__device__ inline void f32_tiles(Acc (&acc)[NT][4], const AFrag& a3,
+                                 BCol b_col, int n0, int ks, int live) {
   const int lane = threadIdx.x & 31;
   const int bn = (lane & 7) + ((lane >> 4) << 3), bd = ((lane >> 3) & 1) * 4;
 #pragma unroll
@@ -428,10 +479,10 @@ __device__ inline void block_mma(int batch, int mtiles, int n8, int S,
     const int mt = rem / groups, m0 = mt << 4;
     const int n0 = (rem - mt * groups) * NT * 8;
     const int live = min(NT, n8 - (n0 >> 3));
-    float acc[NT][4];
+    AccOf<Mma> acc[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
     for (int s = 0; s < S; ++s) {
       const E* arow = a_row(b, s, m0 + lrow) + lcol;
       for (int ks = 0; ks < ksteps; ++ks) {
@@ -454,9 +505,8 @@ __device__ inline void block_mma(int batch, int mtiles, int n8, int S,
             }
           }
         } else {
-          tf32_tiles<NT>(acc, Tf32x3Mma::a_bits(af),
-                         [&](int r) { return b_row(b, s, r); }, n0, ks,
-                         live);
+          f32_tiles<NT>(acc, Mma::a_bits(af),
+                        [&](int r) { return b_row(b, s, r); }, n0, ks, live);
         }
       }
     }
@@ -464,8 +514,8 @@ __device__ inline void block_mma(int batch, int mtiles, int n8, int S,
     for (int j = 0; j < NT; ++j) {
       if (j < live) {
         const int c = n0 + 8 * j + 2 * t;
-        st(b, m0 + g, c, acc[j][0], acc[j][1]);
-        st(b, m0 + g + 8, c, acc[j][2], acc[j][3]);
+        st(b, m0 + g, c, (float)acc[j][0], (float)acc[j][1]);
+        st(b, m0 + g + 8, c, (float)acc[j][2], (float)acc[j][3]);
       }
     }
   }
@@ -476,9 +526,9 @@ __device__ inline void block_mma(int batch, int mtiles, int n8, int S,
 // products of kind Mma, through out.put2(row, joint, c, v0, v1), as the
 // file header describes.  kChain: x is the chain's float32 activation,
 // which other blocks of the launch wrote (read at L2, rounded here at
-// bf16); else x is the one-op kernels' input (bf16 at bf16, float32 at
-// 3xTF32).  At 3xTF32 the steps run in another order to fit the float32
-// layout (FwdLayout): no projection in step 2, the scores formed in the
+// bf16); else x is the one-op kernels' input (bf16 at bf16, else
+// float32).  The float32-staged kinds run the steps in another order to
+// fit the float32 layout (FwdLayout): no projection in step 2, the scores formed in the
 // mixing's fragments, and step 6 projects and aggregates one group of gw
 // output channels at a time.  Every thread of every block of the cluster
 // runs every barrier.
@@ -486,7 +536,7 @@ template <bool kSpatial, typename Mma, bool kChain = false, typename Store>
 __device__ void op_mma(const OpArgs& a, char* smem, int n, int o0, int on,
                        int tile, int nblk, const Store& out) {
   using E = typename Elem<Mma>::E;
-  constexpr bool kF32 = std::is_same_v<Mma, Tf32x3Mma>;
+  constexpr bool kF32 = kStagedF32<Mma>;
   constexpr int kd = Elem<Mma>::kStep;
   // n8 tiles a warp owns in the bf16 projection and aggregation: the
   // chain, capped at 64 registers with both ops inlined, takes two
@@ -735,10 +785,10 @@ __device__ void op_mma(const OpArgs& a, char* smem, int n, int o0, int on,
         q[h] = qk + k * 2 * R * Q * P + i;
         kk[h] = qk + (k * 2 * R + R) * Q * P + j;
       }
-      float acc[NT][4];
+      AccOf<Mma> acc[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
       for (int ks = 0; ks < L.rqk >> 3; ++ks) {
         // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
         uint32_t af[4];
@@ -749,8 +799,8 @@ __device__ void op_mma(const OpArgs& a, char* smem, int n, int o0, int on,
           const float v = tanhf(q[h][dd * P] - kk[h][dd * P]);
           af[r] = __float_as_uint(in[h] && d < L.rq ? v : 0.f);
         }
-        tf32_tiles<NT>(
-            acc, Tf32x3Mma::a_bits(af),
+        f32_tiles<NT>(
+            acc, Mma::a_bits(af),
             [&](int r) { return wm + (k * L.q8 + r) * L.ws; }, n0, ks,
             live);
       }
@@ -758,10 +808,10 @@ __device__ void op_mma(const OpArgs& a, char* smem, int n, int o0, int on,
       for (int j = 0; j < NT; ++j) {
         if (j < live) {
           const int o = n0 + 8 * j + 2 * t;
-          mixed(b * 16 + g, o, acc[j][0]);
-          mixed(b * 16 + g, o + 1, acc[j][1]);
-          mixed(b * 16 + g + 8, o, acc[j][2]);
-          mixed(b * 16 + g + 8, o + 1, acc[j][3]);
+          mixed(b * 16 + g, o, (float)acc[j][0]);
+          mixed(b * 16 + g, o + 1, (float)acc[j][1]);
+          mixed(b * 16 + g + 8, o, (float)acc[j][2]);
+          mixed(b * 16 + g + 8, o + 1, (float)acc[j][3]);
         }
       }
     }

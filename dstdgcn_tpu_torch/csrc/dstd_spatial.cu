@@ -30,17 +30,20 @@
 // run on the tensor cores from operands staged once in shared memory.  The
 // scores and the adjacency never touch device memory.
 //
-// Float32 (dstd_spatial_f32): the products are 3xTF32
-// (dstd_mma::Tf32x3Mma, float32-accurate) on operands staged as float32,
-// in a layout that holds fewer regions at once (the scores formed in the
-// mixing's fragments, the features projected one group of 16 output
-// channels at a time after the adjacency is gathered), so that two blocks
-// share an SM and a batch-32 call runs in one wave; q/k stay float32
-// CUDA-core sums in the order of the CUDA-core body and of the backward's
-// q/k launch.  Measured
-// over the 7 calls of a forward at N=32 on an H100, its CUDA-core
-// predecessor (dstd::spatial_op in dstd_common.cuh, still the spatial body
-// of the chain kernels) ran 25.7x its bound (PERF.md).
+// Float32 (dstd_spatial_f32): the products run in float64 on the tensor
+// cores (dstd_fwd::F64Mma: each m16n8k8 step as four mma.sync m8n8k4 .f64,
+// float64 sums, one rounding to float32 at the store) on operands staged
+// as float32, in a layout that holds fewer regions at once (the scores
+// formed in the mixing's fragments, the features projected one group of
+// 16 output channels at a time after the adjacency is gathered), so that
+// two blocks share an SM and a batch-32 call runs in one wave; q/k stay
+// float32 CUDA-core sums in the order of the CUDA-core body and of the
+// backward's q/k launch.  On 3xTF32 products (dstd_mma::Tf32x3Mma) it ran
+// 9% faster, but with the temporal kernel on 3xTF32 beside it the float32
+// chain gradient lay past its rule; with both on float64 products it holds
+// (PERF.md).  Its CUDA-core predecessor (dstd::spatial_op in
+// dstd_common.cuh, still the spatial body of the float32 chain kernel) ran
+// 25.7x its bound over the 7 calls of a forward at N=32 on an H100.
 //
 // bf16 variant (dstd_spatial_bf16): the TPU kernel's compute dtype, which
 // rounds the operands of its four contractions (x wqk, x wf, s wrm,
@@ -68,7 +71,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, t0 = blockIdx.x * TILE;
   using Mma = std::conditional_t<std::is_same_v<Rnd, dstd::Bf16>,
-                                 dstd_mma::Bf16Mma, dstd_mma::Tf32x3Mma>;
+                                 dstd_mma::Bf16Mma, dstd_fwd::F64Mma>;
   dstd_fwd::op_mma<true, Mma>(
       a, reinterpret_cast<char*>(smem4), n, t0, min(TILE, a.T - t0), TILE,
       (a.T + TILE - 1) / TILE,

@@ -12,36 +12,43 @@
 //   left:  out[t,v,c] = sum_{k,u} adj[k,v,t,u] xf[k,u,v,c]
 //
 // Bound on an H100 SXM: at N=32, T=35, V=22, 64->64 channels, K=1, R=2 the
-// op does about 0.40 GFLOP against 12.7 MB of activations: about 6 us of
-// float32 CUDA-core operations at 67 TFLOP/s against about 3.8 us of
-// memory at 3.35 TB/s, so it is operation-bound; its 2*22*1225 tanh per
-// output joint also run on the CUDA cores.
+// op does about 0.40 GFLOP, mostly contractions, against 12.7 MB of
+// activations: at the 3xTF32 rate (the dense TF32 rate over 3) the
+// contractions take less than the about 3.8 us of memory at 3.35 TB/s, so
+// the bound is the bytes (chip_smoke.py::op_cost); its 2*22*1225 tanh per
+// output joint run on the CUDA cores.
 //
-// Float32 design (dstd_temporal_f32; the body is dstd::temporal_op in
-// dstd_common.cuh, which the chain kernels of dstd_chain.cu share): one
-// block of 512 threads per (sample, tile of output joints), the tile a
-// template parameter.  The adjacency of an output joint mixes the
-// frame-pair scores of all V source joints, so each block projects q/k for
-// the whole sample into shared memory (the V/tile blocks of a sample each
-// recompute it: with K = 1 the projection is cheap, and sharing it through
-// a cluster measured slower here, unlike the spatial op).  Then each block
-// builds the tile's (T, T) adjacencies in shared memory, one thread per
-// (k, t, u) pair with the tile's joints in registers (tanh scores
-// recomputed per tile, mixing weights read as float4), projects the
-// features of the tile's joints over all frames (float4 register tiles, x
-// read through L1) and aggregates over frames.  The scores and the
-// adjacency never touch device memory.  Plain float32 FMA on the CUDA
-// cores.
+// Design (both variants): the body dstd_fwd::op_mma (dstd_fwd_mma.cuh),
+// the spatial op's with frames and joints swapped: one block of 512
+// threads per (sample, tile of output joints), the tile a template
+// parameter, and the ceil(V / tile) blocks of a sample run as one
+// thread-block cluster (at most 8, so the tile is at least ceil(V / 8)).
+// The adjacency of an output joint mixes the frame-pair scores of all V
+// source joints: each block projects q/k of its own joints' rows on the
+// CUDA cores and copies the others' through distributed shared memory,
+// forms its share of the sample's scores once, and the feature
+// projection, the mixing and the aggregation run on the tensor cores.
+// The scores and the adjacency never touch device memory.
+//
+// Float32 (dstd_temporal_f32): the products run in float64 on the tensor
+// cores (dstd_fwd::F64Mma, as the float32 spatial kernel) in the body's
+// float32 order and layout (the scores formed in the mixing's fragments,
+// the features projected one group of 16 output channels at a time after
+// the gather); q/k stay float32 CUDA-core sums in the order of the
+// CUDA-core body and of the backward's q/k launch.  On 3xTF32 products it
+// ran 1.1x faster, but the float32 chain gradient then lay past its rule,
+// and with float64 products here and 3xTF32 in the spatial kernel too
+// (PERF.md).  At T = 35, V = 22, 64->64 and the wrapper's tile 4 a block
+// takes 97,088 B: a cluster of 6, two blocks an SM, a batch-32 call in
+// one wave (at 3xTF32, tile 6, 143,936 B and one block an SM, measured
+// 1.77x slower).  Its CUDA-core predecessor, dstd::temporal_op in
+// dstd_common.cuh (still the temporal body of the float32 chain kernel),
+// projected q/k of the whole sample in each of a sample's blocks and ran
+// 25x its bound (PERF.md).
 //
 // bf16 variant (dstd_temporal_bf16): the TPU kernel's compute dtype, bf16
-// operands of the four contractions with float32 sums.  Its body is
-// dstd_fwd::op_mma (dstd_fwd_mma.cuh), the spatial op's with frames and
-// joints swapped: the ceil(V / tile) blocks of a sample run as one
-// thread-block cluster (at most 8, so the tile is at least ceil(V / 8)),
-// the feature projection, the mixing and the aggregation on bf16 tensor
-// cores, each score formed once per sample.
-// The cluster that lets the blocks share the scores also shares q/k: each
-// block projects only its own joints' rows.
+// operands of the four contractions with float32 sums, on bf16 mma.sync
+// from operands staged once as bf16 (x read as bf16).
 #include <type_traits>
 
 #include "dstd_common.cuh"
@@ -53,40 +60,29 @@ using dstd::kMaxTile;
 using dstd::kThreads;
 using dstd::OpArgs;
 
+// two blocks an SM (at most 64 registers): both layouts leave room for
+// two at T = 35, V = 22, 64->64 (97,088 B at float32, tile 4; 99,920 B
+// at bf16, tile 6)
 template <int TILE, typename Rnd>
-__global__ void __launch_bounds__(kThreads) temporal_kernel(const OpArgs a) {
+__global__ void __launch_bounds__(kThreads, 2)
+    temporal_kernel(const OpArgs a) {
   extern __shared__ float4 smem4[];
   const int n = blockIdx.y, w0 = blockIdx.x * TILE;
-  if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
-    dstd_fwd::op_mma<false, dstd_mma::Bf16Mma>(
-        a, reinterpret_cast<char*>(smem4), n, w0, min(TILE, a.V - w0), TILE,
-        (a.V + TILE - 1) / TILE,
-        dstd_fwd::PairStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
-  } else {
-    dstd::temporal_op<TILE, false, Rnd>(
-        a, reinterpret_cast<float*>(smem4), n, w0, min(TILE, a.V - w0),
-        dstd::PlainStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
-  }
+  using Mma = std::conditional_t<std::is_same_v<Rnd, dstd::Bf16>,
+                                 dstd_mma::Bf16Mma, dstd_fwd::F64Mma>;
+  dstd_fwd::op_mma<false, Mma>(
+      a, reinterpret_cast<char*>(smem4), n, w0, min(TILE, a.V - w0), TILE,
+      (a.V + TILE - 1) / TILE,
+      dstd_fwd::PairStore{a.out + (size_t)n * a.T * a.V * a.Co, a.Co});
 }
 
 template <int TILE, typename Rnd>
 cudaError_t launch(const OpArgs& a, int N, size_t bytes,
                    cudaStream_t stream) {
   const int nblk = (a.V + TILE - 1) / TILE;
-  if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
-    // the bf16 body runs a sample's tiles as one cluster
-    if (nblk > dstd::kMaxCluster) return cudaErrorInvalidValue;
-    return dstd::launch_clustered(temporal_kernel<TILE, Rnd>, a, nblk, N,
-                                  bytes, stream);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(
-        temporal_kernel<TILE, Rnd>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(nblk, N);
-    temporal_kernel<TILE, Rnd><<<grid, kThreads, bytes, stream>>>(a);
-    return cudaGetLastError();
-  }
+  if (nblk > dstd::kMaxCluster) return cudaErrorInvalidValue;
+  return dstd::launch_clustered(temporal_kernel<TILE, Rnd>, a, nblk, N,
+                                bytes, stream);
 }
 
 // One launch of the op on `stream` with rounding policy Rnd; returns the
@@ -105,11 +101,9 @@ int run(const float* x, const float* base, const float* alpha,
   if (err != cudaSuccess) return (int)err;
   const OpArgs a{x,   base, alpha, wf, bf, wm1, bm1, wm2,     bm2,
                  wrm, brm,  out,   T,  V,  Ci,  Co,  K,   R, agg_left};
-  const size_t bytes =
-      std::is_same_v<Rnd, dstd::Bf16>
-          ? dstd_fwd::op_layout(false, T, V, Ci, Co, K, R, tile, false).total
-          : dstd::TemporalLayout(T, V, Ci, Co, K, R, tile).total *
-                sizeof(float);
+  const size_t bytes = dstd_fwd::op_layout(false, T, V, Ci, Co, K, R, tile,
+                                           !std::is_same_v<Rnd, dstd::Bf16>)
+                           .total;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 1: return (int)launch<1, Rnd>(a, N, bytes, st);
@@ -127,10 +121,11 @@ int run(const float* x, const float* base, const float* alpha,
 
 extern "C" {
 
+// Shared memory of one block, in bytes: the float32 variant's, then the
+// bf16 one's (the same body in other elements).
 long long dstd_temporal_smem_bytes(int T, int V, int Ci, int Co, int K,
                                    int R, int tile) {
-  return dstd::TemporalLayout(T, V, Ci, Co, K, R, tile).total *
-         (long long)sizeof(float);
+  return dstd_fwd::op_layout(false, T, V, Ci, Co, K, R, tile, true).total;
 }
 
 long long dstd_temporal_bf16_smem_bytes(int T, int V, int Ci, int Co, int K,

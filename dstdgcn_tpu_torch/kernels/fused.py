@@ -269,14 +269,18 @@ class FusedBwd(_Kernel):
 
 class FusedOp(_Kernel):
     """One DSTD-GC op: CUDA kernels on the card, plain ops on the CPU,
-    differentiable through :class:`_DSTDFunction`."""
+    differentiable through :class:`_DSTDFunction`.  ``f32_tile``: the
+    float32 kernel's default tile where it differs from the bf16 one's
+    (``default_tile``)."""
 
     def __init__(self, mode: str, plain_fn, kernel_fn, default_tile: int,
-                 clustered: tuple, bwd: FusedBwd):
+                 clustered: tuple, bwd: FusedBwd,
+                 f32_tile: int | None = None):
         super().__init__(f"dstd_{mode}", mode, default_tile, clustered)
         self.plain = plain_fn
         self.kernel_plain = kernel_fn
         self.bwd = bwd
+        self.f32_tile = f32_tile or default_tile
 
     def __call__(self, x, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
                  mask=None, agg: str = "right", dtype=None, *,
@@ -327,6 +331,8 @@ class FusedOp(_Kernel):
         # a no-op for the model's bf16 activations), the float32 one as
         # float32
         x = x.to(torch.bfloat16) if variant == "bf16" else x.float()
+        if tile is None and variant == "f32":
+            tile = self.f32_tile
         lib, tile, _ = self._plan(variant, n, t, v, ci, co, k, r, tile)
         out = torch.empty((n, t, v, co), device=x.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -374,9 +380,15 @@ dstd_temporal_bwd = FusedBwd("temporal", plain_bwd.dstd_temporal_bwd,
 dstd_spatial = FusedOp("spatial", plain.dstd_spatial, plain.kernel_spatial,
                        default_tile=5, clustered=("f32", "bf16"),
                        bwd=dstd_spatial_bwd)
+# the temporal forward runs a sample's blocks as one cluster in both
+# dtypes; the float32 one at tile 4: 97,088 B a block at 64->64, a cluster
+# of 6, two blocks an SM and one wave at N = 32 (on 3xTF32 products tile 6
+# at one block an SM measured 1.77x slower, tiles 3 and 5 1.46x and 1.49x;
+# PERF.md)
 dstd_temporal = FusedOp("temporal", plain.dstd_temporal,
                         plain.kernel_temporal, default_tile=6,
-                        clustered=("bf16",), bwd=dstd_temporal_bwd)
+                        clustered=("f32", "bf16"), bwd=dstd_temporal_bwd,
+                        f32_tile=4)
 
 # -- chains of ops in one launch ------------------------------------------
 

@@ -13,9 +13,9 @@ OUT_ROOT/<variant> --forward`` (or ``--chain``) in one chip call beside
 the tree it came from; the difference of two times is the removed phase's.
 
 Variants of the CUDA-core op body ``dstd::spatial_op``
-(``csrc/dstd_common.cuh``), the spatial body of the chain kernels
-``dstd_chain_{f32,bf16}`` (and of the float32 spatial kernel and the
-float32 encoder before their tensor-core redesigns):
+(``csrc/dstd_common.cuh``), the spatial body of the float32 chain kernel
+``dstd_chain_f32`` (and of the float32 spatial kernel, the float32
+encoder and the bf16 chain before their tensor-core redesigns):
 
 - ``notanh``: the score is q - k, no ``tanhf``;
 - ``nomix``: one add per score instead of the mixing FMAs of the tile;
@@ -25,9 +25,9 @@ float32 encoder before their tensor-core redesigns):
 - ``qkonly``: the last three removed (staging, q/k, syncs remain).
 
 The same six of the CUDA-core temporal body ``dstd::temporal_op`` (the
-body of the float32 temporal kernel and the temporal body of the chain
-kernels ``dstd_chain_{f32,bf16}``, and of the float32 encoder before its
-tensor-core redesign), named with a ``_t``: ``notanh_t``, ``nomix_t``,
+temporal body of the float32 chain kernel ``dstd_chain_f32``, and of the
+float32 temporal kernel, the float32 encoder and the bf16 chain before
+their tensor-core redesigns), named with a ``_t``: ``notanh_t``, ``nomix_t``,
 ``noadj_t``, ``nofeat_t``, ``noagg_t``, ``qkonly_t``.
 
 Variants of the whole-encoder kernel (``csrc/dstd_chain.cu``, the encoder
@@ -37,12 +37,12 @@ instantiations ``chain_kernel<*, true, *>``, both dtypes):
 it was).  Variants change what the kernel computes: their errors mean
 nothing, only their times.
 
-An accuracy fault of the float32 forward bodies: ``tf32x1`` runs the
-3xTF32 product of ``dstd_mma::Tf32x3Mma::mma_bits`` (``csrc/dstd_mma.cuh``,
-the products of every float32 forward kernel on the tensor-core body)
-without its two correction products (a.small x big, a.big x small): one
-TF32 product, about 2^-11 relative, the fault the float32 checks must
-refuse.
+An accuracy fault of the float32 forward body on 3xTF32: ``tf32x1`` runs
+the product of ``dstd_mma::Tf32x3Mma::mma_bits`` (``csrc/dstd_mma.cuh``;
+the float32 encoder's, and the float32 one-op forward kernels' in a tree
+where they run 3xTF32) without its two correction products (a.small x
+big, a.big x small): one TF32 product, about 2^-11 relative, the fault
+the float32 checks must refuse.
 """
 
 import argparse

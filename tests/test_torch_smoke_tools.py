@@ -2,9 +2,9 @@
 
 ``chip_smoke.py`` holds the card run to what the compiler and the profiler
 report: registers and spills from ``nvcc -Xptxas -v`` (``ptxas_usage``),
-tensor-core ``HMMA`` instructions per function from ``cuobjdump -sass``
-(``sass_counts``, checked against ``uses_mma``), and the device time of each
-of a backward call's four launches from ``torch.profiler`` keys
+tensor-core ``HMMA`` / ``DMMA`` instructions per function from ``cuobjdump
+-sass`` (``sass_counts``, checked against ``uses_mma``), and the device time
+of each of a backward call's four launches from ``torch.profiler`` keys
 (``bwd_split``).  These tests feed them listings in the tools' formats.  The
 bf16 train step's judgement (``step_verdict``) is held on made-up distances.
 The removal variants of ``fwd_variants.py`` (a kernel's split by phase) must
@@ -41,6 +41,20 @@ def test_sass_counts_hmma_and_instructions_per_function():
         "_ZN8dstd_bwd13reduce_kernelILb0EEEvNS_7BwdArgsE": (0, 2)}
 
 
+def test_sass_counts_the_float64_tensor_core_products():
+    """DMMA (mma.sync .f64, the float32 forward kernels' products) counts
+    as a tensor-core instruction beside HMMA; the CUDA cores' DFMA does
+    not."""
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_115temporal_kernelILi4EN4dstd5ExactEEEvNS1_6OpArgsE
+        /*0000*/          LDC R1, c[0x0][0x28] ;
+        /*0010*/          DMMA.884 R4, R8, R12, R4 ;
+        /*0020*/          DFMA R16, R8, R14, R16 ;
+        /*0030*/          EXIT ;
+"""
+    assert list(cs.sass_counts(sass).values()) == [(1, 4)]
+
+
 @pytest.mark.parametrize("function,mma", [
     ("dstd_bwd::out_kernel<false, 5, dstd::Bf16>", True),
     ("dstd_bwd::out_kernel<false, 1, dstd::Bf16>", True),
@@ -55,9 +69,9 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("dstd_bwd::qk_kernel<true, dstd::Exact>", False),
     ("dstd_bwd::reduce_kernel<false>", False),
     ("dstd_bwd::reduce_kernel<true>", False),
-    # the forward kernels: the spatial one and the encoder chain in both
-    # dtypes and the bf16 temporal one on the tensor cores; the float32
-    # temporal one and the chain kernels on the CUDA cores
+    # the forward kernels: both one-op kernels and the encoder chain in
+    # both dtypes on the tensor cores; the chain kernels on the CUDA
+    # cores
     ("spatial_kernel<5, dstd::Bf16>", True),
     ("spatial_kernel<1, dstd::Bf16>", True),
     ("temporal_kernel<6, dstd::Bf16>", True),
@@ -65,8 +79,8 @@ def test_sass_counts_hmma_and_instructions_per_function():
     ("spatial_kernel<5, dstd::Exact>", True),
     ("spatial_kernel<2, dstd::Exact>", True),
     ("spatial_kernel<8, dstd::Exact>", True),
-    ("temporal_kernel<6, dstd::Exact>", False),
-    ("temporal_kernel<1, dstd::Exact>", False),
+    ("temporal_kernel<6, dstd::Exact>", True),
+    ("temporal_kernel<1, dstd::Exact>", True),
     ("chain_kernel<5, false, dstd::Bf16>", False),
     ("chain_kernel<5, true, dstd::Bf16>", True),
     ("chain_kernel<1, true, dstd::Bf16>", True),

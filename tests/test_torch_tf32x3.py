@@ -1,6 +1,6 @@
 """The numerics of the float32 kernels' tensor-core products
-(``dstdgcn_tpu_torch/csrc/dstd_mma.cuh::Tf32x3Mma``: the backward kernels,
-the spatial forward kernel and the float32 encoder), emulated in numpy.
+(``dstdgcn_tpu_torch/csrc/dstd_mma.cuh::Tf32x3Mma``: the backward kernels
+and the float32 encoder), emulated in numpy.
 
 A TF32 operand keeps 10 mantissa bits.  3xTF32 splits each operand x into
 big = tf32(x), rounded to nearest with ties away from zero (the rounding
