@@ -19,9 +19,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    backward libraries (``cuobjdump``): some in passes 2 and 3 of every
    backward kernel (bf16 ``mma.sync`` in 5b and 6b, 3xTF32 in 5 and 6:
    ``MMA_FUNCTIONS``), in both forward kernels (float64 in 1 and 2, bf16
-   in 1b and 2b) and both encoder chains (3xTF32 in 4, bf16 in 4b:
-   ``MMA_FORWARD``), none in the q/k and reduction launches or the chain
-   kernels (3, 3b);
+   in 1b and 2b), both encoder chains (3xTF32 in 4, bf16 in 4b) and the
+   bf16 chain (3b: ``MMA_FORWARD``), none in the q/k and reduction
+   launches or the float32 chain kernel (3);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -322,15 +322,17 @@ MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 #: the forward functions that run every product but q/k on the tensor
 #: cores in the body of ``csrc/dstd_fwd_mma.cuh``: the spatial and the
 #: temporal kernel in both dtypes (1 and 2 on float64 ``mma.sync``, 1b and
-#: 2b on bf16) and the encoder chain in both (4 on 3xTF32, 4b on bf16:
-#: ``chain_kernel<TILE, kEncoder, Rnd>`` with kEncoder true); the chain
-#: kernels (3, 3b) keep the CUDA-core bodies of ``csrc/dstd_common.cuh``
+#: 2b on bf16), the encoder chain in both (4 on 3xTF32, 4b on bf16:
+#: ``chain_kernel<TILE, kEncoder, Rnd>`` with kEncoder true) and the bf16
+#: chain (3b: kEncoder false, Rnd ``dstd::Bf16``); the float32 chain (3)
+#: keeps the CUDA-core bodies of ``csrc/dstd_common.cuh``
 MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<",
                "chain_kernel<")
 
 
 def _mma_forward(function):
-    return not function.startswith("chain_kernel<") or ", true, " in function
+    return not (function.startswith("chain_kernel<")
+                and function.endswith(", false, dstd::Exact>"))
 
 
 #: the libraries whose SASS phase 2 reads

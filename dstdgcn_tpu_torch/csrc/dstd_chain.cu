@@ -41,10 +41,12 @@
 // float32 activation rounded to bf16 where it is staged (the contract's
 // rounding point); dstd_encoder_chain_f32 on 3xTF32 (float32-accurate,
 // each depth step summed in a zeroed accumulator) in the body's float32
-// order and layout.  The chain kernels dstd_chain_{f32,bf16} keep the
-// CUDA-core bodies dstd::spatial_op and dstd::temporal_op
-// (dstd_common.cuh).  In all of them the q/k projections are split over
-// the cluster and exchanged through distributed shared memory.
+// order and layout.  The bf16 chain kernel dstd_chain_bf16 runs the same
+// bf16 body with a plain store into `mid` and the layer output; the
+// float32 chain kernel dstd_chain_f32 keeps the CUDA-core bodies
+// dstd::spatial_op and dstd::temporal_op (dstd_common.cuh).  In all of
+// them the q/k projections are split over the cluster and exchanged
+// through distributed shared memory.
 //
 // Where the activation lives between ops.  Every op couples the whole
 // sample (the spatial op mixes all frames' scores, the temporal op all
@@ -77,9 +79,10 @@
 // the compiler takes 128, one block per SM, and a batch-32 call then runs
 // in two waves), so two blocks per SM: a batch-32 call is 32 clusters of 7
 // blocks (224 blocks on 132 SMs), a batch-1 call one cluster.  Every
-// variant spills under the cap (ptxas -v, PERF.md): the chain kernels'
-// CUDA-core bodies are plain float32 FMA, the bf16 chain rounding each
-// contraction operand where the op bodies load or store it.
+// variant spills under the cap (ptxas -v, PERF.md); the bf16 chain
+// kernel's tensor-core body takes 108,848 B at tile 5, two blocks an SM
+// as the encoders'.  The float32 chain kernel's CUDA-core bodies are
+// plain float32 FMA.
 #include <type_traits>
 
 #include "dstd_common.cuh"
@@ -182,8 +185,8 @@ __device__ inline void publish() {
 }
 
 // The tensor-core products of an encoder's ops: bf16 mma.sync at Bf16,
-// 3xTF32 at Exact (the chain kernels keep the CUDA-core op bodies of
-// dstd_common.cuh).
+// 3xTF32 at Exact (the float32 chain kernel keeps the CUDA-core op bodies
+// of dstd_common.cuh).
 template <typename Rnd>
 using MmaOf = std::conditional_t<std::is_same_v<Rnd, dstd::Bf16>,
                                  dstd_mma::Bf16Mma, dstd_mma::Tf32x3Mma>;
@@ -218,6 +221,17 @@ __global__ void __launch_bounds__(kThreads, 2)
           ta, bytes, n, w0, wn, c.tt, nblk,
           LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
                             __ldg(c.prelu + 2 * l + 1), c.C});
+    } else if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
+      // the bf16 chain: the same tensor-core body, a plain store
+      const int nblk = (int)cg::this_cluster().num_blocks();
+      char* bytes = reinterpret_cast<char*>(smem4);
+      dstd_fwd::op_mma<true, dstd_mma::Bf16Mma, true>(
+          sa, bytes, n, t0, tn, c.ts, nblk,
+          dstd_fwd::PairStore{c.mid + sample, c.C});
+      publish();
+      dstd_fwd::op_mma<false, dstd_mma::Bf16Mma, true>(
+          ta, bytes, n, w0, wn, c.tt, nblk,
+          dstd_fwd::PairStore{out + sample, c.C});
     } else {
       dstd::spatial_op<TILE, true, Rnd>(sa, smem, n, t0, tn,
                                         dstd::PlainStore{c.mid + sample, c.C});
@@ -263,11 +277,15 @@ cudaError_t launch(ChainArgs c, int N, int tile, int device,
   c.tt = (c.V + nblk - 1) / nblk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  // the tensor-core body (both encoders, the bf16 chain) or the float32
+  // chain's CUDA-core bodies
+  constexpr bool kBf16 = std::is_same_v<Rnd, dstd::Bf16>;
   const size_t bytes =
-      kEncoder ? (size_t)mma_smem_bytes(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile,
-                                        !std::is_same_v<Rnd, dstd::Bf16>)
-               : (size_t)smem_floats(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile) *
-                     sizeof(float);
+      kEncoder || kBf16
+          ? (size_t)mma_smem_bytes(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile,
+                                   !kBf16)
+          : (size_t)smem_floats(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile) *
+                sizeof(float);
   switch (tile) {
 #define DSTD_CHAIN_CASE(TL)                                                 \
   case TL:                                                                  \
@@ -322,11 +340,16 @@ int run_chain(const float* x, const float* const* w, const float* aff1,
 extern "C" {
 
 // Shared memory of one block at (T, V, C, Ks, Kt, R, tile), in bytes: the
-// chain kernels' CUDA-core bodies (both variants), then the float32 and the
-// bf16 encoder's tensor-core body.
+// float32 chain kernel's CUDA-core bodies, the bf16 chain kernel's
+// tensor-core body, then the float32 and the bf16 encoder's.
 long long dstd_chain_smem_bytes(int T, int V, int C, int Ks, int Kt, int R,
                                 int tile) {
   return smem_floats(T, V, C, Ks, Kt, R, tile) * (long long)sizeof(float);
+}
+
+long long dstd_chain_bf16_smem_bytes(int T, int V, int C, int Ks, int Kt,
+                                     int R, int tile) {
+  return mma_smem_bytes(T, V, C, Ks, Kt, R, tile, false);
 }
 
 long long dstd_encoder_chain_f32_smem_bytes(int T, int V, int C, int Ks,

@@ -3,9 +3,9 @@
 // float32 one-op kernels dstd_spatial_f32 and dstd_temporal_f32, 3xTF32
 // (dstd_mma::Tf32x3Mma) for the ten ops of dstd_encoder_chain_f32
 // (dstd_chain.cu), bf16 (dstd_mma::Bf16Mma) for dstd_spatial_bf16,
-// dstd_temporal_bf16 and the ten ops of dstd_encoder_chain_bf16.  The
-// chain kernels dstd_chain_{f32,bf16} keep the CUDA-core bodies of
-// dstd_common.cuh.
+// dstd_temporal_bf16 and the ten ops of dstd_encoder_chain_bf16 and of
+// dstd_chain_bf16.  The float32 chain kernel dstd_chain_f32 keeps the
+// CUDA-core bodies of dstd_common.cuh.
 //
 // Contract: dstdgcn_tpu_torch/ops/dstd.py::kernel_spatial / kernel_temporal
 // with the kernel's dtype.  At bf16, the TPU kernels' compute dtype, the

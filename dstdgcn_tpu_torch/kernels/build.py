@@ -92,10 +92,11 @@ SIGNATURES = {
         **{f"dstd_encoder_chain_{v}": ([_PTR, _PTRS] + [_PTR] * 5
                                        + [_INT] * 11 + [_PTR], ctypes.c_int)
            for v in ("f32", "bf16")},
-        # (T, V, C, Ks, Kt, R, tile): the chain kernels' CUDA-core bodies,
-        # and each encoder's (its tensor-core body has a layout of its own
-        # in each element kind)
+        # (T, V, C, Ks, Kt, R, tile): the float32 chain kernel's CUDA-core
+        # bodies, the bf16 chain kernel's and each encoder's tensor-core
+        # body (a layout of its own in each element kind)
         "dstd_chain_smem_bytes": ([_INT] * 7, _SIZE),
+        "dstd_chain_bf16_smem_bytes": ([_INT] * 7, _SIZE),
         **{f"dstd_encoder_chain_{v}_smem_bytes": ([_INT] * 7, _SIZE)
            for v in ("f32", "bf16")},
     },
@@ -124,7 +125,7 @@ SMEM_BYTES = {
     **{(op, "bf16"): f"{op}_smem_bytes"
        for op in ("dstd_spatial_bwd", "dstd_temporal_bwd")},
     ("dstd_chain", "f32"): "dstd_chain_smem_bytes",
-    ("dstd_chain", "bf16"): "dstd_chain_smem_bytes",
+    ("dstd_chain", "bf16"): "dstd_chain_bf16_smem_bytes",
     **{("dstd_encoder_chain", v): f"dstd_encoder_chain_{v}_smem_bytes"
        for v in ("f32", "bf16")},
 }

@@ -70,8 +70,8 @@ def test_sass_counts_the_float64_tensor_core_products():
     ("dstd_bwd::reduce_kernel<false>", False),
     ("dstd_bwd::reduce_kernel<true>", False),
     # the forward kernels: both one-op kernels and the encoder chain in
-    # both dtypes on the tensor cores; the chain kernels on the CUDA
-    # cores
+    # both dtypes and the bf16 chain on the tensor cores; the float32
+    # chain on the CUDA cores
     ("spatial_kernel<5, dstd::Bf16>", True),
     ("spatial_kernel<1, dstd::Bf16>", True),
     ("temporal_kernel<6, dstd::Bf16>", True),
@@ -81,7 +81,8 @@ def test_sass_counts_the_float64_tensor_core_products():
     ("spatial_kernel<8, dstd::Exact>", True),
     ("temporal_kernel<6, dstd::Exact>", True),
     ("temporal_kernel<1, dstd::Exact>", True),
-    ("chain_kernel<5, false, dstd::Bf16>", False),
+    ("chain_kernel<5, false, dstd::Bf16>", True),
+    ("chain_kernel<1, false, dstd::Bf16>", True),
     ("chain_kernel<5, true, dstd::Bf16>", True),
     ("chain_kernel<1, true, dstd::Bf16>", True),
     ("chain_kernel<8, true, dstd::Bf16>", True),
