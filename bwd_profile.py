@@ -4,8 +4,8 @@ forward) kernels on one NVIDIA GPU, for the A/B of kernel versions.
 
     python3 bwd_profile.py OUT_DIR [--tree DIR] [--label L]
                            [--modes temporal,spatial] [--dtype D]
-                           [--tile K] [--forward] [--chain [--layers L]]
-                           [--chain [encoder|chain]]
+                           [--tile K] [--forward]
+                           [--chain [encoder|chain] [--layers L]]
                            [--chain-grad [--draws D | --card-seeds]
                                          [--fault F]]
                            [--autograd-draws D [--fault F]]

@@ -63,8 +63,8 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    layers); a layer or the five layers past the fraction still held where
    the kernel lies near the float64 run of the bf16 contract
    (``chain_held``: F64_NOISE times the plain contract's distance to it,
-   printed beside); the N=128 call timed beside the float32 kernel at N=128 and the
-   bf16 kernel at N=32;
+   printed beside); the N=128 call timed beside the float32 kernel at
+   N=128 and the bf16 kernel at N=32;
 4. the serving slice: ``dstdgcn_tpu_torch.main.run`` on the config
    ``synthetic_h36m_serving`` (full-width H36M DSTD-GCN, random weights from
    seed 777) on ``cuda``: finite per-frame MPJPE, wall time per batch, and
@@ -411,9 +411,10 @@ def demangle(names):
 
 def sass_mma(path):
     """{kernel: (number of tensor-core ``HMMA`` and ``DMMA``
-    instructions, of all instructions)} of each function in the SASS of the built library at
-    ``path`` (``cuobjdump -sass``); fails where the toolkit has no
-    cuobjdump, since the tensor-core check cannot run without it."""
+    instructions, of all instructions)} of each function in the SASS of
+    the built library at ``path`` (``cuobjdump -sass``); fails where the
+    toolkit has no cuobjdump, since the tensor-core check cannot run
+    without it."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.access(tool, os.X_OK), "no cuobjdump: the SASS of the "
@@ -893,14 +894,14 @@ def chain_held(err, gap, frac, kernel64, *plain64):
                                                 F64_NOISE * max(plain64))
 
 
-def rounding_deltas(torch, shape, ops, seed, device="cpu",
-                    runs=ROUNDING_RUNS, unit=ROUNDING_UNIT):
-    """[[d of each of ``ops`` ops] for each of ``runs`` runs]: float32
-    tensors of ``shape`` uniform in +-``unit`` from a generator on
+def rounding_deltas(torch, shape, ops, seed, device="cpu"):
+    """[[d of each of ``ops`` ops] for each of ROUNDING_RUNS runs]: float32
+    tensors of ``shape`` uniform in +-ROUNDING_UNIT from a generator on
     ``device`` seeded with ``seed``, the same for the same arguments."""
     gen = torch.Generator(device).manual_seed(seed)
-    return [[(torch.rand(shape, generator=gen, device=device) * 2 - 1) * unit
-             for _ in range(ops)] for _ in range(runs)]
+    return [[(torch.rand(shape, generator=gen, device=device) * 2 - 1)
+             * ROUNDING_UNIT for _ in range(ops)]
+            for _ in range(ROUNDING_RUNS)]
 
 
 def rounded_chain(fused, x, blocks, agg, deltas):

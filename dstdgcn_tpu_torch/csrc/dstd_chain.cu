@@ -233,11 +233,11 @@ __global__ void __launch_bounds__(kThreads, 2)
           ta, bytes, n, w0, wn, c.tt, nblk,
           dstd_fwd::PairStore{out + sample, c.C});
     } else {
-      dstd::spatial_op<TILE, true, Rnd>(sa, smem, n, t0, tn,
-                                        dstd::PlainStore{c.mid + sample, c.C});
+      dstd::spatial_op<TILE>(sa, smem, n, t0, tn,
+                             dstd::PlainStore{c.mid + sample, c.C});
       publish();
-      dstd::temporal_op<TILE, true, Rnd>(ta, smem, n, w0, wn,
-                                         dstd::PlainStore{out + sample, c.C});
+      dstd::temporal_op<TILE>(ta, smem, n, w0, wn,
+                              dstd::PlainStore{out + sample, c.C});
     }
     publish();
     in = out;

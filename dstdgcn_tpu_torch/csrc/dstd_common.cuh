@@ -47,9 +47,9 @@ struct OpArgs {
 // float32 kernels).  Bf16 rounds an operand to the nearest bfloat16 (ties to
 // even) and widens it back: the product of two bf16 values is exact in
 // float32, so float32 FMAs over rounded operands compute the bf16 kernels'
-// function, bf16 inputs with float32 products and sums.  The op bodies
-// apply the policy where an operand is loaded into a product, or once where
-// it is stored for products alone.
+// function, bf16 inputs with float32 products and sums.  The backward
+// bodies (dstd_bwd_common.cuh) apply the policy where an operand is loaded
+// into a product, or once where it is stored for products alone.
 struct Exact {
   __device__ static float r(float v) { return v; }
 };
@@ -58,11 +58,6 @@ struct Bf16 {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
-
-template <typename Rnd>
-__device__ inline float4 round4f(const float4& v) {
-  return make_float4(Rnd::r(v.x), Rnd::r(v.y), Rnd::r(v.z), Rnd::r(v.w));
-}
 
 // shared-memory sub-buffers start at multiples of 4 floats (float4 access)
 __host__ __device__ inline long long round4(long long n) {
@@ -74,16 +69,6 @@ __device__ inline void fma4(float s, const float4& v, float4& acc) {
   acc.y = fmaf(s, v.y, acc.y);
   acc.z = fmaf(s, v.z, acc.z);
   acc.w = fmaf(s, v.w, acc.w);
-}
-
-// A load of the op input x.  The one-op kernels read an x that no block of
-// the launch writes, through the read-only data path (__ldg).  The chain
-// kernels read activations that other blocks of the same launch wrote, so
-// they load at L2 (__ldcg, past the SM's own L1, which is not coherent with
-// other SMs' writes).
-template <bool kCoherent>
-__device__ inline float load_x(const float* p) {
-  return kCoherent ? __ldcg(p) : __ldg(p);
 }
 
 // Shared-memory layout of one spatial block (offsets in floats, each a
@@ -135,18 +120,16 @@ struct PlainStore {
   }
 };
 
-// q/k projection weights staged as wqk[ci][j] (rounded: they feed the
-// projection alone) and biases as bqk[j], column j = k*2R + r for the query
-// side and k*2R + R + r for the key side.
-template <typename Rnd = Exact>
+// q/k projection weights staged as wqk[ci][j] and biases as bqk[j],
+// column j = k*2R + r for the query side and k*2R + R + r for the key side.
 __device__ inline void stage_qk_weights(float* wqk, float* bqk,
                                         const OpArgs& a) {
   const int Ci = a.Ci, R = a.R, J = a.K * 2 * a.R;
   for (int i = threadIdx.x; i < Ci * J; i += blockDim.x) {
     const int ci = i / J, j = i - ci * J;
     const int k = j / (2 * R), jr = j - k * 2 * R;
-    wqk[i] = Rnd::r(jr < R ? a.wm1[(k * Ci + ci) * R + jr]
-                           : a.wm2[(k * Ci + ci) * R + jr - R]);
+    wqk[i] = jr < R ? a.wm1[(k * Ci + ci) * R + jr]
+                    : a.wm2[(k * Ci + ci) * R + jr - R];
   }
   for (int j = threadIdx.x; j < J; j += blockDim.x) {
     const int k = j / (2 * R), jr = j - k * 2 * R;
@@ -161,10 +144,9 @@ __device__ inline void stage_qk_weights(float* wqk, float* bqk,
 // rows, one thread per (row, column) with the column fastest (the threads
 // of a row share each x load), then copies the other shares from the other
 // blocks' shared memory; the barrier after the copy keeps every block's
-// rows alive until all have read them.  Launched without a cluster (one
-// block per cluster) a block projects every row.  q/k stay float32 (x is
-// rounded here, the weights when they were staged).
-template <bool kCoherent = false, typename Rnd = Exact>
+// rows alive until all have read them.  x is the chain's activation, which
+// other blocks of the launch wrote: it is read at L2 (__ldcg, past the
+// SM's own L1, which is not coherent with other SMs' writes).
 __device__ inline void project_qk(const OpArgs& a, const float* xn,
                                   const float* wqk, const float* bqk,
                                   float* qk, bool joints_major) {
@@ -180,7 +162,7 @@ __device__ inline void project_qk(const OpArgs& a, const float* xn,
     const float* xr = xn + (size_t)row * Ci;
     float acc = 0.f;
     for (int ci = 0; ci < Ci; ++ci)
-      acc = fmaf(Rnd::r(load_x<kCoherent>(xr + ci)), wqk[ci * J + j], acc);
+      acc = fmaf(__ldcg(xr + ci), wqk[ci * J + j], acc);
     const int slot = joints_major ? (row % V) * T + row / V : row;
     qk[j * rows + slot] = acc + bqk[j];
   }
@@ -201,10 +183,9 @@ __device__ inline void project_qk(const OpArgs& a, const float* xn,
 // Feature projection of `rows` input rows: xf[k][dst(row)][c] =
 // x_row @ wf[k] + bf[k], rows read from device memory (L1/L2).  src(row)
 // and dst(row) give a row's offset in x (in rows) and in xf (in rows).
-// With Co % 4 == 0 each thread produces 4 channels from float4 weights.  The
-// features feed the aggregation alone, so they are stored rounded.
-template <bool kCoherent = false, typename Rnd = Exact, typename SrcRow,
-          typename DstRow>
+// With Co % 4 == 0 each thread produces 4 channels from float4 weights.  x
+// is read at L2, as in project_qk.
+template <typename SrcRow, typename DstRow>
 __device__ inline void project_features(const OpArgs& a, const float* xn,
                                         float* xf, int rows, int xf_kstride,
                                         SrcRow src, DstRow dst) {
@@ -219,8 +200,7 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
           reinterpret_cast<const float4*>(a.wf + (size_t)k * Ci * Co) + c4;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int ci = 0; ci < Ci; ++ci)
-        fma4(Rnd::r(load_x<kCoherent>(xr + ci)),
-             round4f<Rnd>(__ldg(wk + (size_t)ci * C4)), acc);
+        fma4(__ldcg(xr + ci), __ldg(wk + (size_t)ci * C4), acc);
       const float4 b = __ldg(reinterpret_cast<const float4*>(a.bf + k * Co) +
                              c4);
       acc.x += b.x;
@@ -228,7 +208,7 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
       acc.z += b.z;
       acc.w += b.w;
       reinterpret_cast<float4*>(xf + (size_t)k * xf_kstride +
-                                (size_t)dst(row) * Co)[c4] = round4f<Rnd>(acc);
+                                (size_t)dst(row) * Co)[c4] = acc;
     }
   } else {
     for (int i = threadIdx.x; i < a.K * rows * Co; i += blockDim.x) {
@@ -238,10 +218,9 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
       const float* wk = a.wf + (size_t)k * Ci * Co + c;
       float acc = 0.f;
       for (int ci = 0; ci < Ci; ++ci)
-        acc = fmaf(Rnd::r(load_x<kCoherent>(xr + ci)),
-                   Rnd::r(__ldg(wk + (size_t)ci * Co)), acc);
+        acc = fmaf(__ldcg(xr + ci), __ldg(wk + (size_t)ci * Co), acc);
       xf[(size_t)k * xf_kstride + (size_t)dst(row) * Co + c] =
-          Rnd::r(acc + __ldg(a.bf + k * Co + c));
+          acc + __ldg(a.bf + k * Co + c);
     }
   }
 }
@@ -253,10 +232,9 @@ __device__ inline void project_features(const OpArgs& a, const float* xn,
 // the whole sample's q/k (project_qk).  Then it builds the tile's adjacency
 // in shared memory, one thread per (k, v, w) pair with the tile's output
 // frames in registers (tanh scores recomputed per tile, mixing weights read
-// as float4), projects the tile's features and aggregates.  Rnd rounds the
-// contraction operands (x, wqk, wf, the scores, wrm, the features and the
-// adjacency); q/k, the mixing sums and the output stay float32.
-template <int TILE, bool kCoherent, typename Rnd = Exact, typename Store>
+// as float4), projects the tile's features and aggregates: plain float32
+// FMA, the body of the float32 chain kernel (dstd_chain.cu).
+template <int TILE, typename Store>
 __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
                            int tn, const Store& store) {
   constexpr int TP = (TILE + 3) & ~3;  // wmix row stride (float4 loads)
@@ -273,15 +251,15 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
   const float* xn = a.x + (size_t)n * TV * a.Ci;
 
   // stage the q/k weights and the tile's columns of the mixing weights
-  stage_qk_weights<Rnd>(wqk, bqk, a);
+  stage_qk_weights(wqk, bqk, a);
   for (int i = threadIdx.x; i < K * R * T * TP; i += blockDim.x) {
     const int tt = i % TP, krs = i / TP;  // krs = (k*R + r)*T + s
-    wmix[i] = tt < tn ? Rnd::r(a.wrm[(size_t)krs * T + t0 + tt]) : 0.f;
+    wmix[i] = tt < tn ? a.wrm[(size_t)krs * T + t0 + tt] : 0.f;
   }
   __syncthreads();
 
   // q/k of every source frame of the sample
-  project_qk<kCoherent, Rnd>(a, xn, wqk, bqk, qk, false);
+  project_qk(a, xn, wqk, bqk, qk, false);
   __syncthreads();
 
   // dynamic adjacency of the tile's output frames: one thread per (k, v, w)
@@ -297,7 +275,7 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
           reinterpret_cast<const float4*>(wmix + (k * R + r) * T * TP);
 #pragma unroll 4
       for (int s = 0; s < T; ++s) {
-        const float sc = Rnd::r(tanhf(qr[s * V] - kr[s * V]));
+        const float sc = tanhf(qr[s * V] - kr[s * V]);
 #pragma unroll
         for (int q = 0; q < TP / 4; ++q) {
           const float4 m = wm[s * (TP / 4) + q];
@@ -313,12 +291,12 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
     for (int tt = 0; tt < TILE; ++tt)
       if (tt < tn)
         adj[(k * TILE + tt) * VV + vw] =
-            Rnd::r((acc[tt] + __ldg(a.brm + k * T + t0 + tt)) * alpha + b);
+            (acc[tt] + __ldg(a.brm + k * T + t0 + tt)) * alpha + b;
   }
 
   // feature projection of the tile's rows (contiguous in x)
   const int rows = tn * V;
-  project_features<kCoherent, Rnd>(
+  project_features(
       a, xn, xf, rows, TILE * V * Co,
       [t0, V](int row) { return t0 * V + row; }, [](int row) { return row; });
   __syncthreads();
@@ -371,8 +349,8 @@ __device__ void spatial_op(const OpArgs& a, float* smem, int n, int t0,
 // joints, so the block needs the whole sample's q/k.  Then it builds the
 // tile's (T, T) adjacencies in shared memory, one thread per (k, t, u) pair
 // with the tile's joints in registers, projects the features of the tile's
-// joints over all frames and aggregates over frames.  Rnd as in spatial_op.
-template <int TILE, bool kCoherent, typename Rnd = Exact, typename Store>
+// joints over all frames and aggregates over frames, as spatial_op.
+template <int TILE, typename Store>
 __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
                             int wn, const Store& store) {
   constexpr int TP = (TILE + 3) & ~3;  // wmix row stride (float4 loads)
@@ -389,15 +367,15 @@ __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
   const float* xn = a.x + (size_t)n * TV * a.Ci;
 
   // stage the q/k weights and the tile's columns of the mixing weights
-  stage_qk_weights<Rnd>(wqk, bqk, a);
+  stage_qk_weights(wqk, bqk, a);
   for (int i = threadIdx.x; i < K * R * V * TP; i += blockDim.x) {
     const int j = i % TP, krv = i / TP;  // krv = (k*R + r)*V + v
-    wmix[i] = j < wn ? Rnd::r(a.wrm[(size_t)krv * V + w0 + j]) : 0.f;
+    wmix[i] = j < wn ? a.wrm[(size_t)krv * V + w0 + j] : 0.f;
   }
   __syncthreads();
 
   // q/k of every (frame, joint) of the sample, stored joints-major
-  project_qk<kCoherent, Rnd>(a, xn, wqk, bqk, qk, true);
+  project_qk(a, xn, wqk, bqk, qk, true);
   __syncthreads();
 
   // dynamic adjacency of the tile's output joints: one thread per (k, t, u)
@@ -413,7 +391,7 @@ __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
           reinterpret_cast<const float4*>(wmix + (k * R + r) * V * TP);
 #pragma unroll 4
       for (int v = 0; v < V; ++v) {
-        const float sc = Rnd::r(tanhf(qr[v * T] - kr[v * T]));
+        const float sc = tanhf(qr[v * T] - kr[v * T]);
 #pragma unroll
         for (int q = 0; q < TP / 4; ++q) {
           const float4 m = wm[v * (TP / 4) + q];
@@ -429,12 +407,12 @@ __device__ void temporal_op(const OpArgs& a, float* smem, int n, int w0,
     for (int j = 0; j < TILE; ++j)
       if (j < wn)
         adj[(k * TILE + j) * TT + tu] =
-            Rnd::r((acc[j] + __ldg(a.brm + k * V + w0 + j)) * alpha + b);
+            (acc[j] + __ldg(a.brm + k * V + w0 + j)) * alpha + b;
   }
 
   // feature projection of the tile's joints over all frames; row = t*wn+j
   const int rows = T * wn;
-  project_features<kCoherent, Rnd>(
+  project_features(
       a, xn, xf, rows, T * TILE * Co,
       [w0, wn, V](int row) { return (row / wn) * V + w0 + row % wn; },
       [wn](int row) { return (row / wn) * TILE + row % wn; });

@@ -73,8 +73,8 @@
 //     over k: M = the P output pair indices, N = Co, depth the P source
 //     pair indices; the float32 sums go through the caller's store (the
 //     one-op kernels and the bf16 chain: device memory; the encoder: its
-//     affine, residual and PReLU); then the block waits at barrier 3, so no block leaves
-//     while another reads its shared memory.
+//     affine, residual and PReLU); then the block waits at barrier 3, so
+//     no block leaves while another reads its shared memory.
 // The order of every sum is fixed (no atomics): two calls give the same
 // bits.  Row strides are multiples of 16 bytes with an odd number of
 // 16-byte chunks (ldm_stride), so the 8 rows of one ldmatrix phase hit 8
@@ -528,9 +528,9 @@ __device__ inline void block_mma(int batch, int mtiles, int n8, int S,
 // which other blocks of the launch wrote (read at L2, rounded here at
 // bf16); else x is the one-op kernels' input (bf16 at bf16, else
 // float32).  The float32-staged kinds run the steps in another order to
-// fit the float32 layout (FwdLayout): no projection in step 2, the scores formed in the
-// mixing's fragments, and step 6 projects and aggregates one group of gw
-// output channels at a time.  Every thread of every block of the cluster
+// fit the float32 layout (FwdLayout): no projection in step 2, the scores
+// formed in the mixing's fragments, and step 6 projects and aggregates
+// one group of gw output channels at a time.  Every thread of every block of the cluster
 // runs every barrier.
 template <bool kSpatial, typename Mma, bool kChain = false, typename Store>
 __device__ void op_mma(const OpArgs& a, char* smem, int n, int o0, int on,

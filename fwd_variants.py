@@ -52,8 +52,8 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-_TANH = "const float sc = Rnd::r(tanhf(qr[s * V] - kr[s * V]));"
-_MIX = """        const float sc = Rnd::r(tanhf(qr[s * V] - kr[s * V]));
+_TANH = "const float sc = tanhf(qr[s * V] - kr[s * V]);"
+_MIX = """        const float sc = tanhf(qr[s * V] - kr[s * V]);
 #pragma unroll
         for (int q = 0; q < TP / 4; ++q) {
           const float4 m = wm[s * (TP / 4) + q];
@@ -63,7 +63,7 @@ _MIX = """        const float sc = Rnd::r(tanhf(qr[s * V] - kr[s * V]));
           if (4 * q + 3 < TILE) acc[4 * q + 3] = fmaf(sc, m.w, acc[4 * q + 3]);
         }"""
 _ADJ = "for (int p = threadIdx.x; tn > 0 && p < K * VV; p += blockDim.x) {"
-_FEAT = """  project_features<kCoherent, Rnd>(
+_FEAT = """  project_features(
       a, xn, xf, rows, TILE * V * Co,"""
 _AGG4 = """    for (int i = threadIdx.x; i < rows * C4; i += blockDim.x) {
       const int row = i / C4, c4 = i - row * C4;
@@ -72,11 +72,11 @@ _AGG1 = """    for (int i = threadIdx.x; i < rows * Co; i += blockDim.x) {
       const int row = i / Co, c = i - row * Co;
       const int tt = row / V, av = row - tt * V;"""
 # the same phases of the CUDA-core temporal body dstd::temporal_op
-_TANH_T = "const float sc = Rnd::r(tanhf(qr[v * T] - kr[v * T]));"
+_TANH_T = "const float sc = tanhf(qr[v * T] - kr[v * T]);"
 _MIX_T = _MIX.replace("qr[s * V] - kr[s * V]", "qr[v * T] - kr[v * T]") \
     .replace("wm[s * (TP / 4) + q]", "wm[v * (TP / 4) + q]")
 _ADJ_T = "for (int p = threadIdx.x; wn > 0 && p < K * TT; p += blockDim.x) {"
-_FEAT_T = """  project_features<kCoherent, Rnd>(
+_FEAT_T = """  project_features(
       a, xn, xf, rows, T * TILE * Co,"""
 _AGG4_T = """    for (int i = threadIdx.x; i < rows * C4; i += blockDim.x) {
       const int row = i / C4, c4 = i - row * C4;

@@ -395,11 +395,12 @@ def test_float32_forward_kernels_tiles_and_ragged_shapes(
         cuda, mode, tile, n, t, v, cin, co, agg):
     """The float32 forward kernels at the tile cases: both ops' projection,
     mixing and aggregation run on float64 tensor-core products (16 x 8 x 8
-    tiles, each as four 8 x 8 x 4: V of 7, 22 and 25 joints are ragged rows and depths of the
-    spatial aggregation and of the temporal mixing's depth R V, T of 9, 35
-    and 40 frames of the spatial mixing's depth R T and of the temporal
-    aggregation), a sample's blocks as one cluster (the wrapper raises a
-    tile whose blocks would not fit in one)."""
+    tiles, each as four 8 x 8 x 4: V of 7, 22 and 25 joints are ragged
+    rows and depths of the spatial aggregation and of the temporal
+    mixing's depth R V, T of 9, 35 and 40 frames of the spatial mixing's
+    depth R T and of the temporal aggregation), a sample's blocks as one
+    cluster (the wrapper raises a tile whose blocks would not fit in
+    one)."""
     held, repeat = _tile_case(mode, tile, n, t, v, cin, co, agg, cuda, None,
                               passes=("forward",))
     assert repeat
