@@ -19,9 +19,8 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    backward libraries (``cuobjdump``): some in passes 2 and 3 of every
    backward kernel (bf16 ``mma.sync`` in 5b and 6b, 3xTF32 in 5 and 6:
    ``MMA_FUNCTIONS``), in both forward kernels (float64 in 1 and 2, bf16
-   in 1b and 2b), both encoder chains (3xTF32 in 4, bf16 in 4b) and the
-   bf16 chain (3b: ``MMA_FORWARD``), none in the q/k and reduction
-   launches or the float32 chain kernel (3);
+   in 1b and 2b) and all four chain kernels (3xTF32 in 3 and 4, bf16 in
+   3b and 4b: ``MMA_FORWARD``), none in the q/k and reduction launches;
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -40,7 +39,8 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    encoder's input computed by the model on the plain ops (no kernel under
    test computes it: ``encoder_case``):
    ``dstd_encoder_chain`` and ``dstd_chain`` (the layers' ops, each scaled
-   to an output peak of 1) against their plain versions, and the gradients
+   to an output peak of 1) against their plain versions, two calls
+   bit-equal, and the gradients
    of ``dstd_chain`` (x and all 100 weights) against autograd through the
    plain chain, all within 1e-4 max(max |plain|, 1) (the JAX chain test's
    norm), the plain chain in float64 printed beside them.  The bf16
@@ -322,17 +322,9 @@ MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 #: the forward functions that run every product but q/k on the tensor
 #: cores in the body of ``csrc/dstd_fwd_mma.cuh``: the spatial and the
 #: temporal kernel in both dtypes (1 and 2 on float64 ``mma.sync``, 1b and
-#: 2b on bf16), the encoder chain in both (4 on 3xTF32, 4b on bf16:
-#: ``chain_kernel<TILE, kEncoder, Rnd>`` with kEncoder true) and the bf16
-#: chain (3b: kEncoder false, Rnd ``dstd::Bf16``); the float32 chain (3)
-#: keeps the CUDA-core bodies of ``csrc/dstd_common.cuh``
-MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<",
-               "chain_kernel<")
-
-
-def _mma_forward(function):
-    return not (function.startswith("chain_kernel<")
-                and function.endswith(", false, dstd::Exact>"))
+#: 2b on bf16) and every chain instantiation (``chain_kernel<TILE,
+#: kEncoder, Rnd>``: 3 and 4 on 3xTF32, 3b and 4b on bf16)
+MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<", "chain_kernel<")
 
 
 #: the libraries whose SASS phase 2 reads
@@ -341,8 +333,7 @@ SASS_LIBRARIES = ("dstd_spatial", "dstd_temporal", "dstd_chain",
 
 
 def uses_mma(function):
-    return function.startswith(MMA_FUNCTIONS) or (
-        function.startswith(MMA_FORWARD) and _mma_forward(function))
+    return function.startswith(MMA_FUNCTIONS + MMA_FORWARD)
 
 
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
@@ -1928,9 +1919,12 @@ def run_smoke():
 
             before = kernel.launches
             got = call()
+            again = call()
             torch.cuda.synchronize()
-            check(kernel.launches == before + 1,
-                  f"{name} did not count its launch")
+            check(kernel.launches == before + 2,
+                  f"{name} did not count its launches")
+            check(bool(torch.equal(got, again)),
+                  f"{name} agg={agg}: two calls differ")
             want = plain_call()
             abs_err = float((got - want).abs().max())
             norm_err = abs_err / max(float(want.abs().max()), 1.0)

@@ -33,20 +33,17 @@
 // rank r owns output frames [r*ts, r*ts + ts), in a temporal op output
 // joints [r*tt, r*tt + tt), ts = ceil(T / size) and tt = ceil(V / size)
 // both <= TILE (at V=22, tt=4: rank 6 owns no joint, yet forms its share
-// of the scores and meets every barrier).  The encoder, in both variants,
-// runs each op through the tensor-core body dstd_fwd::op_mma
-// (dstd_fwd_mma.cuh, the body of the one-op forward kernels, at the
-// chain's cluster), each score formed once per sample, the epilogue below
-// as its store: dstd_encoder_chain_bf16 on bf16 mma.sync, the layer's
+// of the scores and meets every barrier).  All four entries run each op
+// through the tensor-core body dstd_fwd::op_mma (dstd_fwd_mma.cuh, the
+// body of the one-op forward kernels, at the chain's cluster), each score
+// formed once per sample: the bf16 entries on bf16 mma.sync, the layer's
 // float32 activation rounded to bf16 where it is staged (the contract's
-// rounding point); dstd_encoder_chain_f32 on 3xTF32 (float32-accurate,
-// each depth step summed in a zeroed accumulator) in the body's float32
-// order and layout.  The bf16 chain kernel dstd_chain_bf16 runs the same
-// bf16 body with a plain store into `mid` and the layer output; the
-// float32 chain kernel dstd_chain_f32 keeps the CUDA-core bodies
-// dstd::spatial_op and dstd::temporal_op (dstd_common.cuh).  In all of
-// them the q/k projections are split over the cluster and exchanged
-// through distributed shared memory.
+// rounding point); the float32 entries on 3xTF32 (float32-accurate, each
+// depth step summed in a zeroed accumulator) in the body's float32 order
+// and layout.  The encoder stores through its epilogue below, the chain
+// through a plain store into `mid` and the layer output.  The q/k
+// projections are split over the cluster and exchanged through
+// distributed shared memory.
 //
 // Where the activation lives between ops.  Every op couples the whole
 // sample (the spatial op mixes all frames' scores, the temporal op all
@@ -73,16 +70,13 @@
 // the other blocks' rows with ld.global.cg (at L2, never a stale L1 line).
 // The barrier also orders the reuse of each block's shared memory.
 //
-// Occupancy: at T=35, V=22, C=64 about 107 KB of shared memory per block
-// (the encoders' tensor-core layouts 106 KB at bf16, 101 KB at float32)
-// and at most 64 registers a thread (__launch_bounds__(512, 2); left free
-// the compiler takes 128, one block per SM, and a batch-32 call then runs
-// in two waves), so two blocks per SM: a batch-32 call is 32 clusters of 7
-// blocks (224 blocks on 132 SMs), a batch-1 call one cluster.  Every
-// variant spills under the cap (ptxas -v, PERF.md); the bf16 chain
-// kernel's tensor-core body takes 108,848 B at tile 5, two blocks an SM
-// as the encoders'.  The float32 chain kernel's CUDA-core bodies are
-// plain float32 FMA.
+// Occupancy: at T=35, V=22, C=64 the tensor-core layouts take about 106 KB
+// of shared memory per block at bf16 and 101 KB at float32, and a thread
+// at most 64 registers (__launch_bounds__(512, 2); left free the compiler
+// takes 128, one block per SM, and a batch-32 call then runs in two
+// waves), so two blocks per SM: a batch-32 call is 32 clusters of 7 blocks
+// (224 blocks on 132 SMs), a batch-1 call one cluster.  Every variant
+// spills under the cap (ptxas -v, PERF.md).
 #include <type_traits>
 
 #include "dstd_common.cuh"
@@ -184,9 +178,8 @@ __device__ inline void publish() {
   cg::this_cluster().sync();
 }
 
-// The tensor-core products of an encoder's ops: bf16 mma.sync at Bf16,
-// 3xTF32 at Exact (the float32 chain kernel keeps the CUDA-core op bodies
-// of dstd_common.cuh).
+// The tensor-core products of the ops of every chain instantiation: bf16
+// mma.sync at Bf16, 3xTF32 at Exact.
 template <typename Rnd>
 using MmaOf = std::conditional_t<std::is_same_v<Rnd, dstd::Bf16>,
                                  dstd_mma::Bf16Mma, dstd_mma::Tf32x3Mma>;
@@ -195,8 +188,9 @@ template <int TILE, bool kEncoder, typename Rnd>
 __global__ void __launch_bounds__(kThreads, 2)
     chain_kernel(const ChainArgs c) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  char* bytes = reinterpret_cast<char*>(smem4);
   const int rank = (int)cg::this_cluster().block_rank();
+  const int nblk = (int)cg::this_cluster().num_blocks();
   const int n = blockIdx.y;
   const int t0 = rank * c.ts, tn = max(0, min(c.ts, c.T - t0));
   const int w0 = rank * c.tt, wn = max(0, min(c.tt, c.V - w0));
@@ -210,8 +204,6 @@ __global__ void __launch_bounds__(kThreads, 2)
       const size_t VC = (size_t)c.V * c.C;
       const float* a1 = c.aff1 + 2 * l * VC;
       const float* a2 = c.aff2 + 2 * l * VC;
-      const int nblk = (int)cg::this_cluster().num_blocks();
-      char* bytes = reinterpret_cast<char*>(smem4);
       dstd_fwd::op_mma<true, MmaOf<Rnd>, true>(
           sa, bytes, n, t0, tn, c.ts, nblk,
           LayerStore<true>{c.mid + sample, in + sample, a1, a1 + VC,
@@ -221,33 +213,19 @@ __global__ void __launch_bounds__(kThreads, 2)
           ta, bytes, n, w0, wn, c.tt, nblk,
           LayerStore<false>{out + sample, in + sample, a2, a2 + VC,
                             __ldg(c.prelu + 2 * l + 1), c.C});
-    } else if constexpr (std::is_same_v<Rnd, dstd::Bf16>) {
-      // the bf16 chain: the same tensor-core body, a plain store
-      const int nblk = (int)cg::this_cluster().num_blocks();
-      char* bytes = reinterpret_cast<char*>(smem4);
-      dstd_fwd::op_mma<true, dstd_mma::Bf16Mma, true>(
+    } else {
+      // the chain: the same body, a plain store
+      dstd_fwd::op_mma<true, MmaOf<Rnd>, true>(
           sa, bytes, n, t0, tn, c.ts, nblk,
           dstd_fwd::PairStore{c.mid + sample, c.C});
       publish();
-      dstd_fwd::op_mma<false, dstd_mma::Bf16Mma, true>(
+      dstd_fwd::op_mma<false, MmaOf<Rnd>, true>(
           ta, bytes, n, w0, wn, c.tt, nblk,
           dstd_fwd::PairStore{out + sample, c.C});
-    } else {
-      dstd::spatial_op<TILE>(sa, smem, n, t0, tn,
-                             dstd::PlainStore{c.mid + sample, c.C});
-      publish();
-      dstd::temporal_op<TILE>(ta, smem, n, w0, wn,
-                              dstd::PlainStore{out + sample, c.C});
     }
     publish();
     in = out;
   }
-}
-
-long long smem_floats(int T, int V, int C, int Ks, int Kt, int R, int tile) {
-  const long long s = dstd::SpatialLayout(T, V, C, C, Ks, R, tile).total;
-  const long long t = dstd::TemporalLayout(T, V, C, C, Kt, R, tile).total;
-  return s > t ? s : t;
 }
 
 // The tensor-core body's shared memory, in bytes, for the chain's cluster
@@ -277,15 +255,9 @@ cudaError_t launch(ChainArgs c, int N, int tile, int device,
   c.tt = (c.V + nblk - 1) / nblk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  // the tensor-core body (both encoders, the bf16 chain) or the float32
-  // chain's CUDA-core bodies
-  constexpr bool kBf16 = std::is_same_v<Rnd, dstd::Bf16>;
-  const size_t bytes =
-      kEncoder || kBf16
-          ? (size_t)mma_smem_bytes(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile,
-                                   !kBf16)
-          : (size_t)smem_floats(c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile) *
-                sizeof(float);
+  const size_t bytes = (size_t)mma_smem_bytes(
+      c.T, c.V, c.C, c.Ks, c.Kt, c.R, tile,
+      !std::is_same_v<Rnd, dstd::Bf16>);
   switch (tile) {
 #define DSTD_CHAIN_CASE(TL)                                                 \
   case TL:                                                                  \
@@ -340,11 +312,12 @@ int run_chain(const float* x, const float* const* w, const float* aff1,
 extern "C" {
 
 // Shared memory of one block at (T, V, C, Ks, Kt, R, tile), in bytes: the
-// float32 chain kernel's CUDA-core bodies, the bf16 chain kernel's
-// tensor-core body, then the float32 and the bf16 encoder's.
+// tensor-core body of the float32 and the bf16 chain kernel, then of the
+// float32 and the bf16 encoder (the chain and the encoder of one element
+// kind share a layout).
 long long dstd_chain_smem_bytes(int T, int V, int C, int Ks, int Kt, int R,
                                 int tile) {
-  return smem_floats(T, V, C, Ks, Kt, R, tile) * (long long)sizeof(float);
+  return mma_smem_bytes(T, V, C, Ks, Kt, R, tile, true);
 }
 
 long long dstd_chain_bf16_smem_bytes(int T, int V, int C, int Ks, int Kt,

@@ -1,11 +1,10 @@
 // The DSTD-GC forward op on Hopper's tensor cores, one body templated on
 // the element kind of its products: float64 (F64Mma, below) for the
 // float32 one-op kernels dstd_spatial_f32 and dstd_temporal_f32, 3xTF32
-// (dstd_mma::Tf32x3Mma) for the ten ops of dstd_encoder_chain_f32
-// (dstd_chain.cu), bf16 (dstd_mma::Bf16Mma) for dstd_spatial_bf16,
-// dstd_temporal_bf16 and the ten ops of dstd_encoder_chain_bf16 and of
-// dstd_chain_bf16.  The float32 chain kernel dstd_chain_f32 keeps the
-// CUDA-core bodies of dstd_common.cuh.
+// (dstd_mma::Tf32x3Mma) for the ten ops of dstd_encoder_chain_f32 and of
+// dstd_chain_f32 (dstd_chain.cu), bf16 (dstd_mma::Bf16Mma) for
+// dstd_spatial_bf16, dstd_temporal_bf16 and the ten ops of
+// dstd_encoder_chain_bf16 and of dstd_chain_bf16.
 //
 // Contract: dstdgcn_tpu_torch/ops/dstd.py::kernel_spatial / kernel_temporal
 // with the kernel's dtype.  At bf16, the TPU kernels' compute dtype, the
@@ -51,7 +50,7 @@
 //     its float32 activation here, where the contract rounds it), wqk and
 //     wf;
 //  2. the q/k projection of those rows on the CUDA cores, each sum in the
-//     order of the CUDA-core body and of the backward's q/k launch, and
+//     order of the backward's q/k launch, and
 //     the feature projection xf (batch K, N = Co) on the tensor cores,
 //     both from the one staged x tile;
 //  3. stage wrm (the mixing's B operand), base and brm, their loads in
@@ -61,7 +60,7 @@
 //     over the cluster in 16-row tiles, and each block forms
 //     tanh(q - k) for its pair rows at every depth (r, s), one warp a row
 //     (about 1/7 of the sample's scores at T = 35, tile 5, where the
-//     CUDA-core body formed all of them in each block);
+//     retired CUDA-core body formed all of them in each block);
 //  4. the mixing as a product: for its pair rows, all Q outputs o, depth
 //     (r, s); the epilogue adds brm, scales by alpha, adds base and stores
 //     the adjacency of its pair rows at every o;
@@ -72,7 +71,7 @@
 //  6. the aggregation as a product per output ref index (batch), summed
 //     over k: M = the P output pair indices, N = Co, depth the P source
 //     pair indices; the float32 sums go through the caller's store (the
-//     one-op kernels and the bf16 chain: device memory; the encoder: its
+//     one-op kernels and the chains: device memory; the encoder: its
 //     affine, residual and PReLU); then the block waits at barrier 3, so
 //     no block leaves while another reads its shared memory.
 // The order of every sum is fixed (no atomics): two calls give the same
@@ -662,8 +661,8 @@ __device__ void op_mma(const OpArgs& a, char* smem, int n, int o0, int on,
   auto x_row = [&](int, int, int m) {
     return xt + (m < rows ? m : zx) * L.xs;
   };
-  // q/k on the CUDA cores, each sum over ci in order, as the CUDA-core
-  // body (and the backward's q/k launch) forms it: q/k feed the tanh, and
+  // q/k on the CUDA cores, each sum over ci in order, as the backward's
+  // q/k launch forms it: q/k feed the tanh, and
   // a score whose bf16 rounding flips moves the adjacency; summed on the
   // tensor cores they lay one card test's forward 1.8e-3 from the float64
   // run of the contract, where the plain contract lies 5e-8 (PERF.md)

@@ -30,11 +30,13 @@ float32 temporal kernel, the float32 encoder and the bf16 chain before
 their tensor-core redesigns), named with a ``_t``: ``notanh_t``, ``nomix_t``,
 ``noadj_t``, ``nofeat_t``, ``noagg_t``, ``qkonly_t``.
 
-Variants of the whole-encoder kernel (``csrc/dstd_chain.cu``, the encoder
-instantiations ``chain_kernel<*, true, *>``, both dtypes):
+Variants of the chain kernels (``csrc/dstd_chain.cu``, both dtypes):
 ``nospatial_mma`` and ``notemporal_mma`` skip that op's tensor-core body
-(``dstd_fwd::op_mma``) in every layer (its output buffer is then left as
-it was).  Variants change what the kernel computes: their errors mean
+(``dstd_fwd::op_mma``) in every layer of the whole-encoder kernel
+(``chain_kernel<*, true, *>``), ``nospatial_mma_chain`` and
+``notemporal_mma_chain`` in every layer of the chain kernel
+(``chain_kernel<*, false, *>``); the op's output buffer is then left as it
+was.  Variants change what the kernel computes: their errors mean
 nothing, only their times.
 
 An accuracy fault of the float32 forward body on 3xTF32: ``tf32x1`` runs
@@ -84,10 +86,20 @@ _AGG4_T = """    for (int i = threadIdx.x; i < rows * C4; i += blockDim.x) {
 _AGG1_T = """    for (int i = threadIdx.x; i < rows * Co; i += blockDim.x) {
       const int row = i / Co, c = i - row * Co;
       const int at = row / wn, j = row - at * wn;"""
-# the encoder's op calls in chain_kernel (the tensor-core body of both
-# dtypes)
-_MMA_SPATIAL = "dstd_fwd::op_mma<true, MmaOf<Rnd>, true>("
-_MMA_TEMPORAL = "dstd_fwd::op_mma<false, MmaOf<Rnd>, true>("
+# the op calls in chain_kernel (the tensor-core body of both dtypes), each
+# named by its store: the encoder's epilogue or the chain's plain store
+_MMA_SPATIAL = """dstd_fwd::op_mma<true, MmaOf<Rnd>, true>(
+          sa, bytes, n, t0, tn, c.ts, nblk,
+          LayerStore<true>"""
+_MMA_TEMPORAL = """dstd_fwd::op_mma<false, MmaOf<Rnd>, true>(
+          ta, bytes, n, w0, wn, c.tt, nblk,
+          LayerStore<false>"""
+_MMA_SPATIAL_CHAIN = """dstd_fwd::op_mma<true, MmaOf<Rnd>, true>(
+          sa, bytes, n, t0, tn, c.ts, nblk,
+          dstd_fwd::PairStore{c.mid"""
+_MMA_TEMPORAL_CHAIN = """dstd_fwd::op_mma<false, MmaOf<Rnd>, true>(
+          ta, bytes, n, w0, wn, c.tt, nblk,
+          dstd_fwd::PairStore{out"""
 # the forward's 3xTF32 product from fragment registers
 _TF32X3 = """    mma_tf32(d, a.small, big);
     mma_tf32(d, a.big, small);
@@ -128,6 +140,10 @@ VARIANTS = {
     "nospatial_mma": [(_CHAIN, _MMA_SPATIAL, "if (false) " + _MMA_SPATIAL)],
     "notemporal_mma": [(_CHAIN, _MMA_TEMPORAL,
                         "if (false) " + _MMA_TEMPORAL)],
+    "nospatial_mma_chain": [(_CHAIN, _MMA_SPATIAL_CHAIN,
+                             "if (false) " + _MMA_SPATIAL_CHAIN)],
+    "notemporal_mma_chain": [(_CHAIN, _MMA_TEMPORAL_CHAIN,
+                              "if (false) " + _MMA_TEMPORAL_CHAIN)],
     "tf32x1": [(_MMA, _TF32X3, _TF32X3.split("\n")[-1])],
 }
 

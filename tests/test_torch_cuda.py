@@ -598,6 +598,41 @@ def test_chain_kernel_matches_plain(cuda, n, t, c, agg):
     _assert_chain_close(got, fused._chain_oracle(x, blocks, agg))
 
 
+#: (tile, T, V) of the float32 chain kernel's tiles at C = 64: the
+#: wrapper's tile is the smallest whose cluster of ceil(max(T, V) / tile)
+#: blocks fits in 8, so the tile follows from the shape (tile 1: a cluster
+#: of 8 one-index blocks; tile 5: the H36M shape, 7 blocks; tile 8: 197,936
+#: bytes of shared memory a block, one block an SM)
+CHAIN_TILES = [(1, 8, 7), (5, 35, 22), (8, 64, 22)]
+
+
+@pytest.mark.parametrize("n", [1, 32])
+@pytest.mark.parametrize("agg", ["right", "left"])
+@pytest.mark.parametrize("tile,t,v", CHAIN_TILES)
+def test_float32_chain_kernel_at_its_tiles(cuda, tile, t, v, agg, n):
+    """dstd_chain at float32 (the tensor-core body at 3xTF32) at the tile
+    the wrapper picks: two five-layer launches and five one-layer launches
+    give the same bits, within 1e-4 of max(|plain|, 1)."""
+    from dstdgcn_tpu_torch.kernels import build
+    blocks = _chain_layers(5, t, v, 64, cuda, encoder=False, seed=1)
+    x = torch.randn(n, t, v, 64, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(n + tile))
+    kernel = fused.dstd_chain
+    assert kernel._tile(build.library("dstd_chain"), "f32", t, v, 64, 2, 1,
+                        2) == tile
+    before = kernel.launches
+    with torch.no_grad():
+        got = kernel(x, fused.pack_chain(blocks), agg)
+        again = kernel(x, fused.pack_chain(blocks), agg)
+        h = x
+        for i in range(len(blocks)):
+            h = kernel(h, fused.pack_chain(blocks[i:i + 1]), agg)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 + len(blocks)
+    assert torch.equal(got, again) and torch.equal(got, h)
+    _assert_chain_close(got, fused._chain_oracle(x, blocks, agg))
+
+
 #: the draws of x and the cotangent (a generator seeded with each) of
 #: test_chain_gradient_replays_the_op_kernels: the five of 100 seeded draws
 #: on which the float32 chain gradient of an earlier version of the kernels

@@ -69,9 +69,8 @@ def test_sass_counts_the_float64_tensor_core_products():
     ("dstd_bwd::qk_kernel<true, dstd::Exact>", False),
     ("dstd_bwd::reduce_kernel<false>", False),
     ("dstd_bwd::reduce_kernel<true>", False),
-    # the forward kernels: both one-op kernels and the encoder chain in
-    # both dtypes and the bf16 chain on the tensor cores; the float32
-    # chain on the CUDA cores
+    # the forward kernels: both one-op kernels and every chain
+    # instantiation (encoder or chain, both dtypes) on the tensor cores
     ("spatial_kernel<5, dstd::Bf16>", True),
     ("spatial_kernel<1, dstd::Bf16>", True),
     ("temporal_kernel<6, dstd::Bf16>", True),
@@ -87,7 +86,9 @@ def test_sass_counts_the_float64_tensor_core_products():
     ("chain_kernel<1, true, dstd::Bf16>", True),
     ("chain_kernel<8, true, dstd::Bf16>", True),
     ("chain_kernel<5, true, dstd::Exact>", True),
-    ("chain_kernel<5, false, dstd::Exact>", False),
+    ("chain_kernel<1, false, dstd::Exact>", True),
+    ("chain_kernel<5, false, dstd::Exact>", True),
+    ("chain_kernel<8, false, dstd::Exact>", True),
 ])
 def test_uses_mma_names_the_bf16_out_and_src_passes_of_both_ops(function,
                                                                 mma):
