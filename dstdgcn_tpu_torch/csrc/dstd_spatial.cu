@@ -37,13 +37,12 @@
 // formed in the mixing's fragments, the features projected one group of
 // 16 output channels at a time after the adjacency is gathered), so that
 // two blocks share an SM and a batch-32 call runs in one wave; q/k stay
-// float32 CUDA-core sums in the order of the CUDA-core body and of the
-// backward's q/k launch.  On 3xTF32 products (dstd_mma::Tf32x3Mma) it ran
+// float32 CUDA-core sums in the order of the backward's q/k launch.  On 3xTF32 products (dstd_mma::Tf32x3Mma) it ran
 // 9% faster, but with the temporal kernel on 3xTF32 beside it the float32
 // chain gradient lay past its rule; with both on float64 products it holds
-// (PERF.md).  Its CUDA-core predecessor (dstd::spatial_op in
-// dstd_common.cuh, still the spatial body of the float32 chain kernel) ran
-// 25.7x its bound over the 7 calls of a forward at N=32 on an H100.
+// (PERF.md).  Its CUDA-core predecessor (a body of per-thread float32
+// FMAs, retired) ran 25.7x its bound over the 7 calls of a forward at N=32
+// on an H100.
 //
 // bf16 variant (dstd_spatial_bf16): the TPU kernel's compute dtype, which
 // rounds the operands of its four contractions (x wqk, x wf, s wrm,

@@ -35,16 +35,15 @@
 // float32 order and layout (the scores formed in the mixing's fragments,
 // the features projected one group of 16 output channels at a time after
 // the gather); q/k stay float32 CUDA-core sums in the order of the
-// CUDA-core body and of the backward's q/k launch.  On 3xTF32 products it
+// backward's q/k launch.  On 3xTF32 products it
 // ran 1.1x faster, but the float32 chain gradient then lay past its rule,
 // and with float64 products here and 3xTF32 in the spatial kernel too
 // (PERF.md).  At T = 35, V = 22, 64->64 and the wrapper's tile 4 a block
 // takes 97,088 B: a cluster of 6, two blocks an SM, a batch-32 call in
 // one wave (at 3xTF32, tile 6, 143,936 B and one block an SM, measured
-// 1.77x slower).  Its CUDA-core predecessor, dstd::temporal_op in
-// dstd_common.cuh (still the temporal body of the float32 chain kernel),
-// projected q/k of the whole sample in each of a sample's blocks and ran
-// 25x its bound (PERF.md).
+// 1.77x slower).  Its CUDA-core predecessor (a body of per-thread float32
+// FMAs, retired) projected q/k of the whole sample in each of a sample's
+// blocks and ran 25x its bound (PERF.md).
 //
 // bf16 variant (dstd_temporal_bf16): the TPU kernel's compute dtype, bf16
 // operands of the four contractions with float32 sums, on bf16 mma.sync
