@@ -5,7 +5,9 @@ forward) kernels on one NVIDIA GPU, for the A/B of kernel versions.
     python3 bwd_profile.py OUT_DIR [--tree DIR] [--label L]
                            [--modes temporal,spatial] [--dtype D]
                            [--tile K] [--forward]
-                           [--chain [encoder|chain] [--layers L]]
+                           [--chain [encoder|chain] [--layers L]
+                                    [--tile K]]
+                           [--sparse]
                            [--chain-grad [--draws D | --card-seeds]
                                          [--fault F]]
                            [--autograd-draws D [--fault F]]
@@ -34,7 +36,7 @@ false.
 With ``--forward`` the same for the forward kernels
 (``dstd_{spatial,temporal}_{bf16,f32}``, one launch a call): the ptxas and
 ``HMMA`` lines of the forward functions and of the chain kernels
-(``dstd_chain``, which share their CUDA-core bodies), and per (Ci, Co)
+(``dstd_chain``, which share their tensor-core body), and per (Ci, Co)
 and aggregation the kernel's float32 output (``FusedOp.launch``) against
 the plain contract (``ops/dstd.py::kernel_spatial`` / ``kernel_temporal``
 with the dtype; over the peak |plain float32 output|, as phase 3 holds
@@ -55,7 +57,20 @@ and ``HMMA`` lines of the chain library, the error against its plain
 version (``_encoder_oracle`` / ``_chain_oracle`` with the dtype) over the
 peak |plain float32 output| beside the bf16-versus-float32 gap, whether
 two calls give the same bits, and (agg right) the device ms of a call and
-its bound.
+its bound.  ``--tile K`` launches it at tile K (a cluster of ceil(max(T,
+V) / K) blocks, at most 8) instead of the wrapper's tile, and each line
+gives the tile and its shared memory per block.
+
+With ``--sparse`` the three block-sparse kernels (``block_spmm``,
+``block_sddmm``, ``block_sddmm_spmm``: ``csrc/block_sparse.cu``) at the
+large graph of ``chip_smoke.py::large_graph`` (N = 4, V = 4096, R = 4, C =
+128, block 128): the ptxas and ``HMMA`` lines of the library, the
+graph's active blocks per block row, and per kernel the error against its
+plain version (max |kernel - plain| over max(|plain|, 1), as phase 8
+holds it, within ``SPARSE_TOL``), whether two calls give the same bits,
+the device ms of a call under the profiler and its bound
+(``chip_smoke.py::sparse_cost``).  Beside another ``--tree`` in one call:
+a removal variant of ``fwd_variants.py`` (``*_sp``) gives a phase's time.
 
 With ``--cases MODE[:TILE]`` it runs instead the card tests' tile cases of
 that op at the dtype (``tests/test_torch_cuda.py::TILE_CASES``, at one
@@ -157,6 +172,7 @@ def main():
     ap.add_argument("--draws", type=int, default=100)
     ap.add_argument("--card-seeds", action="store_true")
     ap.add_argument("--autograd-draws", type=int, default=0)
+    ap.add_argument("--sparse", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -180,8 +196,10 @@ def main():
     cs.check(os.path.dirname(dstdgcn_tpu_torch.__file__).startswith(tree),
              f"the port came from {dstdgcn_tpu_torch.__file__}, not {tree}")
     # the forward mode lists the chain kernels' SASS too: they share the
-    # forward bodies of csrc/dstd_common.cuh
-    if args.chain or args.cases in ("encoder", "chain"):
+    # forward body of csrc/dstd_fwd_mma.cuh
+    if args.sparse:
+        libs = ["block_sparse"]
+    elif args.chain or args.cases in ("encoder", "chain"):
         libs = ["dstd_chain"]
     elif args.autograd_draws:
         libs = ["dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
@@ -221,6 +239,11 @@ def main():
                                spill=[stores, loads],
                                hmma=sass.get(kernel, [None, None])))
 
+    if args.sparse:
+        run_sparse(torch, np, cs, emit)
+        out.close()
+        print(cs.nvidia_smi())
+        return 0
     if args.cases:
         run_cases(torch, fused, args.cases,
                   None if args.dtype == "float32" else torch.bfloat16,
@@ -244,7 +267,7 @@ def main():
     if args.chain:
         run_chain(torch, cs, fused, None if f32 else torch.bfloat16,
                   32 if f32 else 128, args.layers, args.chain == "encoder",
-                  emit)
+                  args.tile, emit)
         out.close()
         print(cs.nvidia_smi())
         return 0
@@ -400,11 +423,13 @@ def card_tests():
     return ct
 
 
-def run_chain(torch, cs, fused, dtype, n, layers, encoder, emit):
+def run_chain(torch, cs, fused, dtype, n, layers, encoder, tile, emit):
     """The whole-encoder kernel (``encoder``) or the chain kernel at
     ``dtype`` over ``layers`` seeded layers at batch ``n``, both
-    aggregations: error against its plain version and the
-    bf16-versus-float32 gap, repeat, and (agg right) device ms."""
+    aggregations, at ``tile`` (None: the wrapper's): error against its
+    plain version and the bf16-versus-float32 gap, repeat, and (agg right)
+    device ms."""
+    from dstdgcn_tpu_torch.kernels import build
     ct = card_tests()
     device = torch.device("cuda")
     t, v, c = cs.T, cs.V, 64
@@ -415,6 +440,15 @@ def run_chain(torch, cs, fused, dtype, n, layers, encoder, emit):
                     generator=torch.Generator(device).manual_seed(n))
     kernel = fused.dstd_encoder_chain if encoder else fused.dstd_chain
     ref = fused._encoder_oracle if encoder else fused._chain_oracle
+    # the wrapper's tile search, or the given tile in its place
+    lib, variant = build.library("dstd_chain"), kernel._variant(dtype)
+    shape = (t, v, c, packed.spatial[2].shape[1],
+             packed.temporal[2].shape[1], packed.spatial[4].shape[-1])
+    if tile:
+        kernel._tiles[(variant, *shape)] = tile
+    tile = kernel._tile(lib, variant, *shape)
+    smem = getattr(lib, build.SMEM_BYTES[kernel.name, variant])(*shape,
+                                                                tile)
     for agg in ("right", "left"):
         with torch.no_grad():
             got = kernel(x, packed, agg, dtype)
@@ -424,7 +458,8 @@ def run_chain(torch, cs, fused, dtype, n, layers, encoder, emit):
         peak = float(want32.abs().max())
         err = float((got - want).abs().max()) / peak
         line = dict(kernel=kernel.name, dtype=str(dtype), n=n,
-                    layers=layers, agg=agg, norm_err=err,
+                    layers=layers, agg=agg, tile=tile, smem_bytes=smem,
+                    norm_err=err,
                     repeatable=bool(torch.equal(got, again)))
         if dtype is not None:
             gap = float((want - want32).abs().max()) / peak
@@ -443,6 +478,56 @@ def run_chain(torch, cs, fused, dtype, n, layers, encoder, emit):
                         bound_by="operations" if t_ops >= t_mem
                         else "bytes")
         emit("check", line)
+
+
+def run_sparse(torch, np, cs, emit):
+    """The three block-sparse kernels at the large graph: errors against
+    their plain versions, repeat, device ms and bound."""
+    from dstdgcn_tpu_torch.kernels import sparse
+    device = torch.device("cuda")
+    rows, cols, arrs = cs.large_graph(np, sparse)
+    n, v, r, c, block = (cs.SPARSE_N, cs.SPARSE_V, cs.SPARSE_R, cs.SPARSE_C,
+                         cs.SPARSE_BLOCK)
+    q, k, w, x = (torch.from_numpy(arrs[key]).to(device) for key in "qkwx")
+    adj = torch.randn((n, v, v), device=device,
+                      generator=torch.Generator(device).manual_seed(3))
+    m = sparse.pattern(rows, cols, block, v, v).mask(device)
+    per_row = np.bincount(rows)
+    emit("graph", dict(n=n, v=v, r=r, c=c, block=block,
+                       active=len(rows), blocks=(v // block) ** 2,
+                       per_row=dict(min=int(per_row.min()),
+                                    max=int(per_row.max()),
+                                    mean=float(per_row.mean())),
+                       per_row_counts=per_row.tolist()))
+    pat = (rows, cols, block)
+    ops = {
+        "block_spmm": (lambda: sparse.block_spmm(adj, x, *pat),
+                       lambda: sparse.spmm_dense(adj * m, x)),
+        "block_sddmm": (lambda: sparse.block_sddmm(q, k, w, *pat),
+                        lambda: sparse.sddmm_dense(q, k, w, m)),
+        "block_sddmm_spmm": (lambda: sparse.block_sddmm_spmm(q, k, w, x,
+                                                              *pat),
+                             lambda: sparse.sddmm_spmm_dense(q, k, w, x, m)),
+    }
+    with torch.no_grad():
+        for name, (kernel, plain) in ops.items():
+            got, again, want = kernel(), kernel(), plain()
+            if name == "block_sddmm":
+                # inactive blocks are undefined: active blocks only
+                sel = m.bool().expand_as(want)
+                got, again, want = got[sel], again[sel], want[sel]
+            err, rel = cs.norm_err(got, want)
+            ms, by = cs.device_ms(torch, kernel, 50)
+            b_ms, t_ops, t_mem = cs.bound_of(*cs.sparse_cost(
+                name, n, len(rows), block, r, c, v))
+            emit("check", dict(kernel=name, max_abs_err=err, norm_err=rel,
+                               tol=cs.SPARSE_TOL[name],
+                               ok=rel <= cs.SPARSE_TOL[name],
+                               repeatable=bool(torch.equal(got, again)),
+                               ms=ms, timed_by=by, bound_ms=b_ms,
+                               bound_by="operations" if t_ops >= t_mem
+                               else "bytes"))
+            del got, again, want
 
 
 def run_autograd_draws(torch, fused, draws, fault, emit):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Removal variants of the DSTD-GC chain kernels, for a split of a
-kernel's time by phase.
+"""Removal variants of the DSTD-GC forward bodies and of the fused sparse
+kernel, for a split of a kernel's time by phase.
 
     python3 fwd_variants.py OUT_ROOT [--tree DIR] [--only NAME,...]
 
@@ -9,8 +9,9 @@ checkout) into ``OUT_ROOT/<variant>/`` once per variant and removes one
 phase from its CUDA sources by a text substitution that must match
 exactly once (the script fails otherwise, so a variant never silently
 times the unchanged code).  Time each tree with ``bwd_profile.py --tree
-OUT_ROOT/<variant> --chain`` in one chip call beside the tree it came
-from; the difference of two times is the removed phase's.
+OUT_ROOT/<variant> --chain`` (or ``--sparse``) in one chip call beside
+the tree it came from; the difference of two times is the removed
+phase's.
 
 Variants of the chain kernels (``csrc/dstd_chain.cu``, both dtypes):
 ``nospatial_mma`` and ``notemporal_mma`` skip that op's tensor-core body
@@ -20,6 +21,13 @@ Variants of the chain kernels (``csrc/dstd_chain.cu``, both dtypes):
 (``chain_kernel<*, false, *>``); the op's output buffer is then left as it
 was.  Variants change what the kernel computes: their errors mean
 nothing, only their times.
+
+Variants of the fused SDDMM + SpMM kernel (``sddmm_spmm_kernel`` in
+``csrc/block_sparse.cu``; each changes only code that kernel alone runs,
+between the markers of ``SPARSE_SPAN``): ``notanh_sp``, the score is
+``w[r] * (q - k)``, no ``tanhf``; ``noscore_sp``, the score tile is a
+constant (no score is formed); ``noproduct_sp``, no products of the score
+tile with the x tile.
 
 An accuracy fault of the float32 forward body on 3xTF32: ``tf32x1`` runs
 the product of ``dstd_mma::Tf32x3Mma::mma_bits`` (``csrc/dstd_mma.cuh``;
@@ -53,8 +61,22 @@ _MMA_TEMPORAL_CHAIN = """dstd_fwd::op_mma<false, MmaOf<Rnd>, true>(
 _TF32X3 = """    mma_tf32(d, a.small, big);
     mma_tf32(d, a.big, small);
     mma_tf32(d, a.big, big);"""
+# the fused sparse kernel's phases
+_SP_TANH = "sc = fmaf(ws[r], tanhf(qt[r][sm] - __ldg(kr + r)), sc);"
+_SP_SCORE = "if (sm < rt.nrows && kk < klen) {"
+_SP_PRODUCT = """        t.a[kk][sm] = sc;
+      }
+      load_x_tile(t, x_n, (size_t)j0 + k0, klen, rt.c0, C);
+      __syncthreads();
+      tile_fma(t, acc);"""
 _MMA = "dstdgcn_tpu_torch/csrc/dstd_mma.cuh"
 _CHAIN = "dstdgcn_tpu_torch/csrc/dstd_chain.cu"
+_SPARSE = "dstdgcn_tpu_torch/csrc/block_sparse.cu"
+#: the text of block_sparse.cu that the fused kernel alone runs: from the
+#: first marker to the second (exclusive)
+SPARSE_SPAN = ("__global__ void __launch_bounds__(kThreads)\n"
+               "    sddmm_spmm_kernel(",
+               "// blockIdx.x = (active block, 64 x 64 tile)")
 
 
 def _skip(call):
@@ -71,7 +93,14 @@ VARIANTS = {
     "notemporal_mma_chain": [(_CHAIN, _MMA_TEMPORAL_CHAIN,
                               _skip(_MMA_TEMPORAL_CHAIN))],
     "tf32x1": [(_MMA, _TF32X3, _TF32X3.split("\n")[-1])],
+    "notanh_sp": [(_SPARSE, _SP_TANH, _SP_TANH.replace("tanhf(", "("))],
+    "noscore_sp": [(_SPARSE, _SP_SCORE, "if (false) {")],
+    "noproduct_sp": [(_SPARSE, _SP_PRODUCT,
+                      _SP_PRODUCT.replace("tile_fma(", "if (false) tile_fma("))],
 }
+#: the variants of the fused sparse kernel
+SPARSE_VARIANTS = tuple(name for name, edits in VARIANTS.items()
+                        if edits[0][0] == _SPARSE)
 
 
 def make(tree, out_root, name):

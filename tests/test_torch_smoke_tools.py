@@ -8,7 +8,8 @@ of each of a backward call's four launches from ``torch.profiler`` keys
 (``bwd_split``).  These tests feed them listings in the tools' formats.  The
 bf16 train step's judgement (``step_verdict``) is held on made-up distances.
 The removal variants of ``fwd_variants.py`` (a kernel's split by phase) must
-each apply to this checkout's CUDA sources.
+each apply to this checkout's CUDA sources, the sparse ones to the fused
+sparse kernel's code alone.
 """
 
 import os
@@ -291,3 +292,27 @@ def test_fwd_variants_each_remove_their_phase_from_this_checkout(name,
         with open(os.path.join(dst, rel)) as f:
             text = f.read()
         assert text.count(new) == 1 and old != new
+
+
+@pytest.mark.parametrize("name", fwd_variants.SPARSE_VARIANTS)
+def test_sparse_variants_change_only_the_fused_kernel(name, tmp_path):
+    """A variant of the fused SDDMM + SpMM kernel leaves every line of
+    ``block_sparse.cu`` outside the fused kernel's own code
+    (``SPARSE_SPAN``) as it is: kernels 7 and 8 time the same code in
+    every variant tree."""
+    root = os.path.dirname(os.path.abspath(fwd_variants.__file__))
+    dst = fwd_variants.make(root, str(tmp_path), name)
+    (rel, _, _), = fwd_variants.VARIANTS[name]
+    texts = []
+    for tree in (root, dst):
+        with open(os.path.join(tree, rel)) as f:
+            texts.append(f.read())
+    first, last = fwd_variants.SPARSE_SPAN
+    spans = []
+    for text in texts:
+        assert text.count(first) == 1 and text.count(last) == 1
+        spans.append((text.index(first), text.index(last)))
+    (a0, a1), (b0, b1) = spans
+    assert texts[0][:a0] == texts[1][:b0]
+    assert texts[0][a1:] == texts[1][b1:]
+    assert texts[0][a0:a1] != texts[1][b0:b1]
