@@ -15,12 +15,14 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    ``block_sddmm_spmm``: 15 kernels), with each entry function's registers
    and spills as ``ptxas`` reports them, and the number of tensor-core
    instructions (``HMMA``, and ``DMMA`` for float64 products; of all
-   instructions) in the SASS of each function of the forward, chain and
-   backward libraries (``cuobjdump``): some in passes 2 and 3 of every
+   instructions) in the SASS of each function of every library
+   (``cuobjdump``): some in passes 2 and 3 of every
    backward kernel (bf16 ``mma.sync`` in 5b and 6b, 3xTF32 in 5 and 6:
    ``MMA_FUNCTIONS``), in both forward kernels (float64 in 1 and 2, bf16
-   in 1b and 2b) and all four chain kernels (3xTF32 in 3 and 4, bf16 in
-   3b and 4b: ``MMA_FORWARD``), none in the q/k and reduction launches;
+   in 1b and 2b), all four chain kernels (3xTF32 in 3 and 4, bf16 in 3b
+   and 4b: ``MMA_FORWARD``) and the fused sparse kernel (3xTF32 in 9:
+   ``MMA_SPARSE``), none in the q/k and reduction launches or the SpMM and
+   SDDMM kernels (7, 8);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -325,15 +327,18 @@ MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 #: 2b on bf16) and every chain instantiation (``chain_kernel<TILE,
 #: kEncoder, Rnd>``: 3 and 4 on 3xTF32, 3b and 4b on bf16)
 MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<", "chain_kernel<")
+#: the sparse kernel whose products run on the tensor cores (9, 3xTF32);
+#: the SpMM and the SDDMM (7, 8) keep their CUDA-core FMAs
+MMA_SPARSE = ("sddmm_spmm_kernel",)
 
 
 #: the libraries whose SASS phase 2 reads
 SASS_LIBRARIES = ("dstd_spatial", "dstd_temporal", "dstd_chain",
-                  "dstd_spatial_bwd", "dstd_temporal_bwd")
+                  "dstd_spatial_bwd", "dstd_temporal_bwd", "block_sparse")
 
 
 def uses_mma(function):
-    return function.startswith(MMA_FUNCTIONS + MMA_FORWARD)
+    return function.startswith(MMA_FUNCTIONS + MMA_FORWARD + MMA_SPARSE)
 
 
 #: the large graph of the sparse surface (``bench.py::bench_sparse_kernels``)
@@ -1767,8 +1772,7 @@ def run_smoke():
         for kernel, regs, stores, loads in usage:
             print(f"  ptxas {name}: {kernel}: {regs} registers, spill "
                   f"{stores} bytes stored / {loads} loaded")
-    # the tensor-core products in the SASS of the forward, chain and
-    # backward libraries
+    # the tensor-core products in the SASS of every library
     report["sass_hmma"] = {}
     for name in SASS_LIBRARIES:
         mma = sass_mma(build.library(name)._name)

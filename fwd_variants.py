@@ -27,7 +27,9 @@ Variants of the fused SDDMM + SpMM kernel (``sddmm_spmm_kernel`` in
 between the markers of ``SPARSE_SPAN``): ``notanh_sp``, the score is
 ``w[r] * (q - k)``, no ``tanhf``; ``noscore_sp``, the score tile is a
 constant (no score is formed); ``noproduct_sp``, no products of the score
-tile with the x tile.
+tile with the x tile.  And its accuracy fault: ``tf32x1_sp`` runs each of
+its products as one TF32 product (big x big) without the two correction
+products, the fault phase 8 and the card tests should refuse.
 
 An accuracy fault of the float32 forward body on 3xTF32: ``tf32x1`` runs
 the product of ``dstd_mma::Tf32x3Mma::mma_bits`` (``csrc/dstd_mma.cuh``;
@@ -61,22 +63,20 @@ _MMA_TEMPORAL_CHAIN = """dstd_fwd::op_mma<false, MmaOf<Rnd>, true>(
 _TF32X3 = """    mma_tf32(d, a.small, big);
     mma_tf32(d, a.big, small);
     mma_tf32(d, a.big, big);"""
-# the fused sparse kernel's phases
-_SP_TANH = "sc = fmaf(ws[r], tanhf(qt[r][sm] - __ldg(kr + r)), sc);"
-_SP_SCORE = "if (sm < rt.nrows && kk < klen) {"
-_SP_PRODUCT = """        t.a[kk][sm] = sc;
-      }
-      load_x_tile(t, x_n, (size_t)j0 + k0, klen, rt.c0, C);
-      __syncthreads();
-      tile_fma(t, acc);"""
+# the fused sparse kernel's phases and its 3xTF32 product
+_SP_TANH = "tanhf(qr[i * R + ru[u]] - kv[u])"
+_SP_SCORE = "if (src >= 0 && w0 < nrows) {"
+_SP_PRODUCT = "if (live) products(acc, "
+_SP_TF32X3 = """  dstd_mma::mma_tf32(d, as, bb);
+  dstd_mma::mma_tf32(d, ab, bs);
+  dstd_mma::mma_tf32(d, ab, bb);"""
 _MMA = "dstdgcn_tpu_torch/csrc/dstd_mma.cuh"
 _CHAIN = "dstdgcn_tpu_torch/csrc/dstd_chain.cu"
 _SPARSE = "dstdgcn_tpu_torch/csrc/block_sparse.cu"
-#: the text of block_sparse.cu that the fused kernel alone runs: from the
-#: first marker to the second (exclusive)
-SPARSE_SPAN = ("__global__ void __launch_bounds__(kThreads)\n"
-               "    sddmm_spmm_kernel(",
-               "// blockIdx.x = (active block, 64 x 64 tile)")
+#: the text of block_sparse.cu that the fused kernel alone runs (its
+#: namespace and the kernel): from the first marker to the second
+#: (exclusive)
+SPARSE_SPAN = ("namespace fused {", "bool grid_ok(")
 
 
 def _skip(call):
@@ -96,7 +96,8 @@ VARIANTS = {
     "notanh_sp": [(_SPARSE, _SP_TANH, _SP_TANH.replace("tanhf(", "("))],
     "noscore_sp": [(_SPARSE, _SP_SCORE, "if (false) {")],
     "noproduct_sp": [(_SPARSE, _SP_PRODUCT,
-                      _SP_PRODUCT.replace("tile_fma(", "if (false) tile_fma("))],
+                      _SP_PRODUCT.replace("if (live)", "if (false)"))],
+    "tf32x1_sp": [(_SPARSE, _SP_TF32X3, _SP_TF32X3.split("\n")[-1])],
 }
 #: the variants of the fused sparse kernel
 SPARSE_VARIANTS = tuple(name for name, edits in VARIANTS.items()

@@ -963,6 +963,46 @@ def test_sparse_autograd_functions_match_the_masked_oracle(cuda, case):
     assert counts["block_sddmm_spmm"] == int(case[1] == case[2])
 
 
+#: (n, v, block, r, c, heavy row): one block row with every column block
+#: active, the others their diagonal block alone (the heavy row's walk is
+#: 8-16x the mean's); R = 32, the largest; C not a multiple of 8 (36: the
+#: float4 path) or of 4 (37, 13: the scalar path), or past one 128-channel
+#: tile (200)
+SPARSE_SKEW = [(2, 1024, 64, 32, 36, 0), (2, 1024, 64, 32, 37, 5),
+               (3, 512, 128, 3, 13, 3), (1, 2048, 128, 32, 200, 7)]
+
+
+@pytest.mark.parametrize("n,v,block,r,c,heavy", SPARSE_SKEW)
+def test_fused_sparse_kernel_on_a_skewed_pattern(cuda, n, v, block, r, c,
+                                                 heavy):
+    """block_sddmm_spmm on a pattern whose active blocks per row lie far
+    from their mean: two calls give the same bits, within
+    ``SPARSE_TOL`` = 1e-4 of max(|plain|, 1) of the masked dense oracle."""
+    from dstdgcn_tpu_torch.kernels import sparse
+    nb = v // block
+    mask = np.eye(nb, dtype=bool)
+    mask[heavy] = True
+    rows, cols = sparse.active_blocks(mask)
+    rng = np.random.RandomState(heavy)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            cuda)
+
+    q, k, w, x = t(n, v, r), t(n, v, r), t(r), t(n, v, c)
+    m = sparse.pattern(rows, cols, block, v, v).mask(cuda)
+    before = sparse.launch_counts()["block_sddmm_spmm"]
+    got = sparse.block_sddmm_spmm(q, k, w, x, rows, cols, block)
+    again = sparse.block_sddmm_spmm(q, k, w, x, rows, cols, block)
+    torch.cuda.synchronize()
+    assert sparse.launch_counts()["block_sddmm_spmm"] == before + 2
+    assert torch.equal(got, again)
+    want = sparse.sddmm_spmm_dense(q, k, w, x, m)
+    err = float((got - want).abs().max())
+    assert err <= cs.SPARSE_TOL["block_sddmm_spmm"] * max(
+        float(want.abs().max()), 1.0), err
+
+
 def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from dstdgcn_tpu_torch.kernels import sparse
     d = _sparse_case(*SPARSE_CASES[0], cuda)

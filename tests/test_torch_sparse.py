@@ -144,6 +144,59 @@ def test_block_sddmm_spmm_matches_jax(seed, r):
     _close(got, jsp.sddmm_spmm_dense(*map(_j, args), _j(d["mask"])), 1e-4)
 
 
+def _close_norm(got, want, tol):
+    """max |got - want| <= tol max(max |want|, 1): the norm the card holds
+    the fused kernel to against this plain version (``chip_smoke.py``
+    ``SPARSE_TOL``), since sums over many sources cancel."""
+    got, want = np.asarray(got.detach()), np.asarray(want)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= tol * max(float(np.abs(want).max()), 1.0), err
+
+
+#: (n, v, r, c, block, density) at the fused kernel's edges on the card
+#: (``tests/test_torch_cuda.py::SPARSE_CASES``): blocks of 8 (four to a
+#: step of its walk) and 96 (a ragged 64-row tile), C = 200 (a ragged
+#: channel tile), R = 1, 3 and 32 (its largest)
+FUSED_EDGES = [(2, 32, 1, 16, 8, 0.4), (2, 32, 32, 16, 8, 0.4),
+               (3, 256, 3, 200, 64, 0.3), (3, 256, 1, 200, 64, 0.3),
+               (2, 384, 3, 40, 96, 0.4), (2, 384, 1, 40, 96, 0.4),
+               (2, 384, 32, 40, 96, 0.4), (2, 256, 32, 200, 128, 0.5)]
+
+
+@pytest.mark.parametrize("n,v,r,c,block,density", FUSED_EDGES)
+def test_block_sddmm_spmm_matches_jax_at_the_card_edges(n, v, r, c, block,
+                                                        density):
+    d = _case(5, n=n, v=v, r=r, c=c, block=block, density=density)
+    args = [d[key] for key in ("q", "k", "w", "x")]
+    want = jsp.block_sddmm_spmm(*map(_j, args), d["rows"], d["cols"], block)
+    got = sp.block_sddmm_spmm(*map(_t, args), d["rows"], d["cols"], block)
+    assert got.shape == (n, v, c)
+    _close_norm(got, want, 1e-4)
+    _close_norm(got, jsp.sddmm_spmm_dense(*map(_j, args), _j(d["mask"])),
+                1e-4)
+
+
+@pytest.mark.parametrize("n,v,r,c,block,density",
+                         [FUSED_EDGES[1], FUSED_EDGES[4], FUSED_EDGES[6]])
+def test_block_sddmm_spmm_gradients_match_jax_at_the_card_edges(
+        n, v, r, c, block, density):
+    d = _case(6, n=n, v=v, r=r, c=c, block=block, density=density)
+    arrs = [d[key] for key in ("q", "k", "w", "x")]
+    g = np.random.RandomState(7).randn(n, v, c).astype(np.float32)
+
+    def f(q, k, w, x):
+        return jsp.block_sddmm_spmm(q, k, w, x, d["rows"], d["cols"], block)
+
+    _, vjp = jax.vjp(f, *map(_j, arrs))
+    want = vjp(_j(g))
+    leaves = [_t(a).requires_grad_() for a in arrs]
+    out = sp.block_sddmm_spmm(*leaves, d["rows"], d["cols"], block)
+    got = torch.autograd.grad(out, leaves, _t(g))
+    for a, b in zip(got, want):
+        _close_norm(a, b, 1e-4)
+
+
 MASKS_256 = {"lower": np.array([[True, False], [True, True]]),
              "upper": np.array([[True, True], [False, True]])}
 
