@@ -16,9 +16,9 @@
 // the SpMM does 2.92 GFLOP on 62 MB (the active adjacency blocks, x, out):
 // 0.019 ms at 3.35 TB/s, 0.018 ms at the 3xTF32 rate, 0.044 ms at the
 // float32 FMA rate; the fused kernel the same products plus 45.6 M tanh
-// on 17 MB, bound by its operations.  Accurate tanhf is about 20
-// instructions, two of them on the MUFU pipe (16 a cycle an SM): some
-// 0.02-0.03 ms of issue for the 45.6 M.  The SDDMM writes 45.6 MB of scores
+// on 17 MB, bound by its operations.  Accurate tanhf is about 17
+// instructions, two of them on the MUFU pipe (16 a cycle an SM): about
+// 0.022 ms on that pipe for the 45.6 M.  The SDDMM writes 45.6 MB of scores
 // and counts 4 operations per score and r (a tanh as one): bound by bytes,
 // 0.014 ms; the accurate tanh makes its operations the closer limit in
 // practice.
