@@ -68,7 +68,9 @@ large graph of ``chip_smoke.py::large_graph`` (N = 4, V = 4096, R = 4, C =
 graph's active blocks per block row, and per kernel the error against its
 plain version (max |kernel - plain| over max(|plain|, 1), as phase 8
 holds it, within ``SPARSE_TOL``), whether two calls give the same bits,
-the device ms of a call under the profiler and its bound
+the first 16 hex digits of the SHA-256 of its output's bytes (the SDDMM's
+active blocks only: two trees whose kernel computes the same bits give
+the same digest), the device ms of a call under the profiler and its bound
 (``chip_smoke.py::sparse_cost``).  Beside another ``--tree`` in one call:
 a removal variant of ``fwd_variants.py`` (``*_sp``) gives a phase's time.
 
@@ -126,6 +128,7 @@ timing them one after another).
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -517,6 +520,7 @@ def run_sparse(torch, np, cs, emit):
                 sel = m.bool().expand_as(want)
                 got, again, want = got[sel], again[sel], want[sel]
             err, rel = cs.norm_err(got, want)
+            digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
             ms, by = cs.device_ms(torch, kernel, 50)
             b_ms, t_ops, t_mem = cs.bound_of(*cs.sparse_cost(
                 name, n, len(rows), block, r, c, v))
@@ -524,6 +528,7 @@ def run_sparse(torch, np, cs, emit):
                                tol=cs.SPARSE_TOL[name],
                                ok=rel <= cs.SPARSE_TOL[name],
                                repeatable=bool(torch.equal(got, again)),
+                               sha256=digest[:16],
                                ms=ms, timed_by=by, bound_ms=b_ms,
                                bound_by="operations" if t_ops >= t_mem
                                else "bytes"))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Removal variants of the DSTD-GC forward bodies and of the fused sparse
-kernel, for a split of a kernel's time by phase.
+"""Removal variants of the DSTD-GC forward bodies and of the block-sparse
+kernels, for a split of a kernel's time by phase.
 
     python3 fwd_variants.py OUT_ROOT [--tree DIR] [--only NAME,...]
 
@@ -22,14 +22,20 @@ Variants of the chain kernels (``csrc/dstd_chain.cu``, both dtypes):
 was.  Variants change what the kernel computes: their errors mean
 nothing, only their times.
 
-Variants of the fused SDDMM + SpMM kernel (``sddmm_spmm_kernel`` in
-``csrc/block_sparse.cu``; each changes only code that kernel alone runs,
-between the markers of ``SPARSE_SPAN``): ``notanh_sp``, the score is
-``w[r] * (q - k)``, no ``tanhf``; ``noscore_sp``, the score tile is a
-constant (no score is formed); ``noproduct_sp``, no products of the score
-tile with the x tile.  And its accuracy fault: ``tf32x1_sp`` runs each of
-its products as one TF32 product (big x big) without the two correction
-products, the fault phase 8 and the card tests should refuse.
+Variants of the block-sparse kernels (``csrc/block_sparse.cu``; each
+changes the code of the kernels ``SPARSE_KERNELS`` names for it and of no
+other, by the sections of ``SPARSE_SECTIONS``).  Of the fused SDDMM + SpMM
+kernel (``sddmm_spmm_kernel``): ``notanh_sp``, the score is ``w[r] * (q -
+k)``, no ``tanhf``; ``noscore_sp``, the score tile is a constant (no score
+is formed); ``noproduct_sp``, no products of the score tile with the x
+tile.  And its accuracy fault: ``tf32x1_sp`` runs each of its products as
+one TF32 product (big x big) without the two correction products, the
+fault phase 8 and the card tests should refuse.  Of the SpMM
+(``spmm_kernel``): ``noproduct_spmm``, the tiles are loaded and synced but
+not multiplied (one read of each tile a thread keeps its stores live);
+``noload_spmm``, the products run on tiles that are never reloaded (the
+loads sit behind a condition that never holds at run time, ``C < 0``, so
+the compiler keeps the tiles' memory).
 
 An accuracy fault of the float32 forward body on 3xTF32: ``tf32x1`` runs
 the product of ``dstd_mma::Tf32x3Mma::mma_bits`` (``csrc/dstd_mma.cuh``;
@@ -70,13 +76,32 @@ _SP_PRODUCT = "if (live) products(acc, "
 _SP_TF32X3 = """  dstd_mma::mma_tf32(d, as, bb);
   dstd_mma::mma_tf32(d, ab, bs);
   dstd_mma::mma_tf32(d, ab, bb);"""
+# the SpMM's products and its tile loads
+_SPMM_PRODUCT = "      tile_fma(t, acc);\n"
+_SPMM_READ = ("      acc[0][0] += t.a[threadIdx.x % kBK][threadIdx.x % kBM] +\n"
+              "                   t.b[threadIdx.x % kBK][threadIdx.x % kBN];\n")
+_SPMM_LOADS = """      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (am < rt.nrows && aq < klen)
+        v = __ldg(reinterpret_cast<const float4*>(
+            a_n + (row0 + am) * Vj + j0 + k0 + aq));
+      t.a[aq + 0][am] = v.x;
+      t.a[aq + 1][am] = v.y;
+      t.a[aq + 2][am] = v.z;
+      t.a[aq + 3][am] = v.w;
+      load_x_tile(t, x_n, (size_t)j0 + k0, klen, rt.c0, C);
+"""
 _MMA = "dstdgcn_tpu_torch/csrc/dstd_mma.cuh"
 _CHAIN = "dstdgcn_tpu_torch/csrc/dstd_chain.cu"
 _SPARSE = "dstdgcn_tpu_torch/csrc/block_sparse.cu"
-#: the text of block_sparse.cu that the fused kernel alone runs (its
-#: namespace and the kernel): from the first marker to the second
-#: (exclusive)
-SPARSE_SPAN = ("namespace fused {", "bool grid_ok(")
+#: the sections of block_sparse.cu in order, each from its marker to the
+#: next one's (exclusive; the last to ``SPARSE_END``), with the kernels
+#: that run its code; the text outside them is run by no kernel
+SPARSE_SECTIONS = (
+    ("struct __align__(16) GemmTiles {", ("spmm_kernel",)),
+    ("// blockIdx.x = (active block, 64 x 64 tile)", ("sddmm_kernel",)),
+    ("namespace fused {", ("sddmm_spmm_kernel",)),
+)
+SPARSE_END = "bool grid_ok("
 
 
 def _skip(call):
@@ -98,10 +123,19 @@ VARIANTS = {
     "noproduct_sp": [(_SPARSE, _SP_PRODUCT,
                       _SP_PRODUCT.replace("if (live)", "if (false)"))],
     "tf32x1_sp": [(_SPARSE, _SP_TF32X3, _SP_TF32X3.split("\n")[-1])],
+    "noproduct_spmm": [(_SPARSE, _SPMM_PRODUCT, _SPMM_READ)],
+    "noload_spmm": [(_SPARSE, _SPMM_LOADS,
+                     "      if (C < 0) {\n" + _SPMM_LOADS + "      }\n")],
 }
-#: the variants of the fused sparse kernel
-SPARSE_VARIANTS = tuple(name for name, edits in VARIANTS.items()
-                        if edits[0][0] == _SPARSE)
+#: the variants of the block-sparse kernels and the kernels each changes
+SPARSE_KERNELS = {
+    "notanh_sp": ("sddmm_spmm_kernel",),
+    "noscore_sp": ("sddmm_spmm_kernel",),
+    "noproduct_sp": ("sddmm_spmm_kernel",),
+    "tf32x1_sp": ("sddmm_spmm_kernel",),
+    "noproduct_spmm": ("spmm_kernel",),
+    "noload_spmm": ("spmm_kernel",),
+}
 
 
 def make(tree, out_root, name):

@@ -8,8 +8,8 @@ of each of a backward call's four launches from ``torch.profiler`` keys
 (``bwd_split``).  These tests feed them listings in the tools' formats.  The
 bf16 train step's judgement (``step_verdict``) is held on made-up distances.
 The removal variants of ``fwd_variants.py`` (a kernel's split by phase) must
-each apply to this checkout's CUDA sources, the sparse ones to the fused
-sparse kernel's code alone.
+each apply to this checkout's CUDA sources, the sparse ones to the code of
+the kernels they name alone.
 """
 
 import os
@@ -299,12 +299,24 @@ def test_fwd_variants_each_remove_their_phase_from_this_checkout(name,
         assert text.count(new) == 1 and old != new
 
 
-@pytest.mark.parametrize("name", fwd_variants.SPARSE_VARIANTS)
-def test_sparse_variants_change_only_the_fused_kernel(name, tmp_path):
-    """A variant of the fused SDDMM + SpMM kernel leaves every line of
-    ``block_sparse.cu`` outside the fused kernel's own code
-    (``SPARSE_SPAN``) as it is: kernels 7 and 8 time the same code in
-    every variant tree."""
+def _sparse_sections(text):
+    """[(start, end, kernels)] of ``fwd_variants.SPARSE_SECTIONS`` in a
+    ``block_sparse.cu`` text; each marker once, in order."""
+    marks = [m for m, _ in fwd_variants.SPARSE_SECTIONS] + [
+        fwd_variants.SPARSE_END]
+    assert all(text.count(m) == 1 for m in marks)
+    at = [text.index(m) for m in marks]
+    assert at == sorted(at)
+    return [(a, b, kernels) for a, b, (_, kernels) in
+            zip(at, at[1:], fwd_variants.SPARSE_SECTIONS)]
+
+
+@pytest.mark.parametrize("name", sorted(fwd_variants.SPARSE_KERNELS))
+def test_sparse_variants_change_only_their_kernels(name, tmp_path):
+    """A variant of the block-sparse kernels changes the sections of
+    ``block_sparse.cu`` whose kernels are exactly those
+    ``SPARSE_KERNELS`` names for it, and no other text: every other
+    kernel times the same code in the variant's tree."""
     root = os.path.dirname(os.path.abspath(fwd_variants.__file__))
     dst = fwd_variants.make(root, str(tmp_path), name)
     (rel, _, _), = fwd_variants.VARIANTS[name]
@@ -312,12 +324,17 @@ def test_sparse_variants_change_only_the_fused_kernel(name, tmp_path):
     for tree in (root, dst):
         with open(os.path.join(tree, rel)) as f:
             texts.append(f.read())
-    first, last = fwd_variants.SPARSE_SPAN
-    spans = []
-    for text in texts:
-        assert text.count(first) == 1 and text.count(last) == 1
-        spans.append((text.index(first), text.index(last)))
-    (a0, a1), (b0, b1) = spans
-    assert texts[0][:a0] == texts[1][:b0]
-    assert texts[0][a1:] == texts[1][b1:]
-    assert texts[0][a0:a1] != texts[1][b0:b1]
+    old, new = (_sparse_sections(text) for text in texts)
+    assert texts[0][:old[0][0]] == texts[1][:new[0][0]]
+    assert texts[0][old[-1][1]:] == texts[1][new[-1][1]:]
+    changed = set()
+    for (a0, a1, kernels), (b0, b1, _) in zip(old, new):
+        if texts[0][a0:a1] != texts[1][b0:b1]:
+            changed.update(kernels)
+    assert changed == set(fwd_variants.SPARSE_KERNELS[name])
+
+
+def test_every_sparse_variant_names_its_kernels():
+    sparse = {name for name, edits in fwd_variants.VARIANTS.items()
+              if edits[0][0].endswith("block_sparse.cu")}
+    assert sparse == set(fwd_variants.SPARSE_KERNELS)
