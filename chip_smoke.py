@@ -20,9 +20,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    backward kernel (bf16 ``mma.sync`` in 5b and 6b, 3xTF32 in 5 and 6:
    ``MMA_FUNCTIONS``), in both forward kernels (float64 in 1 and 2, bf16
    in 1b and 2b), all four chain kernels (3xTF32 in 3 and 4, bf16 in 3b
-   and 4b: ``MMA_FORWARD``) and the fused sparse kernel (3xTF32 in 9:
-   ``MMA_SPARSE``), none in the q/k and reduction launches or the SpMM and
-   SDDMM kernels (7, 8);
+   and 4b: ``MMA_FORWARD``) and the SpMM and the fused sparse kernel
+   (3xTF32 in 7 and 9: ``MMA_SPARSE``), none in the q/k and reduction
+   launches or the SDDMM kernel (8);
 3. each kernel against its plain PyTorch version on the card, agg right and
    left, N=32, T=35, V=22, seeded inputs, TF32 off.  One-op kernels at
    every (Ci, Co) the serving and training paths give them.  Forward
@@ -327,9 +327,9 @@ MMA_FUNCTIONS = ("dstd_bwd::out_kernel<", "dstd_bwd::src_kernel<")
 #: 2b on bf16) and every chain instantiation (``chain_kernel<TILE,
 #: kEncoder, Rnd>``: 3 and 4 on 3xTF32, 3b and 4b on bf16)
 MMA_FORWARD = ("spatial_kernel<", "temporal_kernel<", "chain_kernel<")
-#: the sparse kernel whose products run on the tensor cores (9, 3xTF32);
-#: the SpMM and the SDDMM (7, 8) keep their CUDA-core FMAs
-MMA_SPARSE = ("sddmm_spmm_kernel",)
+#: the sparse kernels whose products run on the tensor cores (7 and 9,
+#: 3xTF32); the SDDMM (8) has no products
+MMA_SPARSE = ("spmm_kernel", "sddmm_spmm_kernel")
 
 
 #: the libraries whose SASS phase 2 reads

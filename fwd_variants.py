@@ -28,14 +28,17 @@ other, by the sections of ``SPARSE_SECTIONS``).  Of the fused SDDMM + SpMM
 kernel (``sddmm_spmm_kernel``): ``notanh_sp``, the score is ``w[r] * (q -
 k)``, no ``tanhf``; ``noscore_sp``, the score tile is a constant (no score
 is formed); ``noproduct_sp``, no products of the score tile with the x
-tile.  And its accuracy fault: ``tf32x1_sp`` runs each of its products as
-one TF32 product (big x big) without the two correction products, the
-fault phase 8 and the card tests should refuse.  Of the SpMM
-(``spmm_kernel``): ``noproduct_spmm``, the tiles are loaded and synced but
-not multiplied (one read of each tile a thread keeps its stores live);
-``noload_spmm``, the products run on tiles that are never reloaded (the
-loads sit behind a condition that never holds at run time, ``C < 0``, so
-the compiler keeps the tiles' memory).
+tile.  Of the SpMM (``spmm_kernel``): ``noproduct_spmm``, the tiles are
+loaded, split and synced but not multiplied (one read of each tile a
+thread keeps its stores live); ``noload_spmm``, the products run on tiles
+that are never reloaded (the loads of later steps sit behind a condition
+that never holds at run time, ``C < 0``, so the compiler keeps the tiles'
+memory).  Of the SDDMM (``sddmm_kernel``): ``notanh_sddmm``, the score is
+``w[r] * (q - k)``, no ``tanhf``.  And the accuracy fault of the 3xTF32
+product that the SpMM and the fused kernel share (``tc::product``):
+``tf32x1_sp`` runs each product as one TF32 product (big x big) without
+the two correction products, the fault phase 8 and the card tests should
+refuse in both kernels.
 
 An accuracy fault of the float32 forward body on 3xTF32: ``tf32x1`` runs
 the product of ``dstd_mma::Tf32x3Mma::mma_bits`` (``csrc/dstd_mma.cuh``;
@@ -72,24 +75,16 @@ _TF32X3 = """    mma_tf32(d, a.small, big);
 # the fused sparse kernel's phases and its 3xTF32 product
 _SP_TANH = "tanhf(qr[i * R + ru[u]] - kv[u])"
 _SP_SCORE = "if (src >= 0 && w0 < nrows) {"
-_SP_PRODUCT = "if (live) products(acc, "
+_SP_PRODUCT = "if (live) products(acc, sb, ss, "
 _SP_TF32X3 = """  dstd_mma::mma_tf32(d, as, bb);
   dstd_mma::mma_tf32(d, ab, bs);
   dstd_mma::mma_tf32(d, ab, bb);"""
-# the SpMM's products and its tile loads
-_SPMM_PRODUCT = "      tile_fma(t, acc);\n"
-_SPMM_READ = ("      acc[0][0] += t.a[threadIdx.x % kBK][threadIdx.x % kBM] +\n"
-              "                   t.b[threadIdx.x % kBK][threadIdx.x % kBN];\n")
-_SPMM_LOADS = """      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (am < rt.nrows && aq < klen)
-        v = __ldg(reinterpret_cast<const float4*>(
-            a_n + (row0 + am) * Vj + j0 + k0 + aq));
-      t.a[aq + 0][am] = v.x;
-      t.a[aq + 1][am] = v.y;
-      t.a[aq + 2][am] = v.z;
-      t.a[aq + 3][am] = v.w;
-      load_x_tile(t, x_n, (size_t)j0 + k0, klen, rt.c0, C);
-"""
+# the SpMM's products and its loads of later steps; the SDDMM's tanh
+_SPMM_PRODUCT = "if (live) products(acc, big, rest, xt);"
+_SPMM_READ = ("if (live) acc[0][0][0] += big[threadIdx.x] + rest[threadIdx.x] "
+              "+ xt[threadIdx.x];")
+_SPMM_LOADS = "if (s + kStages - 1 < hi)"
+_SDDMM_TANH = "tanhf(qr[i] - kc[u])"
 _MMA = "dstdgcn_tpu_torch/csrc/dstd_mma.cuh"
 _CHAIN = "dstdgcn_tpu_torch/csrc/dstd_chain.cu"
 _SPARSE = "dstdgcn_tpu_torch/csrc/block_sparse.cu"
@@ -97,8 +92,9 @@ _SPARSE = "dstdgcn_tpu_torch/csrc/block_sparse.cu"
 #: next one's (exclusive; the last to ``SPARSE_END``), with the kernels
 #: that run its code; the text outside them is run by no kernel
 SPARSE_SECTIONS = (
-    ("struct __align__(16) GemmTiles {", ("spmm_kernel",)),
-    ("// blockIdx.x = (active block, 64 x 64 tile)", ("sddmm_kernel",)),
+    ("namespace tc {", ("spmm_kernel", "sddmm_spmm_kernel")),
+    ("namespace spmm {", ("spmm_kernel",)),
+    ("namespace sddmm {", ("sddmm_kernel",)),
     ("namespace fused {", ("sddmm_spmm_kernel",)),
 )
 SPARSE_END = "bool grid_ok("
@@ -124,17 +120,19 @@ VARIANTS = {
                       _SP_PRODUCT.replace("if (live)", "if (false)"))],
     "tf32x1_sp": [(_SPARSE, _SP_TF32X3, _SP_TF32X3.split("\n")[-1])],
     "noproduct_spmm": [(_SPARSE, _SPMM_PRODUCT, _SPMM_READ)],
-    "noload_spmm": [(_SPARSE, _SPMM_LOADS,
-                     "      if (C < 0) {\n" + _SPMM_LOADS + "      }\n")],
+    "noload_spmm": [(_SPARSE, _SPMM_LOADS, "if (C < 0)")],
+    "notanh_sddmm": [(_SPARSE, _SDDMM_TANH,
+                      _SDDMM_TANH.replace("tanhf(", "("))],
 }
 #: the variants of the block-sparse kernels and the kernels each changes
 SPARSE_KERNELS = {
     "notanh_sp": ("sddmm_spmm_kernel",),
     "noscore_sp": ("sddmm_spmm_kernel",),
     "noproduct_sp": ("sddmm_spmm_kernel",),
-    "tf32x1_sp": ("sddmm_spmm_kernel",),
+    "tf32x1_sp": ("spmm_kernel", "sddmm_spmm_kernel"),
     "noproduct_spmm": ("spmm_kernel",),
     "noload_spmm": ("spmm_kernel",),
+    "notanh_sddmm": ("sddmm_kernel",),
 }
 
 

@@ -90,10 +90,10 @@ def test_sass_counts_the_float64_tensor_core_products():
     ("chain_kernel<1, false, dstd::Exact>", True),
     ("chain_kernel<5, false, dstd::Exact>", True),
     ("chain_kernel<8, false, dstd::Exact>", True),
-    # the sparse kernels: the fused one on the tensor cores, the SpMM and
-    # the SDDMM on the CUDA cores
+    # the sparse kernels: the SpMM and the fused one on the tensor cores,
+    # the SDDMM (no products) on the CUDA cores
     ("sddmm_spmm_kernel", True),
-    ("spmm_kernel", False),
+    ("spmm_kernel", True),
     ("sddmm_kernel", False),
 ])
 def test_uses_mma_names_the_bf16_out_and_src_passes_of_both_ops(function,
