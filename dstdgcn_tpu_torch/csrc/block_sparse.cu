@@ -56,9 +56,9 @@
 // large graph) is read once from device memory, x again by each row tile
 // that walks its block (91 MB from L2).  Measured at the large graph
 // (PERF.md): about 0.080 ms, the loads alone 0.034 and the products
-// alone 0.066, overlapping little; the same within 2% with the products on
+// alone 0.070, overlapping little; the same within 2% with the products on
 // wgmma or in warp tiles of 32 x 32, 0.098 ms with float32 FMA on the CUDA
-// cores.
+// cores, 8% slower with the adjacency split in registers by every warp.
 //
 // The fused kernel (9): x tiles three deep; each score is formed once per
 // (sample, active block, row, column), 8 rows a warp and one source row a
@@ -76,7 +76,7 @@
 // Stores of four columns as 16 bytes with the streaming hint (nothing
 // reads the scores again here) where block % 4 == 0.  Three blocks an SM
 // (80 registers).  Measured at the large graph (PERF.md): about 0.036 ms,
-// 0.019 of it without the tanh.
+// 0.017-0.019 of it without the tanh.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
