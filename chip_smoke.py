@@ -137,13 +137,35 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    bf16 forward and a batch-1 request; one calibrated batch against the
    same function with the encoder through ``_encoder_oracle`` (the dtype),
    within BF16_CHAIN_FRAC of the batch's bf16-versus-float32 gap;
-11. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
+11. the real-dataset slice: seeded trees in each dataset's own format
+   under ``chiprun_out/chip_smoke/data/`` (``write_h36m_tree``,
+   ``write_cmu_tree``, ``write_pw3d_tree``: expmap CSVs of 99 and 117
+   channels, pickled ``jointPositions``; sizes in REAL_TREES); the float32
+   one-op kernels, forward and backward, both aggregations, against their
+   plain versions at every (Ci, Co) of the CMU (T=35, V=25) and 3DPW
+   (T=40, V=23) models by phase 3's rules (``real_op_checks``); then
+   ``main.run`` on ``real_h36m_train`` (2 epochs of 8 steps, the eval over
+   all 15 actions after each), ``real_cmu_train`` and ``real_3dpw_train``
+   (1 epoch of REAL_STEPS steps and an eval), each with exact launch
+   counts, finite losses and per-action MPJPE, ``training_loss.csv`` of
+   the JAX runner's columns with the best row appended, both checkpoints,
+   every CSV file read by the native reader; for H36M the recovery probe
+   (``test`` mode on ``best.ckpt`` gives the best row's test loss
+   exactly), ``test-all`` (15 action rows and an ``average`` row of 25
+   frame columns) and one calibrated test batch against the plain path
+   (1e-4 + 1e-4 |plain|); for CMU and 3DPW one train step against the
+   plain path by phase 7's rules; printed: the files each reader served,
+   the tree write and dataset build seconds, the wall ms of a train step,
+   an eval batch and a loader fetch, and a train step's device ms;
+12. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
    its main path (the training slice for the float32 one-op kernels, the
    bf16 slice for their bf16 variants, the fused slices for the encoder
    kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
    sparse kernels), max error, times and bound (contractions at the
    tensor cores' rate for the dtype: dense bf16, or for float32 3xTF32,
-   the dense TF32 rate over 3; the rest at the float32 rate).
+   the dense TF32 rate over 3; the rest at the float32 rate), the float32
+   one-op kernels' launches in phase 11's training runs beside them
+   (``real_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -830,17 +852,17 @@ def grad_errors(got, want):
     return abs_err, norm_err, norm_err <= TOL
 
 
-def op_inputs(torch, np, mode, ci, co, device, seed, n=N):
+def op_inputs(torch, np, mode, ci, co, device, seed, n=N, t=T, v=V):
     """Seeded inputs at the model's initialization scales, with the gates
     and biases that initialize at zero made non-zero."""
     rng = np.random.RandomState(seed)
     k = 2 if mode == "spatial" else 1
-    ref, pair = (T, V) if mode == "spatial" else (V, T)
+    ref, pair = (t, v) if mode == "spatial" else (v, t)
 
     def nrm(std, *shape):
         return (rng.randn(*shape) * std).astype(np.float32)
 
-    arrs = [nrm(1.0, n, T, V, ci), nrm(0.3, k, pair, pair),
+    arrs = [nrm(1.0, n, t, v, ci), nrm(0.3, k, pair, pair),
             np.asarray([0.7], np.float32), nrm((2 / co) ** 0.5, k, ci, co),
             nrm(0.1, k, co), nrm(1.0, k, ci, 2), nrm(0.1, k, 2),
             nrm(1.0, k, ci, 2), nrm(0.1, k, 2),
@@ -857,6 +879,88 @@ def forward_shapes(model_cfg):
     temporal = [(f, f)] * (layers + 1) + [(cout, cout)]
     return ([("spatial",) + s for s in spatial]
             + [("temporal",) + s for s in temporal])
+
+
+def train_step_check(torch, fused, engine, rcfg, batch, label):
+    """One train step of ``engine`` (the kernel path) on ``batch`` (inputs,
+    inverse inputs, targets) against the plain path with the same weights,
+    dropout 0, BatchNorm calibrated on the batch: the loss within
+    LOSS_RTOL, each parameter's gradient against the plain path run in
+    float64 (within GRAD_TOL of max(|float64|, 1) or twice the plain
+    float32 path's own distance), and the launches of one step (14 of each
+    float32 forward kernel, 14 calls of each backward one, nothing else).
+    Prints under ``label``; returns (report, the plain path's engine)."""
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.models import get_model
+    device = engine.device
+    tmodel = engine.model
+    topts = {k: v for k, v in rcfg["model"].items() if k != "name"}
+    pmodel = get_model("dstdgcn", **dict(topts, use_pallas=False))
+    peng = PredictionEngine(rcfg["engine"], pmodel, device=device)
+    peng.init()
+    pmodel.load_state_dict(tmodel.state_dict())
+    calibrate_batchnorm(torch, pmodel,
+                        peng.transform(peng.to_device(batch[0])))
+    tmodel.load_state_dict(pmodel.state_dict())
+    for m in (tmodel, pmodel):
+        m.do_in.p = 0.0
+    before = fused.launch_counts()
+    k_loss = float(engine.compute_gradients(*batch)["total"])
+    after = fused.launch_counts()
+    p_loss = float(peng.compute_gradients(*batch)["total"])
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    # the plain path once more in float64, the yardstick of both
+    m64 = copy.deepcopy(pmodel).double()
+    e64 = PredictionEngine(rcfg["engine"], m64, device=device)
+    b64 = [torch.as_tensor(a, dtype=torch.float64, device=device)
+           for a in batch]
+    m64.train()
+    total64 = (sum(e64._one_pass(b64[0], b64[2], None, None, None).values())
+               + sum(e64._one_pass(b64[1], b64[2].flip(1), None, None,
+                                   None).values())) / 2
+    total64.backward()
+    total64 = total64.detach()
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max()) / max(
+            float(want.abs().max()), 1.0)
+
+    g64 = {n: p.grad for n, p in m64.named_parameters()}
+    pgrads = dict(pmodel.named_parameters())
+    grad_errs = {pname: (rel(p.grad, pgrads[pname].grad.double()),
+                         rel(p.grad, g64[pname]),
+                         rel(pgrads[pname].grad, g64[pname]))
+                 for pname, p in tmodel.named_parameters()}
+    # each gradient's distance to float64 over what it may be
+    excess = {k: e[1] / max(GRAD_TOL, 2 * e[2])
+              for k, e in grad_errs.items()}
+    worst_name = max(excess, key=excess.get)
+    worst = grad_errs[worst_name][1]
+    step_launches = {k: after[k] - before[k] for k in after}
+    print(f"{label}: one step, kernel path vs plain path: loss {k_loss} vs "
+          f"{p_loss} (rel {loss_rel:.3g}; float64 {total64.item()}); "
+          f"launches {step_launches}")
+    top = set(sorted(grad_errs, key=lambda k: -grad_errs[k][0])[:3]
+              + sorted(grad_errs, key=lambda k: -grad_errs[k][1])[:3])
+    for pname in sorted(top, key=lambda k: -grad_errs[k][1]):
+        kp, k64, p64 = grad_errs[pname]
+        print(f"{label}: gradient {pname}: kernel vs plain {kp:.3g}, kernel "
+              f"vs float64 {k64:.3g}, plain vs float64 {p64:.3g} of "
+              "max(|reference|, 1)")
+    check(loss_rel <= LOSS_RTOL, f"{label} loss: kernel path {k_loss}, "
+                                 f"plain path {p_loss}")
+    check(excess[worst_name] <= 1.0,
+          f"{label} gradient of {worst_name}: {worst} of max(|float64|, "
+          f"1), the plain float32 path {grad_errs[worst_name][2]}")
+    check(step_launches == {
+        **{k: 14 for k in FORWARD},
+        **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD},
+        **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD
+           + BF16_CHAINS}},
+        f"{label}: one train step launched {step_launches}")
+    return dict(loss=k_loss, plain_loss=p_loss, loss_rel=loss_rel,
+                worst_grad=worst, worst_excess=excess[worst_name],
+                worst_param=worst_name, grad_errs=grad_errs), peng
 
 
 def calibrate_batchnorm(torch, model, inputs):
@@ -876,6 +980,78 @@ def calibrate_batchnorm(torch, model, inputs):
         m.momentum = mom
     model.do_in.p = p
     model.eval()
+
+
+def write_h36m_tree(root, seed=0, actions=None, subjects=(1, 5, 6, 7, 8, 9),
+                    frames=160, test_frames=300):
+    """A seeded tree in Human3.6M's expmap format:
+    ``root/S<subject>/<action>_<1|2>.txt``, 99 comma-separated channels a
+    frame (0.3 x normal values, six decimals), ``test_frames`` raw frames
+    for subject 5 (the test split) and ``frames`` for the others; every
+    action by default.  Returns ``root``, the train and test splits'
+    ``data_path``."""
+    import numpy as np
+    from dstdgcn_tpu_torch.data.datasets import H36M_ACTIONS
+    rng = np.random.RandomState(seed)
+    for subj in subjects:
+        d = os.path.join(root, f"S{subj}")
+        os.makedirs(d, exist_ok=True)
+        for act in actions or H36M_ACTIONS:
+            for sub in (1, 2):
+                n = test_frames if subj == 5 else frames
+                arr = 0.3 * rng.randn(n, 99).astype(np.float32)
+                np.savetxt(os.path.join(d, f"{act}_{sub}.txt"), arr,
+                           delimiter=",", fmt="%.6f")
+    return root
+
+
+def write_cmu_tree(root, seed=0, actions=None, files=(2, 1),
+                   frames=(200, 200)):
+    """A seeded tree in CMU Mocap's expmap format:
+    ``root/{train,test}/<action>/<action>_<i>.txt``, 117 comma-separated
+    channels a frame (0.3 x normal values, six decimals), ``files`` files
+    of ``frames`` raw frames an action in each split; every action by
+    default.  Returns the train and test ``data_path``."""
+    import numpy as np
+    from dstdgcn_tpu_torch.data.datasets import CMU_ACTIONS
+    rng = np.random.RandomState(seed)
+    paths = []
+    for split, count, n in zip(("train", "test"), files, frames):
+        paths.append(os.path.join(root, split))
+        for act in actions or CMU_ACTIONS:
+            d = os.path.join(root, split, act)
+            os.makedirs(d, exist_ok=True)
+            for i in range(count):
+                arr = 0.3 * rng.randn(n, 117).astype(np.float32)
+                np.savetxt(os.path.join(d, f"{act}_{i + 1}.txt"), arr,
+                           delimiter=",", fmt="%.6f")
+    return tuple(paths)
+
+
+def write_pw3d_tree(root, seed=0, files=(4, 2), people=2,
+                    frames=(150, 100)):
+    """A seeded tree in 3DPW's format: ``root/{train,test}/seq_<i>.pkl``,
+    each a pickled ``{"jointPositions": [...]}`` of ``people`` float64
+    arrays of ``frames`` x 72 (24 joints, metres: a pose of 0.3 x normal
+    values walking by steps of 0.01 x normal values).  Returns the train
+    and test ``data_path`` (with the trailing slash of the shipped
+    configs)."""
+    import pickle
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    paths = []
+    for split, count, n in zip(("train", "test"), files, frames):
+        d = os.path.join(root, split)
+        os.makedirs(d, exist_ok=True)
+        paths.append(d + "/")
+        for i in range(count):
+            blob = {"jointPositions": [
+                0.3 * rng.randn(1, 72) + np.cumsum(0.01 * rng.randn(n, 72),
+                                                   axis=0)
+                for _ in range(people)]}
+            with open(os.path.join(d, f"seq_{i + 1}.pkl"), "wb") as f:
+                pickle.dump(blob, f)
+    return tuple(paths)
 
 
 def chain_held(err, gap, frac, kernel64, *plain64):
@@ -1719,6 +1895,284 @@ def fused_bf16_phase(torch, np, fused, device):
     return report, counts
 
 
+#: the seeded trees of phase 11, in each dataset's format (the writers'
+#: keyword arguments).  H36M: subjects 1, 6, 7, 8 and 9 (train) of 160 raw
+#: frames a file, 46 windows after downsampling, 13,800 mirrored; subject 5
+#: (test) of 300, 50 ``all``-mode windows a subaction, 4 eval batches an
+#: action.  CMU: each action 2 train files and 1 test file of 200 raw
+#: frames, 66 windows each.  3DPW: 4 train and 2 test files of 2 people,
+#: 150 and 100 frames (111 and 61 windows each)
+REAL_TREES = {"h36m": dict(seed=17, frames=160, test_frames=300),
+              "cmu": dict(seed=18, files=(2, 1), frames=(200, 200)),
+              "3dpw": dict(seed=19, files=(4, 2), frames=(150, 100))}
+#: train steps of phase 11's CMU and 3DPW runs (one epoch); the H36M run
+#: takes its config's 2 epochs of ``max_iter`` steps
+REAL_STEPS = 4
+
+
+def real_op_checks(torch, np, fused, plain, plain_bwd, device, label, t, v,
+                   shapes):
+    """Each float32 one-op kernel, forward and backward, both aggregations,
+    against its plain version at N=32, (T, V) = (``t``, ``v``) and every
+    (mode, Ci, Co) of ``shapes``, by phase 3's rules: forward within 1e-4 +
+    1e-4 |plain| elementwise, the backward's 11 tensors each within 1e-4
+    max(max |plain|, 1), two calls of each bit-equal.  Returns the check
+    lines (with the tile the wrapper chose)."""
+    lines = []
+    for mode, ci, co in sorted(set(shapes)):
+        fwd, ref = getattr(fused, f"dstd_{mode}"), getattr(plain,
+                                                           f"dstd_{mode}")
+        bwd = getattr(fused, f"dstd_{mode}_bwd")
+        ref_bwd = getattr(plain_bwd, f"dstd_{mode}_bwd")
+        args = op_inputs(torch, np, mode, ci, co, device, seed=ci + co + t,
+                         n=N, t=t, v=v)
+        gen = torch.Generator(device=device).manual_seed(ci * co + v)
+        g = torch.randn((N, t, v, co), generator=gen, device=device)
+        for agg in ("right", "left"):
+            got, again = (fwd(*args, None, agg) for _ in range(2))
+            want = ref(*args, None, agg)
+            f_abs, f_rel, f_ok = errors(torch, got, want)
+            f_rep = bool(torch.equal(got, again))
+            got, again = (bwd(args[0], g, *args[1:], agg=agg)
+                          for _ in range(2))
+            want = ref_bwd(args[0], g, *args[1:], agg=agg)
+            b_abs, b_norm, b_ok = grad_errors(got, want)
+            b_rep = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            tiles = {op.name: sorted({plan[1] for key, plan in
+                                      op._plans.items()
+                                      if key[0] == "f32"
+                                      and key[2:6] == (t, v, ci, co)})
+                     for op in (fwd, bwd)}
+            line = dict(dataset=label, t=t, v=v, mode=mode, ci=ci, co=co,
+                        agg=agg, n=N, tiles=tiles,
+                        forward=dict(max_abs_err=f_abs, max_rel_err=f_rel,
+                                     ok=f_ok, repeatable=f_rep),
+                        backward=dict(max_abs_err=b_abs, max_norm_err=b_norm,
+                                      ok=b_ok, repeatable=b_rep))
+            lines.append(line)
+            print("real check " + json.dumps(line))
+            where = f"{label} (T={t}, V={v}) dstd_{mode} agg={agg} {ci}->{co}"
+            check(f_ok, f"{where}: forward max abs err {f_abs}")
+            check(b_ok, f"{where}: backward {b_norm} of max(|plain|, 1)")
+            check(f_rep and b_rep, f"{where}: two calls differ")
+    return lines
+
+
+def real_data_phase(torch, np, fused, plain, plain_bwd, device):
+    """Phase 11, the real-dataset slice: seeded trees in each dataset's
+    format, the float32 one-op kernels at CMU's and 3DPW's shapes, then
+    ``main.run`` on ``real_h36m_train`` (2 epochs; the recovery probe,
+    ``test-all`` and a calibrated batch against the plain path after it),
+    ``real_cmu_train`` and ``real_3dpw_train`` (1 epoch of REAL_STEPS
+    steps; one train step against the plain path after each), every run's
+    launches exact.  Returns (report, {dataset: launches of its training
+    run})."""
+    import shutil
+    from dstdgcn_tpu_torch import configs
+    from dstdgcn_tpu_torch.data import datasets as tds
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.models import get_model
+    from dstdgcn_tpu_torch.utils.config import resolve
+    report, launches = {}, {}
+    start = time.perf_counter()
+    out = os.path.join(OUT_DIR, "real")
+    data = os.path.join(OUT_DIR, "data")
+    for d in (out, data):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # the trees, in each dataset's own format
+    writers = {"h36m": write_h36m_tree, "cmu": write_cmu_tree,
+               "3dpw": write_pw3d_tree}
+    paths, write_s = {}, {}
+    for name, writer in writers.items():
+        t0 = time.perf_counter()
+        got = writer(os.path.join(data, name), **REAL_TREES[name])
+        write_s[name] = time.perf_counter() - t0
+        paths[name] = (got, got) if isinstance(got, str) else got
+    print(f"real: trees written in {sum(write_s.values()):.2f} s "
+          + " ".join(f"{k}={v:.2f}s" for k, v in write_s.items()))
+    report["write_seconds"] = write_s
+
+    # the float32 one-op kernels at the CMU and 3DPW models' shapes
+    checks = []
+    for name in ("cmu", "3dpw"):
+        mcfg = resolve(getattr(configs, f"REAL_{name.upper()}_TRAIN"))[
+            "model"]["dstdgcn"]
+        checks += real_op_checks(
+            torch, np, fused, plain, plain_bwd, device, name,
+            mcfg["input_time_frame"] + mcfg["output_time_frame"],
+            mcfg["joints_to_consider"], forward_shapes(mcfg))
+    report["op_checks"] = checks
+
+    for name in ("h36m", "cmu", "3dpw"):
+        cfg = configs.set_data_paths(
+            getattr(configs, f"real_{name}_train")(), *paths[name])
+        if name != "h36m":
+            cfg["epoch"] = 1
+            cfg["engine"]["max_iter"] = REAL_STEPS
+        rcfg = resolve(cfg)
+        epochs, max_iter = rcfg["epoch"], rcfg["engine"]["max_iter"]
+        run_dir = os.path.join(out, name)
+        tds.reset_reader_counts()
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner, history = run(cfg, device.type, run_dir=run_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches[name] = fused.launch_counts()
+        reads = tds.reader_counts()
+        eng = runner.engine
+        steps = len(eng.train_step_seconds)
+        evals = epochs * len(runner.test_batch_seconds)
+        rows = np.asarray(history, dtype=np.float64)
+        step_ms = [s * 1e3 for s in eng.train_step_seconds]
+        eval_ms = [s * 1e3 for s in runner.test_batch_seconds]
+        fetch_ms = [s * 1e3 for s in eng.train_fetch_seconds]
+        print(f"real {name}: main.run on {device.type} in {wall:.2f} s, "
+              f"{steps} train steps of {rcfg['train_batch_size']} and "
+              f"{evals} eval batches; files read {reads}; dataset build s "
+              f"{ {k: round(v, 3) for k, v in runner.data_seconds.items()} }")
+        print(f"real {name}: wall ms per train step, first "
+              f"{step_ms[0]:.3f}, then median "
+              f"{float(np.median(step_ms[1:])):.3f}; per eval batch median "
+              f"{float(np.median(eval_ms)):.3f}; loader ms per train batch "
+              f"median {float(np.median(fetch_ms)):.3f}")
+        print(f"real {name}: per epoch (epoch, lr, train loss, test loss, "
+              f"horizons) {rows[:, :12].tolist()}; launches {counts}")
+        check(steps == epochs * max_iter,
+              f"{name}: {steps} train steps, expected {epochs} x {max_iter}")
+        check(rows.shape[0] == epochs and bool(np.all(np.isfinite(rows))),
+              f"{name}: non-finite losses or MPJPE in training")
+        if name == "3dpw":
+            check(reads == {"native": 0, "loadtxt": 0},
+                  f"3dpw read CSV files: {reads}")
+            width = 3 + 1 + len(rcfg["setting"]["eval_frame"])
+        else:
+            check(reads["native"] > 0 and reads["loadtxt"] == 0,
+                  f"{name}: the native reader did not serve every file: "
+                  f"{reads}")
+            width = 3 + 9 + 8 * len(tds.define_actions("all", name))
+        with open(os.path.join(run_dir, "training_loss.csv")) as f:
+            csv_rows = [line.strip().split(",") for line in f
+                        if line.strip()]
+        check(len(csv_rows) == epochs + 2
+              and {len(r) for r in csv_rows} == {width}
+              and csv_rows[-1] == csv_rows[1 + int(np.argmin(rows[:, 3]))],
+              f"{name}: training_loss.csv holds {len(csv_rows)} rows of "
+              f"{sorted({len(r) for r in csv_rows})} columns, expected "
+              f"{epochs + 2} of {width} with the best row last")
+        for ckpt in ("last.ckpt", "best.ckpt"):
+            check(os.path.isfile(os.path.join(run_dir, "checkpoints", ckpt)),
+                  f"{name}: {ckpt} was not written")
+        want = {k: 0 for k in counts}
+        want.update({k: 14 * steps + 7 * evals for k in FORWARD})
+        want.update({k: fused.BWD_LAUNCHES * 14 * steps for k in BACKWARD})
+        check(counts == want, f"{name}: training launched {counts}, "
+                              f"expected {want}")
+
+        # one test batch (32 windows of one action) for the step's device
+        # time and the checks against the plain path
+        split = dict(rcfg["dataset"]["test"][name])
+        if name != "3dpw":
+            split["actions"] = "walking"
+        arrays = get_dataset(name, **{name: split}).arrays()
+        batch = [a[:N] for a in arrays[:3]]
+        prof = device_profile(torch, lambda: eng.train_step(*batch), 3)
+        step_dev = sum(prof.values())
+        print(f"real {name}: train step device "
+              + (f"{step_dev:.3f} ms" if prof else "not measured (the "
+                 "profiler recorded nothing)"))
+        report[name] = dict(
+            wall=wall, steps=steps, evals=evals, reads=reads,
+            data_seconds=runner.data_seconds, step_ms=step_ms,
+            eval_ms=eval_ms, fetch_ms=fetch_ms, step_device_ms=step_dev,
+            history=rows.tolist(), launches=counts)
+        if name != "h36m":
+            report[name]["train_check"], _ = train_step_check(
+                torch, fused, eng, rcfg, batch, f"real {name}")
+            continue
+
+        # the recovery probe: test mode on best.ckpt gives the best row's
+        # test loss exactly
+        best = os.path.join(run_dir, "checkpoints", "best.ckpt")
+        results = {}
+        for mode in ("test", "test-all"):
+            mcfg = configs.set_data_paths(configs.real_h36m_train(),
+                                          *paths[name])
+            mcfg["mode"] = mode
+            mcfg["model"].update(load=True, ckpt=best)
+            fused.reset_launch_counts()
+            mrunner, _ = run(mcfg, device.type,
+                             run_dir=os.path.join(out, f"h36m_{mode}"))
+            torch.cuda.synchronize()
+            with open(os.path.join(out, f"h36m_{mode}",
+                                   "testing_loss.csv")) as f:
+                results[mode] = ([line.strip().split(",") for line in f
+                                  if line.strip()], fused.launch_counts(),
+                                 mrunner)
+        (test_rows, test_counts, trunner), (all_rows, all_counts, _) = (
+            results["test"], results["test-all"])
+        n_eval = len(trunner.test_batch_seconds)
+        print(f"real h36m: recovery probe test_loss {test_rows[1][0]} "
+              f"against the best row's {csv_rows[-1][3]}; test-all rows "
+              f"{[r[0] for r in all_rows[1:]]}, average {all_rows[-1][:4]}"
+              f"...; launches {test_counts} and {all_counts}")
+        check(float(test_rows[1][0]) == float(csv_rows[-1][3]),
+              f"recovery probe: test_loss {test_rows[1][0]}, best row "
+              f"{csv_rows[-1][3]}")
+        check(len(test_rows) == 2 and len(test_rows[0]) == width - 3,
+              f"testing_loss.csv of test mode holds {test_rows[:1]}")
+        check([r[0] for r in all_rows[1:]]
+              == tds.define_actions("all", "h36m") + ["average"]
+              and {len(r) for r in all_rows} == {2 + 25}
+              and all(np.isfinite(float(x)) for r in all_rows[1:]
+                      for x in r[1:]),
+              f"the test-all table holds {all_rows}")
+        for mode, c in (("test", test_counts), ("test-all", all_counts)):
+            want = {k: 7 * n_eval if k in FORWARD else 0 for k in c}
+            check(c == want, f"h36m {mode} launched {c}, expected {want}")
+        report["h36m"].update(recovery=float(test_rows[1][0]),
+                              best=float(csv_rows[-1][3]),
+                              test_all=all_rows)
+
+        # one calibrated test batch through the kernels against the plain
+        # path, the served weights moved off the checkpoint as phase 4 does
+        teng = trunner.engine
+        model = teng.model
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen).to(device))
+        opts = {k: v for k, v in rcfg["model"].items() if k != "name"}
+        pmodel = get_model("dstdgcn", **dict(opts, use_pallas=False))
+        pmodel.load_state_dict(model.state_dict())
+        peng = PredictionEngine(rcfg["engine"], pmodel, device=device)
+        calibrate_batchnorm(torch, pmodel,
+                            peng.transform(peng.to_device(batch[0])))
+        model.load_state_dict(pmodel.state_dict())
+        before = fused.launch_counts()
+        got = teng.predict(batch[0])
+        want = peng.predict(batch[0])
+        torch.cuda.synchronize()
+        after = fused.launch_counts()
+        abs_err, rel_err, ok = errors(torch, got, want)
+        served = {k: after[k] - before[k] for k in FORWARD}
+        print(f"real h36m: batch {N} kernel path vs plain path max_abs_err "
+              f"{abs_err} max_rel_err {rel_err} (|out| max "
+              f"{float(want.abs().max())}) launches {served}")
+        check(ok, f"h36m served batch: kernel path disagrees with the plain "
+                  f"path (max abs err {abs_err})")
+        check(served == {k: 7 for k in FORWARD},
+              f"h36m served batch launched {served}")
+        report["h36m"]["model_check"] = dict(max_abs_err=abs_err,
+                                             max_rel_err=rel_err)
+    report["seconds"] = time.perf_counter() - start
+    print(f"real: the phase took {report['seconds']:.1f} s")
+    return report, launches
+
+
 def run_smoke():
     import numpy as np
     import torch
@@ -2308,76 +2762,8 @@ def run_smoke():
 
     # one train step on one batch: kernel path against the plain path, same
     # weights, dropout 0, BatchNorm calibrated on the batch
-    tmodel = teng.model
-    topts = {k: v for k, v in rcfg["model"].items() if k != "name"}
-    pmodel = get_model("dstdgcn", **dict(topts, use_pallas=False))
-    peng = PredictionEngine(rcfg["engine"], pmodel, device="cuda")
-    peng.init()
-    pmodel.load_state_dict(tmodel.state_dict())
-    calibrate_batchnorm(torch, pmodel, peng.transform(peng.to_device(
-        tbatch[0])))
-    tmodel.load_state_dict(pmodel.state_dict())
-    for m in (tmodel, pmodel):
-        m.do_in.p = 0.0
-    before = fused.launch_counts()
-    k_loss = float(teng.compute_gradients(*tbatch)["total"])
-    after = fused.launch_counts()
-    p_loss = float(peng.compute_gradients(*tbatch)["total"])
-    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
-    # the plain path once more in float64, the yardstick of both
-    m64 = copy.deepcopy(pmodel).double()
-    e64 = PredictionEngine(rcfg["engine"], m64, device="cuda")
-    b64 = [torch.as_tensor(a, dtype=torch.float64, device=device)
-           for a in tbatch]
-    m64.train()
-    total64 = (sum(e64._one_pass(b64[0], b64[2], None, None, None).values())
-               + sum(e64._one_pass(b64[1], b64[2].flip(1), None, None,
-                                   None).values())) / 2
-    total64.backward()
-    total64 = total64.detach()
-
-    def rel(got, want):
-        return float((got.double() - want).abs().max()) / max(
-            float(want.abs().max()), 1.0)
-
-    g64 = {n: p.grad for n, p in m64.named_parameters()}
-    pgrads = dict(pmodel.named_parameters())
-    grad_errs = {pname: (rel(p.grad, pgrads[pname].grad.double()),
-                         rel(p.grad, g64[pname]),
-                         rel(pgrads[pname].grad, g64[pname]))
-                 for pname, p in tmodel.named_parameters()}
-    # each gradient's distance to float64 over what it may be
-    excess = {k: e[1] / max(GRAD_TOL, 2 * e[2])
-              for k, e in grad_errs.items()}
-    worst_name = max(excess, key=excess.get)
-    worst = grad_errs[worst_name][1]
-    step_launches = {k: after[k] - before[k] for k in after}
-    print(f"train: one step, kernel path vs plain path: loss {k_loss} vs "
-          f"{p_loss} (rel {loss_rel:.3g}; float64 {total64.item()}); "
-          f"launches {step_launches}")
-    top = set(sorted(grad_errs, key=lambda k: -grad_errs[k][0])[:3]
-              + sorted(grad_errs, key=lambda k: -grad_errs[k][1])[:3])
-    for pname in sorted(top, key=lambda k: -grad_errs[k][1]):
-        kp, k64, p64 = grad_errs[pname]
-        print(f"train: gradient {pname}: kernel vs plain {kp:.3g}, kernel "
-              f"vs float64 {k64:.3g}, plain vs float64 {p64:.3g} of "
-              "max(|reference|, 1)")
-    check(loss_rel <= LOSS_RTOL, f"train loss: kernel path {k_loss}, plain "
-                                 f"path {p_loss}")
-    check(excess[worst_name] <= 1.0,
-          f"gradient of {worst_name}: {worst} of max(|float64|, 1), the "
-          f"plain float32 path {grad_errs[worst_name][2]}")
-    check(step_launches == {
-        **{k: 14 for k in FORWARD},
-        **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD},
-        **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD
-           + BF16_CHAINS}},
-        f"one train step launched {step_launches}")
-    report["train_check"] = dict(loss=k_loss, plain_loss=p_loss,
-                                 loss_rel=loss_rel, worst_grad=worst,
-                                 worst_excess=excess[worst_name],
-                                 worst_param=worst_name,
-                                 grad_errs=grad_errs)
+    report["train_check"], peng = train_step_check(torch, fused, teng, rcfg,
+                                                   tbatch, "train")
 
     # the train step timed on both paths (CUDA events, host included; the
     # profiler's device time beside it)
@@ -2409,7 +2795,12 @@ def run_smoke():
     report["fused_bf16"], fbcounts = fused_bf16_phase(torch, np, fused,
                                                       device)
 
-    # 11. the kernels line.  One-op kernels: times summed over the 7 calls
+    # 11. the real-dataset slice: H36M, CMU Mocap and 3DPW trees through
+    # the loaders, training and per-action evaluation on the kernels
+    report["real"], rcounts = real_data_phase(torch, np, fused, plain,
+                                              plain_bwd, device)
+
+    # 12. the kernels line.  One-op kernels: times summed over the 7 calls
     # of one forward (or of its backward) at their (Ci, Co), with the
     # model's aggregation, N=32 for the float32 kernels and N=128 (the bf16
     # slice's batch) for the bf16 variants; launches those of the training
@@ -2467,6 +2858,7 @@ def run_smoke():
             bound_by="operations" if ops_ms >= mem_ms else "bytes",
             library_ms=None, call_ms=call_ms,
             serving_launches=counts[name], fused_launches=fcounts[name],
+            real_launches={k: c[name] for k, c in rcounts.items()},
             timed_by="+".join(sorted(timed_by))))
         if split is not None:
             kernels[-1].update(launch_ms=split)

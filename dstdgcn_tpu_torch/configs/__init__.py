@@ -1,14 +1,14 @@
 """Configs of the port as Python dicts (no PyYAML needed).
 
 ``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED``,
-``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_TPU_TRAIN`` and
-``SYNTHETIC_H36M_TPU_FUSED`` equal ``synthetic_h36m_serving.yaml``,
-``synthetic_h36m_fused.yaml``, ``synthetic_h36m_train.yaml``,
-``synthetic_h36m_tpu_train.yaml`` and ``synthetic_h36m_tpu_fused.yaml`` as
-``yaml.safe_load`` reads them (``!!python`` values unresolved); pass either
-form to :func:`dstdgcn_tpu_torch.main.run`.  The functions of the same
-names in lower case return fresh deep copies, since runners update the
-config in place.
+``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_TPU_TRAIN``,
+``SYNTHETIC_H36M_TPU_FUSED``, ``REAL_H36M_TRAIN``, ``REAL_CMU_TRAIN`` and
+``REAL_3DPW_TRAIN`` equal the YAML files of the same names in lower case
+as ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass
+either form to :func:`dstdgcn_tpu_torch.main.run`.  The real-data configs
+read their files from each split's ``data_path``, which the caller sets
+(:func:`set_data_paths`).  The functions of the same names in lower case
+return fresh deep copies, since runners update the config in place.
 """
 
 from __future__ import annotations
@@ -19,7 +19,10 @@ __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
            "SYNTHETIC_H36M_FUSED", "synthetic_h36m_fused",
            "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train",
            "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train",
-           "SYNTHETIC_H36M_TPU_FUSED", "synthetic_h36m_tpu_fused"]
+           "SYNTHETIC_H36M_TPU_FUSED", "synthetic_h36m_tpu_fused",
+           "REAL_H36M_TRAIN", "real_h36m_train", "REAL_CMU_TRAIN",
+           "real_cmu_train", "REAL_3DPW_TRAIN", "real_3dpw_train",
+           "set_data_paths"]
 
 _SYNTHETIC = dict(layout="h36m", num_sequences=256, input_n=10, output_n=25,
                   dct_used=0, mirror=False)
@@ -145,3 +148,115 @@ SYNTHETIC_H36M_TPU_FUSED["engine"].update(max_iter=2000,
 
 def synthetic_h36m_tpu_fused() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_TPU_FUSED)
+
+
+def _real(runner, dataset, setting, model, max_iter=8):
+    """A real-data config: the shipped config's blocks at full width with
+    every DSTD-GC op through the CUDA kernels, 2 epochs of ``max_iter``
+    steps."""
+    return {
+        "runner": runner,
+        "save": copy.deepcopy(SYNTHETIC_H36M_SERVING["save"]),
+        "train_batch_size": 32,
+        "test_batch_size": 32,
+        "num_workers": 0,
+        "epoch": 2,
+        "mode": "train",
+        "dataset": dataset,
+        "setting": setting,
+        "model": {"name": "dstdgcn", "load": False, "ckpt": "None",
+                  "use_pallas": True, "dstdgcn": model},
+        "engine": {
+            "learn": {"opt": "adam", "lr": 3.e-3, "weight_decay": 0,
+                      "gamma": 0.9, "step_size": 5},
+            "loss": {"joint": ["jl2", 1]},
+            "n_out": 1,
+            "transform": "tsc",
+            "use_weight": False,
+            "inverse": True,
+            "max_iter": max_iter,
+        },
+    }
+
+
+def _model(output_n, joints, layout):
+    return {"input_channels": 6, "input_time_frame": 10,
+            "output_time_frame": output_n, "st_gcnn_dropout": 0.1,
+            "joints_to_consider": joints, "num_feature": 64,
+            "num_layers": 5, "layout": layout}
+
+
+_H36M_SPLIT = dict(input_n=10, output_n=25, dct_used=0, sample_rate=2,
+                   data_3d=True)
+
+#: configs/dstdgcn_h36m.yaml's blocks: T = 35, V = 22
+REAL_H36M_TRAIN = _real(
+    "h36m",
+    {"name": "h36m", "scale": False,
+     "train": {"h36m": dict(data_path="data/h36m", actions="all",
+                            **_H36M_SPLIT, mode="train", mirror=True)},
+     "test": {"h36m": dict(data_path="data/h36m/", **_H36M_SPLIT,
+                           mode="test", test_mode="all", mirror=False)}},
+    {k: copy.deepcopy(v) for k, v in SYNTHETIC_H36M_SERVING[
+        "setting"].items()},
+    _model(25, 22, "h36m"))
+
+_CMU_SPLIT = dict(actions="all", input_n=10, output_n=25, dct_used=0,
+                  sample_rate=2, data_3d=True, test_mode="all")
+
+#: configs/dstdgcn_cmu.yaml's blocks: T = 35, V = 25
+REAL_CMU_TRAIN = _real(
+    "cmu",
+    {"name": "cmu", "scale": False,
+     "train": {"cmu": dict(data_path="data/cmu/train", **_CMU_SPLIT,
+                           mirror=True)},
+     "test": {"cmu": dict(data_path="data/cmu/test", **_CMU_SPLIT,
+                          mirror=False)}},
+    {"input_n": 10, "output_n": 25,
+     "eval_frame": [1, 3, 7, 9, 13, 17, 21, 24],
+     "dim_used": [9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 27, 28, 29,
+                  30, 31, 32, 33, 34, 35, 36, 37, 38, 42, 43, 44, 45, 46, 47,
+                  51, 52, 53, 54, 55, 56, 57, 58, 59, 63, 64, 65, 66, 67, 68,
+                  69, 70, 71, 75, 76, 77, 78, 79, 80, 84, 85, 86, 90, 91, 92,
+                  93, 94, 95, 96, 97, 98, 102, 103, 104, 105, 106, 107, 111,
+                  112, 113],
+     "joint_to_ignore": [16, 20, 29, 24, 27, 33, 36],
+     "joint_to_equal": [15, 15, 15, 23, 23, 32, 32],
+     "save": False},
+    _model(25, 25, "cmu"))
+
+_PW3D_SPLIT = dict(input_n=10, output_n=30, dct_used=0)
+
+#: configs/dstdgcn_3dpw.yaml's blocks: T = 40, V = 23
+REAL_3DPW_TRAIN = _real(
+    "3dpw",
+    {"name": "3dpw", "scale": False,
+     "train": {"3dpw": dict(data_path="data/3dpw/sequenceFiles/train/",
+                            **_PW3D_SPLIT, mirror=True, padding=True)},
+     "test": {"3dpw": dict(data_path="data/3dpw/sequenceFiles/test/",
+                           **_PW3D_SPLIT, mirror=False, padding=True)}},
+    {"input_n": 10, "output_n": 30, "eval_frame": [4, 9, 14, 19, 24],
+     "dim_used": list(range(3, 72)), "joint_to_ignore": None,
+     "joint_to_equal": None, "save": False},
+    _model(30, 23, "3dpw"))
+
+
+def real_h36m_train() -> dict:
+    return copy.deepcopy(REAL_H36M_TRAIN)
+
+
+def real_cmu_train() -> dict:
+    return copy.deepcopy(REAL_CMU_TRAIN)
+
+
+def real_3dpw_train() -> dict:
+    return copy.deepcopy(REAL_3DPW_TRAIN)
+
+
+def set_data_paths(cfg: dict, train: str, test: str) -> dict:
+    """Point a real-data config's train and test splits at ``train`` and
+    ``test``; returns ``cfg``."""
+    name = cfg["dataset"]["name"]
+    cfg["dataset"]["train"][name]["data_path"] = train
+    cfg["dataset"]["test"][name]["data_path"] = test
+    return cfg

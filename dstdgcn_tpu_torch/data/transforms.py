@@ -3,7 +3,9 @@
 Counterpart of ``dstdgcn_tpu/data/transforms.py``.  The engine's exchange
 layout is flat ``(B, T, V*C)``; the model consumes channels-last
 ``(B, T, V, C)``.  ``tsc`` is the transform of every shipped config; the
-``tscr_*`` variants also reorder joints into a limb-grouped order.
+``tscr_*`` variants also reorder joints into a limb-grouped order.  The
+scale normalizers (:class:`MeanStdNorm`, :class:`MinMaxNorm`) take numpy
+arrays at dataset build and tensors in the engine, on any device.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["get_transform", "TimeTransform", "mirror_sequences",
-           "padding_indices", "dct_matrix"]
+__all__ = ["get_transform", "TimeTransform", "MeanStdNorm", "MinMaxNorm",
+           "mirror_sequences", "padding_indices", "dct_matrix"]
 
 # limb-grouped joint orders
 _TSCR_ORDERS = {
@@ -126,6 +128,60 @@ class TimeTransform:
     def inverse(self, x):
         """(N, D, S) -> (N, T, S)."""
         return self._apply(self.idct, "td,nds->nts", x)
+
+
+class _Stats:
+    """numpy statistics of a scaler and their tensor copies, made once per
+    (device, dtype) and reused by every batch."""
+
+    def __init__(self):
+        self._tensors: Dict[Tuple[torch.device, torch.dtype],
+                            Tuple[torch.Tensor, ...]] = {}
+
+    def _cast(self, x, *stats: np.ndarray):
+        if not isinstance(x, torch.Tensor):
+            return stats
+        key = (x.device, x.dtype)
+        got = self._tensors.get(key)
+        if got is None:
+            got = self._tensors[key] = tuple(
+                torch.as_tensor(m, dtype=x.dtype, device=x.device)
+                for m in stats)
+        return got
+
+
+class MeanStdNorm(_Stats):
+    """Per-dimension standardization, ``(x - mean) / std``."""
+
+    def __init__(self, mean, std):
+        super().__init__()
+        self.mean = np.asarray(mean, np.float32)[None, None, :]
+        self.std = np.asarray(std, np.float32)[None, None, :]
+
+    def transform(self, x):
+        mean, std = self._cast(x, self.mean, self.std)
+        return (x - mean) / std
+
+    def inverse(self, x):
+        mean, std = self._cast(x, self.mean, self.std)
+        return x * std + mean
+
+
+class MinMaxNorm(_Stats):
+    """[-1, 1] min-max scaling."""
+
+    def __init__(self, v_min, v_max):
+        super().__init__()
+        self.v_min = np.asarray(v_min, np.float32)
+        self.gap = np.asarray(v_max - v_min, np.float32)
+
+    def transform(self, x):
+        v_min, gap = self._cast(x, self.v_min, self.gap)
+        return (x - v_min) / gap * 2 - 1
+
+    def inverse(self, x):
+        v_min, gap = self._cast(x, self.v_min, self.gap)
+        return (x + 1) / 2 * gap + v_min
 
 
 def mirror_sequences(seqs: np.ndarray, right, left) -> np.ndarray:

@@ -57,6 +57,6 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         if _is_jax_checkpoint(head, size):
             raise NotImplementedError(
                 f"{path} is a checkpoint of the JAX package (msgpack); "
-                "reading it is not ported yet (ROADMAP Queue 1 item 6)")
+                "reading it is not ported yet (ROADMAP Queue 1 item 3)")
         raise ValueError(f"{path} is not a checkpoint of the port")
     return torch.load(path, map_location="cpu", weights_only=True)

@@ -47,9 +47,9 @@ __all__ = ["PredictionEngine", "steplr"]
 
 #: engine keys of the JAX package that the port does not have yet
 _UNPORTED = {
-    "solver": "engine/solver.py, ROADMAP Queue 1 item 6",
-    "callbacks": "utils/callbacks.py, ROADMAP Queue 1 item 11",
-    "profile": "the profiler trace hook, ROADMAP Queue 1 item 11",
+    "solver": "engine/solver.py, ROADMAP Queue 1 item 3",
+    "callbacks": "utils/callbacks.py, ROADMAP Queue 1 item 3",
+    "profile": "the profiler trace hook, ROADMAP Queue 1 item 3",
 }
 
 
@@ -114,6 +114,9 @@ class PredictionEngine:
         #: host seconds of each :meth:`train` step since :meth:`init`, each
         #: ending in a device synchronize
         self.train_step_seconds: List[float] = []
+        #: host seconds of fetching each :meth:`train` batch from the
+        #: loader since :meth:`init`
+        self.train_fetch_seconds: List[float] = []
 
     # -- state ------------------------------------------------------------
 
@@ -130,6 +133,7 @@ class PredictionEngine:
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.lr,
                                           weight_decay=self.weight_decay)
         self.train_step_seconds = []
+        self.train_fetch_seconds = []
         if self.logger is not None:
             self.logger.info("Trainable number of parameters of the network "
                              f"is: {self.num_params()}")
@@ -314,10 +318,12 @@ class PredictionEngine:
         desc = ""
         it = iter(train_loader)
         for i in range(num_iter):
+            t0 = time.perf_counter()
             try:
                 inputs, inputs_inv, targets, _ = next(it)
             except StopIteration:
                 break
+            self.train_fetch_seconds.append(time.perf_counter() - t0)
             n = inputs.shape[0]
             timer.tic()
             losses = self.train_step(inputs, inputs_inv, targets, time_tsfm,

@@ -19,7 +19,7 @@ below 64       None (float32)          None / None
 The grouping sizes are layout choices of the JAX package's XLA path with
 the same result; the port accepts them and computes the same function
 without them.  One process, no mesh: until the parallel layer is ported
-(ROADMAP Queue 1 item 12) the per-chip batch is the batch, and the
+(ROADMAP Queue 1 item 4) the per-chip batch is the batch, and the
 configured batch hint is not scaled by a process count (the JAX package
 scales it by ``jax.process_count()``, which ``ADVICE.md`` records as a
 finding of that package).

@@ -58,11 +58,11 @@ class DSTDGCN(nn.Module):
         if bn_axis_name is not None:
             raise NotImplementedError(
                 "bn_axis_name (cross-replica BatchNorm) belongs to the "
-                "parallel layer, ROADMAP Queue 1 item 12")
+                "parallel layer, ROADMAP Queue 1 item 4")
         if remat:
             raise NotImplementedError(
                 "model.remat (activation rematerialisation in training) is "
-                "not ported yet (ROADMAP Queue 1 item 6)")
+                "not ported yet (ROADMAP Queue 1 item 5)")
         del pair_flat
         #: the knobs as configured ("auto" or a value) and the batch that
         #: resolves "auto" when given

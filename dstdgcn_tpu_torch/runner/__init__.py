@@ -1,20 +1,22 @@
 """Runner factory."""
 
+from .action_runner import ActionRunner, CMURunner, H36MRunner
 from .base import BaseRunner
-from .simple_runner import SimpleRunner, SyntheticRunner
+from .simple_runner import PW3DRunner, SimpleRunner, SyntheticRunner
 
-_RUNNERS = {"synthetic": SyntheticRunner}
-_LATER = ("h36m", "cmu", "3dpw")
+_RUNNERS = {
+    "h36m": H36MRunner,
+    "cmu": CMURunner,
+    "3dpw": PW3DRunner,
+    "synthetic": SyntheticRunner,
+}
 
 
 def get_runner(name: str, config, device="cuda"):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"runner {name!r} needs the real-dataset loaders and per-action "
-            "runners, which are not ported yet (ROADMAP Queue 1 item 10)")
     if name not in _RUNNERS:
         raise ValueError(f"unknown runner {name!r}")
     return _RUNNERS[name](config, device=device)
 
 
-__all__ = ["get_runner", "BaseRunner", "SimpleRunner", "SyntheticRunner"]
+__all__ = ["get_runner", "BaseRunner", "ActionRunner", "H36MRunner",
+           "CMURunner", "PW3DRunner", "SimpleRunner", "SyntheticRunner"]

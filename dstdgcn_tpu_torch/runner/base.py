@@ -33,6 +33,10 @@ class BaseRunner:
         self.logger = config["logger"]
         self.dataset = config["dataset"]["name"]
         self.engine = None
+        #: host seconds of each dataset build of the run ("train", "test")
+        self.data_seconds = {}
+        #: host seconds of each batch of the last evaluation sweep
+        self.test_batch_seconds = []
         if "t" in self.config["mode"]:
             model_opts = {k: v for k, v in dict(config["model"]).items()
                           if k != "name"}
@@ -85,4 +89,4 @@ class BaseRunner:
 
     def run_visualize(self):
         raise NotImplementedError(
-            "visualization is not ported yet (ROADMAP Queue 1 item 11)")
+            "visualization is not ported yet (ROADMAP Queue 1 item 3)")

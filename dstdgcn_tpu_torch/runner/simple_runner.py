@@ -1,4 +1,4 @@
-"""Single-split runner for the synthetic dataset.
+"""Single-split runner for 3DPW and the synthetic dataset.
 
 Counterpart of ``dstdgcn_tpu/runner/simple_runner.py``: one test loader (no
 per-action split).  ``run_train`` trains epoch by epoch, evaluates after
@@ -11,13 +11,14 @@ from __future__ import annotations
 
 import csv
 import os
+import time
 
 import numpy as np
 
 from ..data import Loader, get_dataset
 from .base import BaseRunner
 
-__all__ = ["SimpleRunner", "SyntheticRunner"]
+__all__ = ["SimpleRunner", "PW3DRunner", "SyntheticRunner"]
 
 
 class SimpleRunner(BaseRunner):
@@ -30,12 +31,14 @@ class SimpleRunner(BaseRunner):
         setting = self.config["setting"]
         jti = setting.get("joint_to_ignore")
         jte = setting.get("joint_to_equal")
-        return self.engine.test(
+        result = self.engine.test(
             test_loader, setting["input_n"], np.array(setting["eval_frame"]),
             np.array(setting["dim_used"]),
             np.array(jti) if jti is not None else None,
             np.array(jte) if jte is not None else None,
             ds.time_tsfm, None, "all", save_path)
+        self.test_batch_seconds = list(self.engine.test_batch_seconds)
+        return result
 
     def _append_row(self, row, head=None):
         out = os.path.join(self.config["save"]["path"]["base"],
@@ -53,11 +56,15 @@ class SimpleRunner(BaseRunner):
         self.logger.info("Start training")
         cfg = self.config
         name = cfg["dataset"]["name"]
+        t0 = time.perf_counter()
         train_dataset = get_dataset(name, **cfg["dataset"]["train"])
+        t1 = time.perf_counter()
         self.logger.info("train data shape {}".format(len(train_dataset)))
         train_loader = Loader(train_dataset.arrays(),
                               cfg["train_batch_size"], shuffle=True)
         test_dataset = get_dataset(name, **cfg["dataset"]["test"])
+        self.data_seconds = dict(train=t1 - t0,
+                                 test=time.perf_counter() - t1)
         self.logger.info("test data shape {}".format(len(test_dataset)))
         test_loader = Loader(test_dataset.arrays(), cfg["test_batch_size"],
                              shuffle=False)
@@ -127,6 +134,15 @@ class SimpleRunner(BaseRunner):
             writer.writerow([float(err_avg)] + [float(e) for e in err_all])
         self.logger.info("Save result to " + out)
         return err_avg, err_all
+
+    def run_test_all(self):
+        raise NotImplementedError("test-all is defined for the per-action "
+                                  "datasets (h36m, cmu), as in the JAX "
+                                  "package")
+
+
+class PW3DRunner(SimpleRunner):
+    pass
 
 
 class SyntheticRunner(SimpleRunner):

@@ -1,7 +1,7 @@
 """Step timing.
 
 Counterpart of ``StepTimer`` in ``dstdgcn_tpu/utils/profiling.py``; the
-profiler trace hook (``trace``) waits for ROADMAP Queue 1 item 11.
+profiler trace hook (``trace``) waits for ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""The port and ``chip_smoke.py`` import no JAX stack and nothing of the JAX
-package (an AST scan of every import statement)."""
+"""The port and ``chip_smoke.py`` import no JAX stack, nothing of the JAX
+package, and neither pandas nor matplotlib, which the card machine lacks
+(an AST scan of every import statement)."""
 
 import ast
 import os
@@ -8,7 +9,8 @@ import pathlib
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dstdgcn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dstdgcn_tpu", "pandas",
+             "matplotlib")
 FILES = sorted((REPO / "dstdgcn_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 
@@ -30,6 +32,9 @@ def test_scan_covers_the_port():
     assert "dstdgcn_tpu_torch/models/infer.py" in names
     assert "dstdgcn_tpu_torch/kernels/sparse.py" in names
     assert "dstdgcn_tpu_torch/models/autotune.py" in names
+    assert "dstdgcn_tpu_torch/data/kinematics.py" in names
+    assert "dstdgcn_tpu_torch/data/native.py" in names
+    assert "dstdgcn_tpu_torch/runner/action_runner.py" in names
     assert len(names) > 20
 
 

@@ -65,8 +65,17 @@ def test_synthetic_data_matches_jax_byte_for_byte():
     for b, jb in zip(batches, jbatches):
         for x, y in zip(b, jb):
             np.testing.assert_array_equal(x, np.asarray(y))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_dataset("h36m", h36m={})
+    # the factories serve the real datasets and refuse an unknown name
+    from dstdgcn_tpu_torch.data import datasets as tdatasets
+    from dstdgcn_tpu_torch.runner import _RUNNERS, get_runner
+    assert {k: tdatasets._DATASETS[k] for k in ("h36m", "cmu", "3dpw")} == {
+        "h36m": tdatasets.Human36M, "cmu": tdatasets.CMUMocap,
+        "3dpw": tdatasets.PW3D}
+    assert {"h36m", "cmu", "3dpw"} <= set(_RUNNERS)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        get_dataset("ntu", ntu={})
+    with pytest.raises(ValueError, match="unknown runner"):
+        get_runner("ntu", {})
 
 
 @pytest.mark.parametrize("name", ["tsc", "st", "cst", "tscr_h36m", "no"])
