@@ -138,9 +138,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    same function with the encoder through ``_encoder_oracle`` (the dtype),
    within BF16_CHAIN_FRAC of the batch's bf16-versus-float32 gap;
 11. the real-dataset slice: seeded trees in each dataset's own format
-   under ``chiprun_out/chip_smoke/data/`` (``write_h36m_tree``,
-   ``write_cmu_tree``, ``write_pw3d_tree``: expmap CSVs of 99 and 117
-   channels, pickled ``jointPositions``; sizes in REAL_TREES); the float32
+   under ``chiprun_out/chip_smoke/data/``, removed after the phase
+   (``write_h36m_tree``, ``write_cmu_tree``, ``write_pw3d_tree``: expmap
+   CSVs of 99 and 117 channels, pickled ``jointPositions``; sizes in
+   REAL_TREES); the float32
    one-op kernels, forward and backward, both aggregations, against their
    plain versions at every (Ci, Co) of the CMU (T=35, V=25) and 3DPW
    (T=40, V=23) models by phase 3's rules (``real_op_checks``); then
@@ -2168,6 +2169,9 @@ def real_data_phase(torch, np, fused, plain, plain_bwd, device):
               f"h36m served batch launched {served}")
         report["h36m"]["model_check"] = dict(max_abs_err=abs_err,
                                              max_rel_err=rel_err)
+    # the trees (36 MB) are rebuilt from their seeds by every run: removed
+    # so that the run's output directory stays small
+    shutil.rmtree(data)
     report["seconds"] = time.perf_counter() - start
     print(f"real: the phase took {report['seconds']:.1f} s")
     return report, launches
