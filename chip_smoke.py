@@ -158,7 +158,31 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    plain path by phase 7's rules; printed: the files each reader served,
    the tree write and dataset build seconds, the wall ms of a train step,
    an eval batch and a loader fetch, and a train step's device ms;
-12. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
+12. the engine remainder: ``main.run`` on ``synthetic_h36m_engine_train``
+   (the training slice with ``model.dstdgcn.remat``, the ``engine.solver``
+   block, ``engine.callbacks`` and a profiler trace of steps 1-3,
+   ``engine.profile``): finite losses and MPJPE, both checkpoints, exact
+   launch counts (28 of each float32 forward kernel per train step under
+   remat plus 7 per eval batch, 14 backward calls of 4 launches), each
+   epoch's group learning rates (the bias group at exactly twice the base
+   group), the callback CSV (2 rows), one trace whose kernel events are
+   exactly 3 times a step's launches of the four kernels
+   (``trace_kernel_counts``; the trace is removed after); then, at the
+   slice's weights with dropout 0 and BatchNorm calibrated, remat ``True``
+   and ``"dots"`` against no remat on the kernel path (loss and every
+   gradient bit-equal) and the kernel path with remat against the plain
+   path by phase 7's rules; the solver's train step by phase 7's rules and
+   each path's update against optax's rule in float64
+   (``solver_update_check``); the resume from a checkpoint in the JAX
+   package's layout of the slice's state (``write_jax_checkpoint``:
+   parameters, statistics and Adam moments bit-equal, the payload, one
+   more step through the kernels); each remat mode's peak memory
+   (batches 32 and 128, both paths) and device time of a train step;
+   ``utils/timing.py::time_looped`` of the float32 spatial op beside the
+   profiler's time; ``visualize-debug`` on a seeded H36M tree of the debug
+   action (8 GIFs and 8 PNGs with matplotlib and imageio, none without
+   them, as on the card);
+13. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
    its main path (the training slice for the float32 one-op kernels, the
    bf16 slice for their bf16 variants, the fused slices for the encoder
    kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
@@ -166,7 +190,8 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    tensor cores' rate for the dtype: dense bf16, or for float32 3xTF32,
    the dense TF32 rate over 3; the rest at the float32 rate), the float32
    one-op kernels' launches in phase 11's training runs beside them
-   (``real_launches``).
+   (``real_launches``), and the four float32 DSTD-GC kernels' in phase
+   12's slice run (``remat_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -181,6 +206,9 @@ Run logs and a full report go to ``chiprun_out/chip_smoke/``.
 import copy
 import json
 import os
+import re
+import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -434,7 +462,6 @@ def sass_mma(path):
     the built library at ``path`` (``cuobjdump -sass``); fails where the
     toolkit has no cuobjdump, since the tensor-core check cannot run
     without it."""
-    import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.access(tool, os.X_OK), "no cuobjdump: the SASS of the "
                                     "kernels cannot be read")
@@ -882,15 +909,17 @@ def forward_shapes(model_cfg):
             + [("temporal",) + s for s in temporal])
 
 
-def train_step_check(torch, fused, engine, rcfg, batch, label):
+def train_step_check(torch, fused, engine, rcfg, batch, label,
+                     fwd_per_step=14):
     """One train step of ``engine`` (the kernel path) on ``batch`` (inputs,
     inverse inputs, targets) against the plain path with the same weights,
     dropout 0, BatchNorm calibrated on the batch: the loss within
     LOSS_RTOL, each parameter's gradient against the plain path run in
     float64 (within GRAD_TOL of max(|float64|, 1) or twice the plain
-    float32 path's own distance), and the launches of one step (14 of each
-    float32 forward kernel, 14 calls of each backward one, nothing else).
-    Prints under ``label``; returns (report, the plain path's engine)."""
+    float32 path's own distance), and the launches of one step
+    (``fwd_per_step`` of each float32 forward kernel: 14, or 28 under
+    remat; 14 calls of each backward one, nothing else).  Prints under
+    ``label``; returns (report, the plain path's engine)."""
     from dstdgcn_tpu_torch.engine import PredictionEngine
     from dstdgcn_tpu_torch.models import get_model
     device = engine.device
@@ -954,7 +983,7 @@ def train_step_check(torch, fused, engine, rcfg, batch, label):
           f"{label} gradient of {worst_name}: {worst} of max(|float64|, "
           f"1), the plain float32 path {grad_errs[worst_name][2]}")
     check(step_launches == {
-        **{k: 14 for k in FORWARD},
+        **{k: fwd_per_step for k in FORWARD},
         **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD},
         **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD
            + BF16_CHAINS}},
@@ -1968,7 +1997,6 @@ def real_data_phase(torch, np, fused, plain, plain_bwd, device):
     steps; one train step against the plain path after each), every run's
     launches exact.  Returns (report, {dataset: launches of its training
     run})."""
-    import shutil
     from dstdgcn_tpu_torch import configs
     from dstdgcn_tpu_torch.data import datasets as tds
     from dstdgcn_tpu_torch.data import get_dataset
@@ -2175,6 +2203,519 @@ def real_data_phase(torch, np, fused, plain, plain_bwd, device):
     report["seconds"] = time.perf_counter() - start
     print(f"real: the phase took {report['seconds']:.1f} s")
     return report, launches
+
+
+# -- phase 12: the engine remainder ----------------------------------------
+
+#: the kernels of the four float32 DSTD-GC one-op kernels as a profiler
+#: trace names them: the backward launches carry their mode as the first
+#: template argument (``dstd_bwd::qk_kernel<true, ...>``: temporal)
+TRACE_KERNELS = (("dstd_spatial", re.compile(r"\bspatial_kernel<")),
+                 ("dstd_temporal", re.compile(r"\btemporal_kernel<")),
+                 ("dstd_spatial_bwd",
+                  re.compile(r"dstd_bwd::\w+_kernel<false\b")),
+                 ("dstd_temporal_bwd",
+                  re.compile(r"dstd_bwd::\w+_kernel<true\b")))
+#: batch sizes of the remat memory table
+REMAT_BATCHES = (32, 128)
+REMAT_MODES = (False, True, "dots")
+
+
+def _msgpack(obj, out):
+    """Append the msgpack encoding of ``obj`` to ``out`` (a list of bytes),
+    for what a flax state dict holds here: dicts with str keys, lists,
+    non-negative ints, str and bytes, and numpy arrays as flax's ndarray
+    extension (type 1: the msgpack of shape, dtype name and C bytes)."""
+    import numpy as np
+
+    def head(n, fix, fix_limit, codes):
+        if n < fix_limit:
+            out.append(bytes([fix | n]))
+            return
+        code, fmt = next((c, f) for c, f, limit in codes if n < limit)
+        out.append(bytes([code]) + struct.pack(">" + fmt, n))
+
+    wide = ((1 << 8, "B"), (1 << 16, "H"), (1 << 32, "I"))
+
+    def sized(first):
+        return [(first + k, f, limit) for k, (limit, f) in enumerate(wide)]
+
+    if isinstance(obj, np.ndarray):
+        inner = []
+        _msgpack((list(obj.shape), obj.dtype.name, obj.tobytes("C")), inner)
+        data = b"".join(inner)
+        head(len(data), 0, 0, sized(0xC7))
+        out.append(bytes([1]) + data)
+    elif isinstance(obj, int) and 0 <= obj < 1 << 64:
+        out.append(bytes([obj]) if obj < 128
+                   else b"\xcf" + struct.pack(">Q", obj))
+    elif isinstance(obj, str):
+        data = obj.encode()
+        head(len(data), 0xA0, 32, sized(0xD9))
+        out.append(data)
+    elif isinstance(obj, bytes):
+        head(len(obj), 0, 0, sized(0xC4))
+        out.append(obj)
+    elif isinstance(obj, dict):
+        head(len(obj), 0x80, 16, [(0xDE, "H", 1 << 16),
+                                  (0xDF, "I", 1 << 32)])
+        for k, v in obj.items():
+            _msgpack(k, out)
+            _msgpack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        head(len(obj), 0x90, 16, [(0xDC, "H", 1 << 16),
+                                  (0xDD, "I", 1 << 32)])
+        for v in obj:
+            _msgpack(v, out)
+    else:
+        raise TypeError(f"msgpack: cannot encode {obj!r}")
+
+
+def _nested(flat):
+    """{"a.b.c": leaf} -> nested dicts."""
+    out = {}
+    for key, val in flat.items():
+        node = out
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return out
+
+
+def jax_train_state(engine, seed=777):
+    """The JAX engine's ``TrainState`` for ``engine`` (a port engine whose
+    optimizer is Adam), as flax's state dict for optax 0.2's layout:
+    ``params`` and ``batch_stats`` (the weight bridge's reverse),
+    ``opt_state`` (``inject_hyperparams`` over Adam, with L2 decay
+    ``add_decayed_weights`` before it, or over the solver block's
+    ``multi_transform`` of the ``base`` and ``bias`` groups, a masked
+    leaf an empty dict; under a clip, the chain ``clip_by_global_norm``
+    then that), and ``dropout_key``, threefry key data of ``seed + 1``."""
+    import numpy as np
+    from dstdgcn_tpu_torch.utils.bridge import to_flax_variables
+    opt = engine.optimizer
+    names = {id(p): n for n, p in engine.model.named_parameters()}
+    steps = {int(st["step"]) for st in opt.state.values()}
+    check(len(steps) <= 1, f"Adam steps differ between parameters: {steps}")
+    count = steps.pop() if steps else 0
+
+    def adam(label):
+        mu, nu = {}, {}
+        for group in opt.param_groups:
+            for p in group["params"]:
+                name, st = names[id(p)], opt.state.get(p, {})
+                if label is not None and group.get("label") != label:
+                    mu[name] = nu[name] = {}
+                    continue
+                zeros = np.zeros(tuple(p.shape), np.float32)
+                mu[name] = st["exp_avg"].cpu().numpy() if st else zeros
+                nu[name] = st["exp_avg_sq"].cpu().numpy() if st else zeros
+        return {"count": np.asarray(count, np.int32), "mu": _nested(mu),
+                "nu": _nested(nu)}
+
+    def chain(label, decay):
+        scaled = {"0": adam(label), "1": {}}
+        return {"0": {}, "1": scaled} if decay > 0 else scaled
+
+    hyper = {"learning_rate": np.asarray(engine.lr, np.float32)}
+    if engine.solver:
+        wd = float(engine.solver.get("weight_decay", 0.0))
+        decays = {"base": wd, "bias": float(engine.solver.get(
+            "weight_decay_bias", wd))}
+        inner = {"inner_states": {label: {"inner_state": chain(label, d)}
+                                  for label, d in decays.items()}}
+    elif engine.weight_decay > 0:
+        inner = chain(None, engine.weight_decay)
+    else:
+        inner = chain(None, 0.0)
+        hyper = {"b1": np.asarray(0.9, np.float32),
+                 "b2": np.asarray(0.999, np.float32),
+                 "eps": np.asarray(1e-8, np.float32),
+                 "eps_root": np.asarray(0.0, np.float32), **hyper}
+    opt_state = {"count": np.asarray(count, np.int32), "hyperparams": hyper,
+                 "hyperparams_states": {}, "inner_state": inner}
+    if engine.clip > 0:
+        opt_state = {"0": {}, "1": opt_state}
+    variables = to_flax_variables(engine.model)
+    return {"params": variables["params"],
+            "batch_stats": variables["batch_stats"], "opt_state": opt_state,
+            "dropout_key": np.asarray([0, seed + 1], np.uint32)}
+
+
+def write_jax_checkpoint(path, engine, payload):
+    """Write ``engine``'s state as the JAX package writes a checkpoint
+    (``dstdgcn_tpu/engine/checkpoint.py::save_checkpoint``): an 8-byte
+    little-endian length, the JSON ``payload``, then the msgpack of
+    :func:`jax_train_state` (flax's ``to_bytes`` of a ``TrainState``)."""
+    blob = []
+    _msgpack(jax_train_state(engine), blob)
+    meta = json.dumps(payload).encode()
+    with open(path, "wb") as f:
+        f.write(len(meta).to_bytes(8, "little"))
+        f.write(meta)
+        f.write(b"".join(blob))
+
+
+def trace_kernel_counts(path):
+    """{kernel: events} of the four float32 DSTD-GC kernels in a Chrome
+    trace of ``torch.profiler``, and the names of its ``train_step <i>``
+    annotations."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {name: 0 for name, _ in TRACE_KERNELS}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for name, pattern in TRACE_KERNELS:
+            if pattern.search(e.get("name", "")):
+                counts[name] += 1
+                break
+    # the host side of each annotation (its device range, category
+    # gpu_user_annotation, repeats the name)
+    steps = sorted(e["name"] for e in events
+                   if e.get("cat") == "user_annotation"
+                   and str(e.get("name", "")).startswith("train_step "))
+    return counts, steps
+
+
+def set_remat(torch, model, remat):
+    """Set ``remat`` on every DSTD-GC op of ``model``."""
+    from dstdgcn_tpu_torch.models.layers import DSTDGC
+    for m in model.modules():
+        if isinstance(m, DSTDGC):
+            m.remat = remat
+
+
+def solver_update_check(torch, engine, label):
+    """One optimizer step of ``engine`` (the solver block's Adam) from the
+    gradients in its parameters' ``.grad``, each parameter's update against
+    optax's rule run in float64 on the same gradient and state: L2 decay of
+    the group, Adam at the group's learning rate; within 1e-6 of max(|p|,
+    1).  Returns (worst error, {group: lr})."""
+    opt = engine.optimizer
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    want = {}
+    with torch.no_grad():
+        for group in opt.param_groups:
+            for p in group["params"]:
+                st = opt.state[p]
+                g = p.grad.double() + group["weight_decay"] * p.double()
+                t = float(st["step"]) + 1
+                m = b1 * st["exp_avg"].double() + (1 - b1) * g
+                v = b2 * st["exp_avg_sq"].double() + (1 - b2) * g * g
+                upd = -group["lr"] * (m / (1 - b1 ** t)) / (
+                    torch.sqrt(v / (1 - b2 ** t)) + eps)
+                want[p] = (p.clone(), upd)
+        opt.step()
+        worst = 0.0
+        for p, (before, upd) in want.items():
+            err = float(((p - before).double() - upd).abs().max())
+            worst = max(worst, err / max(float(before.abs().max()), 1.0))
+    lrs = {g["label"]: g["lr"] for g in opt.param_groups}
+    print(f"{label}: one solver step, updates against optax's rule in "
+          f"float64: worst {worst:.3g} of max(|p|, 1); group lr {lrs}")
+    check(worst <= 1e-6, f"{label}: a solver update lies {worst} of "
+                         "max(|p|, 1) from optax's rule")
+    return worst, lrs
+
+
+def engine_phase(torch, np, fused, device):
+    """Phase 12, the engine remainder: ``main.run`` on
+    ``synthetic_h36m_engine_train`` (remat, the solver block, callbacks,
+    a profiler trace of steps 1-3), then remat against no remat, the peak
+    memory and device time of a train step under each remat mode, the
+    solver step on both paths, the resume from a JAX-layout checkpoint,
+    ``time_looped`` beside the profiler, and visualize-debug.  Returns
+    (report, the slice run's launches)."""
+    from importlib.util import find_spec
+    from dstdgcn_tpu_torch import configs
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.engine.checkpoint import read_jax_checkpoint
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.models import get_model
+    from dstdgcn_tpu_torch.utils.config import resolve
+    from dstdgcn_tpu_torch.utils.timing import time_looped
+    report = {}
+    start = time.perf_counter()
+    out = os.path.join(OUT_DIR, "engine")
+    shutil.rmtree(out, ignore_errors=True)
+    run_dir = os.path.join(out, "run")
+    profile_dir = os.path.join(out, "profile")
+
+    # 1. the slice through its entry point, counts from zero; each epoch's
+    # group learning rates recorded as the engine sets them
+    cfg = configs.synthetic_h36m_engine_train()
+    cfg["engine"]["profile"] = profile_dir
+    rcfg = resolve(cfg)
+    epochs, bs = rcfg["epoch"], rcfg["train_batch_size"]
+    steps = epochs * -(-rcfg["dataset"]["train"]["synthetic"][
+        "num_sequences"] // bs)
+    evals = epochs * -(-rcfg["dataset"]["test"]["synthetic"][
+        "num_sequences"] // rcfg["test_batch_size"])
+    lrs = []
+    set_epoch_lr = PredictionEngine.set_epoch_lr
+
+    def recorded(self, epoch):
+        lr = set_epoch_lr(self, epoch)
+        lrs.append((epoch, {g["label"]: g["lr"]
+                            for g in self.optimizer.param_groups}))
+        return lr
+
+    PredictionEngine.set_epoch_lr = recorded
+    try:
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner, history = run(cfg, device.type, run_dir=run_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fused.launch_counts()
+    finally:
+        PredictionEngine.set_epoch_lr = set_epoch_lr
+    eng = runner.engine
+    rows = np.asarray(history, dtype=np.float64)
+    step_ms = [s * 1e3 for s in eng.train_step_seconds]
+    print(f"engine: main.run on {device.type} in {wall:.2f} s, "
+          f"{len(step_ms)} steps of {bs} and {evals} eval batches; per "
+          f"epoch (epoch, lr, train loss, test loss, per-frame MPJPE) "
+          f"{rows.tolist()}; launches {counts}")
+    traced = rcfg["engine"]["profile_steps"]
+    print(f"engine: wall ms per step, first {step_ms[0]:.3f}, steps 2-"
+          f"{traced + 1} under the profiler "
+          f"{[round(t, 3) for t in step_ms[1:traced + 1]]}, median of the "
+          f"rest {float(np.median(step_ms[traced + 1:])):.3f}")
+    print(f"engine: group learning rates per epoch {lrs}")
+    check(len(step_ms) == steps, f"{len(step_ms)} train steps, expected "
+                                 f"{steps}")
+    check(rows.shape == (epochs, 3 + 1 + len(rcfg["setting"]["eval_frame"]))
+          and bool(np.all(np.isfinite(rows))),
+          "engine slice: non-finite losses or MPJPE")
+    for ckpt in ("last.ckpt", "best.ckpt"):
+        check(os.path.isfile(os.path.join(run_dir, "checkpoints", ckpt)),
+              f"engine slice: {ckpt} was not written")
+    want = {k: 0 for k in counts}
+    want.update({k: 28 * steps + 7 * evals for k in FORWARD})
+    want.update({k: fused.BWD_LAUNCHES * 14 * steps for k in BACKWARD})
+    check(counts == want, f"engine slice launched {counts}, expected {want}")
+    lr0 = rcfg["engine"]["learn"]["lr"]
+    check([e for e, _ in lrs] == list(range(epochs)) and all(
+        g["bias"] == 2 * g["base"] and g["base"] == eng.lr_schedule(e)
+        for e, g in lrs), f"group learning rates {lrs} (lr {lr0})")
+    with open(os.path.join(run_dir, "train_loss.csv")) as f:
+        cb_rows = [line.strip().split(",") for line in f if line.strip()]
+    print(f"engine: callback CSV {cb_rows}")
+    check(cb_rows[0] == ["epoch", "joint", "total"] and len(cb_rows) == 3
+          and all(np.isfinite(float(v)) for r in cb_rows[1:] for v in r),
+          f"the callback CSV holds {cb_rows}")
+    traces = sorted(os.listdir(profile_dir))
+    check(len(traces) == 1 and traces[0].endswith(".json"),
+          f"the profile directory holds {traces}")
+    trace = os.path.join(profile_dir, traces[0])
+    trace_mb = os.path.getsize(trace) / 2 ** 20
+    tcounts, tsteps = trace_kernel_counts(trace)
+    per_step = {"dstd_spatial": 28, "dstd_temporal": 28,
+                "dstd_spatial_bwd": 14 * fused.BWD_LAUNCHES,
+                "dstd_temporal_bwd": 14 * fused.BWD_LAUNCHES}
+    profile_steps = rcfg["engine"]["profile_steps"]
+    print(f"engine: trace {traces[0]} ({trace_mb:.1f} MB): kernel events "
+          f"{tcounts}, annotations {tsteps}; expected {profile_steps} x "
+          f"{per_step}")
+    check(tcounts == {k: profile_steps * v for k, v in per_step.items()}
+          and tsteps == [f"train_step {i}"
+                         for i in range(1, profile_steps + 1)],
+          f"the trace holds kernel events {tcounts} and steps {tsteps}")
+    os.remove(trace)        # tens of MB; the counts stay in the report
+    report["slice"] = dict(wall=wall, history=rows.tolist(),
+                           step_ms=step_ms, launches=counts, lrs=lrs,
+                           callback_csv=cb_rows, trace_mb=trace_mb,
+                           trace_kernels=tcounts, trace_steps=tsteps)
+
+    # 2. resume from a checkpoint in the JAX package's layout of the
+    # slice's trained state
+    path = os.path.join(out, "jax.ckpt")
+    payload = dict(lr=eng.lr, err=float(rows[:, 3].min()),
+                   epoch=epochs - 1)
+    write_jax_checkpoint(path, eng, payload)
+    opts = {k: v for k, v in rcfg["model"].items() if k != "name"}
+    other = PredictionEngine(rcfg["engine"], get_model("dstdgcn", **opts),
+                             device=device)
+    other.init(seed=5)
+    got = other.recover(path)
+    same_model = all(torch.equal(a, b) for a, b in zip(
+        eng.model.state_dict().values(), other.model.state_dict().values()))
+    same_moments = all(
+        all(torch.equal(torch.as_tensor(eng.optimizer.state[p][k]),
+                        torch.as_tensor(other.optimizer.state[q][k]))
+            for k in ("exp_avg", "exp_avg_sq", "step"))
+        for p, q in zip(eng.model.parameters(), other.model.parameters()))
+    back = read_jax_checkpoint(path)[1]
+    same_lr = [g["lr"] for g in other.optimizer.param_groups] == [
+        g["lr"] for g in eng.optimizer.param_groups]
+    ckpt_kb = os.path.getsize(path) / 1024
+    print(f"engine: JAX-layout checkpoint ({ckpt_kb:.1f} KB) recovered: "
+          f"(epoch, err) {got}; parameters and statistics bit-equal "
+          f"{same_model}, Adam moments and steps bit-equal {same_moments}, "
+          f"group lrs equal {same_lr}, payload {back}")
+    check(same_model and same_moments and same_lr and back == payload
+          and got == (payload["epoch"], payload["err"]),
+          "the JAX-layout checkpoint did not restore the slice's state")
+    train_ds = get_dataset("synthetic", **rcfg["dataset"]["train"])
+    arrays = train_ds.arrays()
+    batch = [a[:N] for a in arrays[:3]]
+    before = fused.launch_counts()
+    loss = float(other.train_step(*batch)["total"])
+    after = fused.launch_counts()
+    resumed = {k: after[k] - before[k] for k in FORWARD + BACKWARD}
+    print(f"engine: one step after the resume: loss {loss}, launches "
+          f"{resumed}")
+    check(np.isfinite(loss) and resumed == {
+        **{k: 28 for k in FORWARD},
+        **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD}},
+        f"the resumed step: loss {loss}, launches {resumed}")
+    report["resume"] = dict(payload=back, recovered=list(got), loss=loss,
+                            launches=resumed, kb=ckpt_kb)
+    del other
+
+    # 3. remat against no remat at the slice's weights, dropout 0,
+    # BatchNorm calibrated: the kernel path bit for bit, then the kernel
+    # path with remat against the plain path by phase 7's rules
+    engines = {}
+    for remat in REMAT_MODES:
+        e = PredictionEngine(rcfg["engine"], get_model("dstdgcn", **dict(
+            opts, dstdgcn=dict(opts["dstdgcn"], remat=remat))),
+            device=device)
+        e.init()
+        e.model.load_state_dict(eng.model.state_dict())
+        calibrate_batchnorm(torch, e.model, e.transform(e.to_device(
+            batch[0])))
+        e.model.do_in.p = 0.0
+        engines[remat] = e
+    grads, losses, step_counts = {}, {}, {}
+    for remat, e in engines.items():
+        before = fused.launch_counts()
+        losses[remat] = e.compute_gradients(*batch)["total"]
+        after = fused.launch_counts()
+        step_counts[remat] = {k: after[k] - before[k]
+                              for k in FORWARD + BACKWARD}
+        grads[remat] = [p.grad.clone() for p in e.model.parameters()]
+    equal = {str(r): bool(torch.equal(losses[r], losses[False])) and all(
+        torch.equal(a, b) for a, b in zip(grads[r], grads[False]))
+        for r in (True, "dots")}
+    print(f"engine: remat against no remat on the kernel path: loss and "
+          f"every gradient bit-equal {equal}; launches {step_counts}")
+    check(all(equal.values()), f"remat changed the kernel path's loss or "
+                               f"gradients: {equal}")
+    check(all(step_counts[r][k] == (28 if r else 14) for r in REMAT_MODES
+              for k in FORWARD)
+          and all(c[k] == 14 * fused.BWD_LAUNCHES for c in
+                  step_counts.values() for k in BACKWARD),
+          f"remat launches {step_counts}")
+    report["remat_equal"] = equal
+    report["remat_check"], _ = train_step_check(
+        torch, fused, engines[True], rcfg, batch, "engine remat",
+        fwd_per_step=28)
+    del engines, grads
+
+    # 4. the solver step: gradients by phase 7's rules, then each path's
+    # optimizer step against optax's rule in float64
+    seng = PredictionEngine(rcfg["engine"], get_model("dstdgcn", **opts),
+                            device=device)
+    seng.init()
+    seng.model.load_state_dict(eng.model.state_dict())
+    seng.optimizer.load_state_dict(eng.optimizer.state_dict())
+    seng.set_epoch_lr(epochs - 1)
+    report["solver_check"], peng = train_step_check(
+        torch, fused, seng, rcfg, batch, "engine solver", fwd_per_step=28)
+    peng.optimizer.load_state_dict(eng.optimizer.state_dict())
+    peng.set_epoch_lr(epochs - 1)
+    report["solver_update"] = {
+        label: solver_update_check(torch, e, f"engine solver {label}")
+        for label, e in (("kernel", seng), ("plain", peng))}
+    del seng, peng
+
+    # 5. peak memory (torch.cuda.max_memory_allocated over what is held
+    # before the step) and device time of a train step, by remat mode, both
+    # paths (the slice's weights, a warm step first)
+    memory, device_ms = {}, {}
+    for path_name, use_pallas in (("kernel", True), ("plain", False)):
+        e = PredictionEngine(rcfg["engine"], get_model(
+            "dstdgcn", **dict(opts, use_pallas=use_pallas)), device=device)
+        e.init()
+        e.model.load_state_dict(eng.model.state_dict())
+        for remat in REMAT_MODES:
+            set_remat(torch, e.model, remat)
+            for n in REMAT_BATCHES:
+                b = [a[:n] for a in arrays[:3]]
+                e.train_step(*b)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                e.train_step(*b)
+                torch.cuda.synchronize()
+                memory[(path_name, str(remat), n)] = (
+                    torch.cuda.max_memory_allocated() - held) / 2 ** 20
+            device_ms[(path_name, str(remat))] = sum(device_profile(
+                torch, lambda e=e: e.train_step(*batch), 3).values())
+        del e
+    for path_name in ("kernel", "plain"):
+        for n in REMAT_BATCHES:
+            print(f"engine: peak MiB of a batch-{n} train step over the "
+                  f"memory held before it, {path_name} path, remat False / "
+                  f"True / dots: " + " / ".join(
+                      f"{memory[(path_name, str(r), n)]:.1f}"
+                      for r in REMAT_MODES))
+        print(f"engine: batch-{N} train step device ms, {path_name} path, "
+              f"remat False / True / dots: " + " / ".join(
+                  f"{device_ms[(path_name, str(r))]:.3f}"
+                  for r in REMAT_MODES))
+    report["memory_mib"] = {"/".join(map(str, k)): v
+                            for k, v in memory.items()}
+    report["step_device_ms"] = {"/".join(k): v for k, v in device_ms.items()}
+
+    # 6. time_looped of the float32 spatial op beside the profiler
+    args = op_inputs(torch, np, "spatial", 64, 64, device, 12)
+    x0, weights = args[0], args[1:]
+
+    def op(h):
+        with torch.no_grad():
+            return fused.dstd_spatial(h, *weights, agg="right")
+
+    looped_ms = time_looped(op, x0, iters=30, repeats=3) * 1e3
+    prof_ms = sum(device_profile(torch, lambda: op(x0), 10).values())
+    finite = bool(torch.isfinite(op(x0)).all())
+    print(f"engine: time_looped of dstd_spatial (N={N}, 64 -> 64) "
+          f"{looped_ms:.4f} ms a call (CUDA events over 30 chained calls, "
+          f"best of 3), profiler device {prof_ms:.4f} ms a call; output "
+          f"finite {finite}")
+    check(looped_ms > 0 and prof_ms > 0, "time_looped or the profiler "
+                                         "measured nothing")
+    report["timing"] = dict(time_looped_ms=looped_ms, profiler_ms=prof_ms)
+
+    # 7. visualize-debug on a seeded H36M tree of the debug action
+    data = os.path.join(out, "data")
+    tree = write_h36m_tree(os.path.join(data, "h36m"), seed=17,
+                           actions=["walking"], frames=160, test_frames=300)
+    vcfg = configs.set_data_paths(configs.real_h36m_train(), tree, tree)
+    vcfg["mode"] = "visualize-debug"
+    vdir = os.path.join(out, "visualize")
+    vrunner, _ = run(vcfg, device.type, run_dir=vdir)
+    files = sorted(os.listdir(os.path.join(vdir, "visualize")))
+    present = {m: find_spec(m) is not None for m in ("matplotlib",
+                                                     "imageio")}
+    want_files = sorted(f"Awalking_S{i}.{ext}" for i in range(1, 9)
+                        for ext in ("gif", "png")) if all(
+        present.values()) else []
+    print(f"engine: visualize-debug: matplotlib / imageio present "
+          f"{present}; {len(files)} files written "
+          f"({'none without them' if not want_files else 'GIF and PNG'})")
+    check(vrunner.engine is None and files == want_files,
+          f"visualize-debug wrote {files}, expected {want_files}")
+    shutil.rmtree(data)
+    report["visualize"] = dict(present=present, files=files)
+    report["seconds"] = time.perf_counter() - start
+    print(f"engine: the phase took {report['seconds']:.1f} s")
+    return report, counts
 
 
 def run_smoke():
@@ -2804,7 +3345,11 @@ def run_smoke():
     report["real"], rcounts = real_data_phase(torch, np, fused, plain,
                                               plain_bwd, device)
 
-    # 12. the kernels line.  One-op kernels: times summed over the 7 calls
+    # 12. the engine remainder: remat, the solver, callbacks, the profiler
+    # trace, a JAX-layout checkpoint, time_looped and visualize-debug
+    report["engine"], ecounts = engine_phase(torch, np, fused, device)
+
+    # 13. the kernels line.  One-op kernels: times summed over the 7 calls
     # of one forward (or of its backward) at their (Ci, Co), with the
     # model's aggregation, N=32 for the float32 kernels and N=128 (the bf16
     # slice's batch) for the bf16 variants; launches those of the training
@@ -2864,6 +3409,8 @@ def run_smoke():
             serving_launches=counts[name], fused_launches=fcounts[name],
             real_launches={k: c[name] for k, c in rcounts.items()},
             timed_by="+".join(sorted(timed_by))))
+        if name in FORWARD + BACKWARD:
+            kernels[-1].update(remat_launches=ecounts[name])
         if split is not None:
             kernels[-1].update(launch_ms=split)
         if name.endswith("_bf16"):

@@ -1,9 +1,9 @@
 """Configs of the port as Python dicts (no PyYAML needed).
 
 ``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED``,
-``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_TPU_TRAIN``,
-``SYNTHETIC_H36M_TPU_FUSED``, ``REAL_H36M_TRAIN``, ``REAL_CMU_TRAIN`` and
-``REAL_3DPW_TRAIN`` equal the YAML files of the same names in lower case
+``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_ENGINE_TRAIN``,
+``SYNTHETIC_H36M_TPU_TRAIN``, ``SYNTHETIC_H36M_TPU_FUSED``,
+``REAL_H36M_TRAIN``, ``REAL_CMU_TRAIN`` and ``REAL_3DPW_TRAIN`` equal the YAML files of the same names in lower case
 as ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass
 either form to :func:`dstdgcn_tpu_torch.main.run`.  The real-data configs
 read their files from each split's ``data_path``, which the caller sets
@@ -18,6 +18,7 @@ import copy
 __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
            "SYNTHETIC_H36M_FUSED", "synthetic_h36m_fused",
            "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train",
+           "SYNTHETIC_H36M_ENGINE_TRAIN", "synthetic_h36m_engine_train",
            "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train",
            "SYNTHETIC_H36M_TPU_FUSED", "synthetic_h36m_tpu_fused",
            "REAL_H36M_TRAIN", "real_h36m_train", "REAL_CMU_TRAIN",
@@ -112,6 +113,23 @@ del SYNTHETIC_H36M_TRAIN["engine"]["fused_inference"]
 
 def synthetic_h36m_train() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+
+
+#: the training config with the engine's remaining blocks: every DSTD-GC op
+#: recomputed in the backward pass (model.dstdgcn.remat), the per-group
+#: optimizer (engine.solver), the callback loss CSV (engine.callbacks) and
+#: a profiler trace of steps 1-3 (engine.profile, profile_steps)
+SYNTHETIC_H36M_ENGINE_TRAIN = copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+SYNTHETIC_H36M_ENGINE_TRAIN["model"]["dstdgcn"]["remat"] = True
+SYNTHETIC_H36M_ENGINE_TRAIN["engine"].update(
+    solver={"optimizer_name": "adam", "bias_lr_factor": 2.0,
+            "weight_decay": 1.e-4, "weight_decay_bias": 0.0},
+    callbacks={"name": "train", "loss_freq": 1, "window": 100},
+    profile="runs/profile", profile_steps=3)
+
+
+def synthetic_h36m_engine_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_ENGINE_TRAIN)
 
 
 #: the flagship TPU configuration's model and engine blocks

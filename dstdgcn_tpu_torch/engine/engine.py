@@ -13,21 +13,31 @@ Counterpart of ``dstdgcn_tpu/engine/engine.py::PredictionEngine``:
   its output, the losses, the parameters, their gradients and the Adam
   state stay float32, as in the JAX engine;
 * StepLR per epoch (:func:`steplr`), written into the param groups;
+* ``solver``: the per-group optimizer of :mod:`.solver` (a ``bias`` group
+  at ``lr * bias_lr_factor`` with its own weight decay; ``weight_decay``
+  defaults to ``learn.weight_decay``) in place of Adam, StepLR driving both
+  groups, the clip ahead of it;
 * the epoch loop with ``detect_anomaly`` and the step-timer summary;
+  ``callbacks`` (``log_dir``, ``name``, ``loss_freq``, ``window``): the
+  windowed loss CSV of :class:`..utils.callbacks.CallbackLogger`;
+  ``profile`` (a directory) and ``profile_steps`` (default 5): a
+  ``torch.profiler`` trace of steps ``1 .. profile_steps`` of epoch 0, each
+  step annotated ``train_step <i>`` (:func:`..utils.profiling.trace`);
 * the eval step of ``_build_eval_step`` inside :meth:`test`, through the
   model's forward or, with ``fused_inference``, through the whole-encoder
   kernel (:func:`..models.infer.fused_eval_forward`, weights packed once
   per :meth:`test`); :meth:`predict` always runs the model's forward;
-* ``save`` / ``recover`` through :mod:`.checkpoint`.
+* ``save`` / ``recover`` through :mod:`.checkpoint`; ``recover`` also
+  reads the JAX engine's msgpack checkpoints.
 
 Dropout draws from a ``torch.Generator`` on the engine's device seeded
 ``seed + 1`` (the JAX engine's ``dropout_key``); its stream cannot match
-JAX's.  Config keys of the JAX engine that are not ported raise
-``NotImplementedError`` naming their ROADMAP item.
+JAX's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import time
@@ -38,19 +48,14 @@ import torch
 
 from ..data import transforms as tfm
 from ..models import infer
+from ..utils import profiling
+from ..utils.bridge import load_flax_variables
 from ..utils.device import resolve_device
-from ..utils.profiling import StepTimer
 from . import losses as L
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import jax_optimizer_state, load_checkpoint, save_checkpoint
+from .solver import make_optimizer
 
 __all__ = ["PredictionEngine", "steplr"]
-
-#: engine keys of the JAX package that the port does not have yet
-_UNPORTED = {
-    "solver": "engine/solver.py, ROADMAP Queue 1 item 3",
-    "callbacks": "utils/callbacks.py, ROADMAP Queue 1 item 3",
-    "profile": "the profiler trace hook, ROADMAP Queue 1 item 3",
-}
 
 
 def steplr(lr0: float, gamma: float, step_size: int) -> Callable[[int], float]:
@@ -68,17 +73,14 @@ class PredictionEngine:
     ``config`` is the ``engine`` block of the experiment config:
     learn{opt, lr, weight_decay, gamma, step_size}, loss{name: [type,
     weight(, out_idx)]}, n_out, transform, inverse, max_iter, and optionally
-    clip and detect_anomaly.  ``prng_impl`` names a JAX PRNG and has no
-    meaning here; it is accepted and ignored.
+    clip, detect_anomaly, solver, callbacks, profile and profile_steps.
+    ``prng_impl`` names a JAX PRNG and has no meaning here; it is accepted
+    and ignored.
     """
 
     def __init__(self, config: Dict[str, Any], model: torch.nn.Module,
                  logger=None, device: str | torch.device = "cuda",
                  bone_incidence=None):
-        for key, where in _UNPORTED.items():
-            if config.get(key):
-                raise NotImplementedError(
-                    f"engine.{key} is not ported yet ({where})")
         self.config = config
         self.logger = logger
         self.device = resolve_device(device)
@@ -102,11 +104,16 @@ class PredictionEngine:
                                   int(learn["step_size"]))
         self.lr = float(learn["lr"])
         self.weight_decay = float(learn.get("weight_decay", 0.0))
+        self.solver = dict(config.get("solver") or {})
+        if self.solver:
+            self.solver.setdefault("weight_decay", self.weight_decay)
         self.clip = float(config.get("clip", -1))
         self.inverse_training = bool(config.get("inverse", False))
         self.fused_inference = bool(config.get("fused_inference", False))
         self.optimizer: torch.optim.Optimizer | None = None
         self.generator: torch.Generator | None = None
+        self._callbacks = None
+        self._last_losses: Dict[str, float] = {}
         self.best_err = float("inf")
         #: host seconds of each batch of the last :meth:`test`, device work
         #: included (the metric is read back every batch)
@@ -122,7 +129,8 @@ class PredictionEngine:
 
     def init(self, seed: int = 777) -> torch.nn.Module:
         """Draw the model's parameters from ``seed``, seed the dropout
-        generator with ``seed + 1``, build the Adam state; eval mode."""
+        generator with ``seed + 1``, build the optimizer (Adam, or the
+        ``solver`` block's); eval mode."""
         gen = torch.Generator().manual_seed(seed)
         self.model.cpu().reset_parameters(gen)
         self.model.to(self.device).eval()
@@ -130,8 +138,14 @@ class PredictionEngine:
         dropout = getattr(self.model, "do_in", None)
         if dropout is not None:
             dropout.generator = self.generator
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.lr,
-                                          weight_decay=self.weight_decay)
+        if self.solver:
+            self.optimizer = make_optimizer(
+                dict(self.solver, base_lr=self.lr),
+                self.model.named_parameters())
+        else:
+            self.optimizer = torch.optim.Adam(
+                self.model.parameters(), lr=self.lr,
+                weight_decay=self.weight_decay)
         self.train_step_seconds = []
         self.train_fetch_seconds = []
         if self.logger is not None:
@@ -285,8 +299,9 @@ class PredictionEngine:
     def train_step(self, inputs, inputs_inv, targets, time_tsfm=None,
                    scale_tsfm=None, weights=None) -> Dict[str, torch.Tensor]:
         """One optimizer step on one batch: :meth:`compute_gradients`, the
-        clip by global norm, then Adam (with L2 weight decay added to the
-        gradient); returns the losses of :meth:`compute_gradients`."""
+        clip by global norm, then Adam with L2 weight decay added to the
+        gradient (or the ``solver`` block's optimizer); returns the losses
+        of :meth:`compute_gradients`."""
         if self.optimizer is None:
             raise RuntimeError("call init() first")
         losses = self.compute_gradients(inputs, inputs_inv, targets,
@@ -297,56 +312,88 @@ class PredictionEngine:
         return losses
 
     def set_epoch_lr(self, epoch: int) -> float:
-        """Set the StepLR learning rate of ``epoch`` into the optimizer."""
+        """Set the StepLR learning rate of ``epoch`` into the optimizer
+        (each group's ``lr_factor`` times it under ``solver``)."""
         if self.optimizer is None:
             raise RuntimeError("call init() first")
         self.lr = self.lr_schedule(epoch)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr
+        self._apply_lr()
         return self.lr
+
+    def _apply_lr(self) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr * group.get("lr_factor", 1.0)
 
     def train(self, train_loader, epoch: int, time_tsfm=None,
               scale_tsfm=None, weights=None, max_iter: int = -1) -> float:
         """One training epoch; returns the summed average losses."""
         self.set_epoch_lr(epoch)
+        # the windowed per-loss CSV of utils.callbacks (engine.callbacks)
+        cb_cfg = self.config.get("callbacks")
+        if cb_cfg and self._callbacks is None:
+            from ..utils.callbacks import CallbackLogger
+            self._callbacks = CallbackLogger(
+                str(cb_cfg.get("log_dir", ".")), epoch=epoch,
+                name=str(cb_cfg.get("name", "train")))
+            self._callbacks.add_loss_log(
+                lambda: self._last_losses, int(cb_cfg.get("loss_freq", 1)),
+                int(cb_cfg.get("window", 100)))
         t_l = {name: L.AccumLoss() for name in self.loss_funcs}
         num_iter = (len(train_loader) if max_iter == -1
                     else min(len(train_loader), max_iter))
-        timer = StepTimer(skip_first=1)
+        timer = profiling.StepTimer(skip_first=1)
+        # a profiler trace of steps 1 .. profile_steps of the first epoch
+        # (engine.profile: the directory)
+        profile_dir = self.config.get("profile") if epoch == 0 else None
+        profile_steps = int(self.config.get("profile_steps", 5))
         # fail fast on non-finite losses (engine.detect_anomaly)
         detect_anomaly = bool(self.config.get("detect_anomaly", False))
         desc = ""
         it = iter(train_loader)
-        for i in range(num_iter):
-            t0 = time.perf_counter()
-            try:
-                inputs, inputs_inv, targets, _ = next(it)
-            except StopIteration:
-                break
-            self.train_fetch_seconds.append(time.perf_counter() - t0)
-            n = inputs.shape[0]
-            timer.tic()
-            losses = self.train_step(inputs, inputs_inv, targets, time_tsfm,
-                                     scale_tsfm, weights)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.train_step_seconds.append(timer.toc())
-            vals = dict(zip(losses, torch.stack(list(losses.values()))
-                            .tolist()))
-            if detect_anomaly:
-                bad = [name for name, val in vals.items()
-                       if not np.isfinite(val)]
-                if bad:
-                    raise FloatingPointError(
-                        f"non-finite loss {bad} at epoch {epoch + 1} "
-                        f"step {i + 1} (lr={self.lr:.2e}); enable "
-                        f"smaller lr or clipping")
-            for name, val in vals.items():
-                if name == "total":   # reported objective, not a loss term
-                    continue
-                t_l[name].update(val * n, n)
-            desc = f"epoch: {epoch + 1}|[{i + 1}/{num_iter}]|train|" + "".join(
-                "{}:{:.2f}|".format(name, t_l[name].avg) for name in t_l)
+        with contextlib.ExitStack() as tracing:   # closed on a raise too
+            for i in range(num_iter):
+                t0 = time.perf_counter()
+                try:
+                    inputs, inputs_inv, targets, _ = next(it)
+                except StopIteration:
+                    break
+                self.train_fetch_seconds.append(time.perf_counter() - t0)
+                if profile_dir and i == 1:
+                    tracing.enter_context(profiling.trace(profile_dir))
+                elif i == 1 + profile_steps:
+                    tracing.close()
+                n = inputs.shape[0]
+                timer.tic()
+                with (torch.profiler.record_function(f"train_step {i}")
+                      if profile_dir and 1 <= i <= profile_steps
+                      else contextlib.nullcontext()):
+                    losses = self.train_step(inputs, inputs_inv, targets,
+                                             time_tsfm, scale_tsfm, weights)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                self.train_step_seconds.append(timer.toc())
+                vals = dict(zip(losses, torch.stack(list(losses.values()))
+                                .tolist()))
+                if detect_anomaly:
+                    bad = [name for name, val in vals.items()
+                           if not np.isfinite(val)]
+                    if bad:
+                        raise FloatingPointError(
+                            f"non-finite loss {bad} at epoch {epoch + 1} "
+                            f"step {i + 1} (lr={self.lr:.2e}); enable "
+                            f"smaller lr or clipping")
+                for name, val in vals.items():
+                    if name == "total":   # the objective, not a loss term
+                        continue
+                    t_l[name].update(val * n, n)
+                if self._callbacks is not None:
+                    self._last_losses = vals
+                    self._callbacks.step()
+                desc = (f"epoch: {epoch + 1}|[{i + 1}/{num_iter}]|train|"
+                        + "".join("{}:{:.2f}|".format(name, t_l[name].avg)
+                                  for name in t_l))
+        if self._callbacks is not None:
+            self._callbacks.end_epoch()
         if self.logger is not None:
             self.logger.info(desc)
             self.logger.info(f"epoch {epoch + 1} step timing: "
@@ -425,14 +472,29 @@ class PredictionEngine:
                 model_only: bool = False) -> Tuple[int, float]:
         """Load a checkpoint of :meth:`save`: the model (parameters and
         BatchNorm statistics) and, unless ``model_only``, the optimizer,
-        the dropout generator and the learning rate."""
+        the dropout generator and the learning rate.  A checkpoint of the
+        JAX engine loads its ``params`` and ``batch_stats`` through the
+        weight bridge and, unless ``model_only``, its optimizer state
+        (:func:`.checkpoint.jax_optimizer_state`) and the payload's
+        learning rate; the dropout generator stays the engine's own."""
         ckpt = load_checkpoint(checkpoint_path)
         payload = ckpt["payload"]
-        self.model.load_state_dict(ckpt["model"])
-        if not model_only:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
-            self.generator.set_state(ckpt["generator"])
-            self.lr = payload["lr"]
+        jax_state = ckpt.get("jax_state")
+        if jax_state is not None:
+            load_flax_variables(self.model, {
+                "params": jax_state["params"],
+                "batch_stats": jax_state.get("batch_stats") or {}})
+            if not model_only:
+                self.optimizer.load_state_dict(jax_optimizer_state(
+                    self.optimizer, self.model, jax_state["opt_state"]))
+                self.lr = payload["lr"]
+                self._apply_lr()
+        else:
+            self.model.load_state_dict(ckpt["model"])
+            if not model_only:
+                self.optimizer.load_state_dict(ckpt["optimizer"])
+                self.generator.set_state(ckpt["generator"])
+                self.lr = payload["lr"]
         if self.logger is not None:
             self.logger.info(
                 "load from lr {}, curr_avg {} from {}.".format(

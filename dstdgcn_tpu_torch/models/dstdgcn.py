@@ -33,7 +33,9 @@ class DSTDGCN(nn.Module):
     ``agg_group_*`` sizes accept "auto": each forward resolves them from its
     batch size, or from ``auto_batch_hint`` when one is given, by the table
     of :mod:`.autotune` (:meth:`resolve_knobs`), and the submodules see only
-    the resolved values.  Parameters start from
+    the resolved values.  ``remat`` (``True`` or ``"dots"``) recomputes
+    every DSTD-GC op in the backward pass (:class:`.layers.DSTDGC`).
+    Parameters start from
     ``torch.Generator().manual_seed(seed)``; call :meth:`reset_parameters`
     with another generator to draw them again.  Dropout draws its masks from
     ``do_in.generator`` (seeded ``seed + 1``).
@@ -59,10 +61,6 @@ class DSTDGCN(nn.Module):
             raise NotImplementedError(
                 "bn_axis_name (cross-replica BatchNorm) belongs to the "
                 "parallel layer, ROADMAP Queue 1 item 4")
-        if remat:
-            raise NotImplementedError(
-                "model.remat (activation rematerialisation in training) is "
-                "not ported yet (ROADMAP Queue 1 item 5)")
         del pair_flat
         #: the knobs as configured ("auto" or a value) and the batch that
         #: resolves "auto" when given
@@ -82,7 +80,8 @@ class DSTDGCN(nn.Module):
         self.active_dtype = self.resolve_knobs(
             auto_batch_hint or 1)["compute_dtype"]
         common = dict(time_dim=t, joints_dim=v, layout=layout, fast=fast,
-                      use_pallas=use_pallas, compute_dtype=self.active_dtype)
+                      use_pallas=use_pallas, compute_dtype=self.active_dtype,
+                      remat=remat)
         self.conv_st_in = STGCNNLayer(input_channels, f, residual=False,
                                       **common)
         self.bn_in = JointBatchNorm(v, f)

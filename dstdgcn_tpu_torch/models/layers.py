@@ -13,22 +13,29 @@ Train or eval follows ``module.training`` (``model.train()`` /
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from ..graphs import skeleton as sk
 from ..graphs import temporal as tg
 from ..kernels import fused as fk
 from ..ops import dstd as ops
 
-__all__ = ["Dense", "JointBatchNorm", "PReLU", "Dropout", "DSTDGC", "DSTDGCB",
-           "STGCNNLayer", "reset_all"]
+__all__ = ["Dense", "Conv", "JointBatchNorm", "PReLU", "Dropout", "DSTDGC",
+           "DSTDGCB", "ConvTemporalGraphical", "STGCNNLayer", "reset_all"]
 
 #: accepted values of the ``use_pallas`` routing knob
 _USE_PALLAS_VALUES = (True, False, "spatial", "temporal", "serving")
+#: the products whose outputs ``remat="dots"`` saves (``dots_saveable``):
+#: einsum and matmul reach autograd as these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
 
 
 def _kaiming_out(p: torch.Tensor, fan_out: int, g: torch.Generator) -> None:
@@ -50,6 +57,39 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.kernel + self.bias
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over the (T, V) axes of ``(N, T, V, C)``: a
+    ``(kh, kw, Ci, Co)`` kernel, a bias, strides ``(stride, stride)`` and
+    ``SAME`` padding (the extra row or column of an odd total at the
+    end)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 kernel_size: Tuple[int, int] = (1, 1), stride: int = 1):
+        super().__init__()
+        kh, kw = kernel_size
+        self.stride = stride
+        self.kernel = nn.Parameter(torch.empty(kh, kw, in_features,
+                                               out_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        kh, kw, _, co = self.kernel.shape
+        _kaiming_out(self.kernel, co * kh * kw, g)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.kernel.shape[:2]
+        pads = []
+        for size, k in ((x.shape[2], kw), (x.shape[1], kh)):
+            out = -(-size // self.stride)
+            total = max((out - 1) * self.stride + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), pads),
+                     self.kernel.permute(3, 2, 0, 1), self.bias,
+                     stride=self.stride)
+        return y.permute(0, 2, 3, 1)
 
 
 class JointBatchNorm(nn.Module):
@@ -151,13 +191,24 @@ class DSTDGC(nn.Module):
     ``"temporal"`` one of them, ``"serving"`` both but only in eval mode.
     A routed op that needs a gradient runs the forward kernel and, in the
     backward pass, the backward kernel (:class:`..kernels.fused.FusedOp`).
+
+    ``remat`` recomputes the op in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant, around exactly the op call,
+    as ``jax.checkpoint`` wraps it): ``True`` saves nothing of the op's
+    inside; ``"dots"`` saves the outputs of its products (``mm``, ``bmm``)
+    and recomputes the rest, as ``dots_saveable`` does.  On the kernel path
+    the op is one autograd Function whose forward is a kernel no policy can
+    see into, so ``"dots"`` recomputes it as ``True`` does: the forward
+    kernel runs again in the backward pass, and the backward kernel reads
+    the same saved inputs.  No dropout or BatchNorm sits in the region.
     """
 
     def __init__(self, in_channels: int, out_channels: int, ref_len: int,
                  num_kernels: int = 1, red_channels: int = 2,
                  mode: str = "spatial", agg: str = "right",
                  use_pallas: Union[bool, str] = False,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None,
+                 remat: Union[bool, str] = False):
         super().__init__()
         if mode not in ("spatial", "temporal"):
             raise ValueError(f"mode={mode!r}: expected spatial or temporal")
@@ -167,6 +218,7 @@ class DSTDGC(nn.Module):
                 "'spatial', 'temporal' or 'serving'")
         self.mode, self.agg, self.use_pallas = mode, agg, use_pallas
         self.compute_dtype = compute_dtype
+        self.remat = remat
         k, ci, co, r, ref = (num_kernels, in_channels, out_channels,
                              red_channels, ref_len)
         self.wf = nn.Parameter(torch.empty(k, ci, co))
@@ -203,7 +255,22 @@ class DSTDGC(nn.Module):
         else:
             fn = ops.dstd_spatial if self.mode == "spatial" else \
                 ops.dstd_temporal
-        return fn(*args, agg=self.agg, dtype=dtype)
+        if not (self.remat and torch.is_grad_enabled()):
+            return fn(*args, agg=self.agg, dtype=dtype)
+        context_fn = checkpoint.noop_context_fn
+        if self.remat == "dots":
+            context_fn = functools.partial(
+                checkpoint.create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint.checkpoint(fn, *args, agg=self.agg, dtype=dtype,
+                                     use_reentrant=False,
+                                     context_fn=context_fn)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots_saveable`` policy: keep the products' outputs."""
+    del ctx, args, kwargs
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class DSTDGCB(nn.Module):
@@ -219,12 +286,14 @@ class DSTDGCB(nn.Module):
     ``R_t`` learnable (init 0).  With a ``compute_dtype`` the block's
     activations flow in that dtype as in the JAX block: both ops emit it,
     ``bn`` and ``residual_bn`` cast to it, and the PReLU keeps it.
+    ``remat`` goes to both ops (:class:`DSTDGC`).
     """
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int,
                  joint_dim: int, layout: str = "h36m", fast: bool = False,
                  use_pallas: Union[bool, str] = False,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None,
+                 remat: Union[bool, str] = False):
         super().__init__()
         a_s = sk.stacked_adjacency(layout)                  # (2, V, V)
         a_t = tg.stacked_adjacency(time_dim)                # (1, T, T)
@@ -250,11 +319,11 @@ class DSTDGCB(nn.Module):
             self.residual_bn = JointBatchNorm(joint_dim, co)
         agg = "left" if fast else "right"
         self.spatial = DSTDGC(ci, co, time_dim, ks, mode="spatial", agg=agg,
-                              use_pallas=use_pallas)
+                              use_pallas=use_pallas, remat=remat)
         self.bn = JointBatchNorm(joint_dim, co)
         self.prelu = PReLU()
         self.temporal = DSTDGC(co, co, joint_dim, kt, mode="temporal",
-                               agg=agg, use_pallas=use_pallas)
+                               agg=agg, use_pallas=use_pallas, remat=remat)
         self.set_compute_dtype(compute_dtype)
 
     def set_compute_dtype(self, compute_dtype: Optional[str]) -> None:
@@ -294,33 +363,68 @@ class DSTDGCB(nn.Module):
         return self.temporal(y, base_t, self.alpha_tm)
 
 
-class STGCNNLayer(nn.Module):
-    """Spatiotemporal layer: a DSTD-GC block plus an optional residual.
+class ConvTemporalGraphical(nn.Module):
+    """Legacy ST-GCN unit: learnable per-joint temporal mixing ``T (V, T,
+    T)``, then per-frame joint mixing by ``A (T, V, V)`` plus the fixed
+    skeleton adjacency.  Used by no shipped config (every DSTDGCN layer is
+    a refine layer), as in the JAX package."""
 
-    The refine form only (the JAX layer's ``refine=True``, which every
-    DSTDGCN layer uses); the legacy ConvTemporalGraphical form is used by
-    no shipped config and waits for a later slice.
-    """
+    def __init__(self, time_dim: int, joints_dim: int,
+                 layout: str = "h36m"):
+        super().__init__()
+        t, v = time_dim, joints_dim
+        self.A = nn.Parameter(torch.empty(t, v, v))
+        self.T = nn.Parameter(torch.empty(v, t, t))
+        self.register_buffer(
+            "a_fixed", torch.from_numpy(sk.adjacency(layout, "all")),
+            persistent=False)
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        t, v = self.A.shape[0], self.A.shape[1]
+        with torch.no_grad():
+            for p, bound in ((self.A, 1.0 / math.sqrt(v)),
+                             (self.T, 1.0 / math.sqrt(t))):
+                p.uniform_(-bound, bound, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.einsum("ntvc,vtq->nqvc", x, self.T)
+        return torch.einsum("ntvc,tvw->ntwc", y,
+                            self.A + self.a_fixed.to(self.A.dtype))
+
+
+class STGCNNLayer(nn.Module):
+    """Spatiotemporal layer plus an optional residual: a DSTD-GC block
+    (``refine=True``, every DSTDGCN layer) or the legacy form
+    (``refine=False``: :class:`ConvTemporalGraphical`, then a
+    ``kernel_size`` / ``stride`` convolution padded ``SAME``)."""
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int,
-                 joints_dim: int, residual: bool = True,
+                 joints_dim: int, kernel_size: Tuple[int, int] = (1, 1),
+                 stride: int = 1, refine: bool = True, residual: bool = True,
                  layout: str = "h36m", fast: bool = False,
                  use_pallas: Union[bool, str] = False,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None,
+                 remat: Union[bool, str] = False):
         super().__init__()
         self.residual = residual
-        if residual and in_channels != out_channels:
+        if residual and (stride != 1 or in_channels != out_channels):
             self.residual_proj = Dense(in_channels, out_channels)
-        self.block = DSTDGCB(in_channels, out_channels, time_dim, joints_dim,
-                             layout=layout, fast=fast, use_pallas=use_pallas,
-                             compute_dtype=compute_dtype)
+        if refine:
+            self.block = DSTDGCB(in_channels, out_channels, time_dim,
+                                 joints_dim, layout=layout, fast=fast,
+                                 use_pallas=use_pallas,
+                                 compute_dtype=compute_dtype, remat=remat)
+        else:
+            self.tgcn = ConvTemporalGraphical(time_dim, joints_dim, layout)
+            self.conv = Conv(in_channels, out_channels, kernel_size, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         res = None
         if self.residual:
             res = self.residual_proj(x) if hasattr(self, "residual_proj") \
                 else x
-        y = self.block(x)
+        y = self.block(x) if hasattr(self, "block") else \
+            self.conv(self.tgcn(x))
         return y if res is None else y + res
 
 

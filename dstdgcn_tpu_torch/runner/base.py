@@ -1,8 +1,11 @@
 """Experiment runners: datasets, engine and evaluation, by mode.
 
 Counterpart of ``dstdgcn_tpu/runner/base.py::BaseRunner``: builds the model
-and engine for the train/test modes, snapshots source files into the run
-directory, seeds numpy and ``random`` with 777 and dispatches on ``mode``.
+and engine for the train/test modes (``engine.callbacks`` writes into the
+run directory unless its ``log_dir`` says otherwise), snapshots source
+files into the run directory, seeds numpy and ``random`` with 777 and
+dispatches on ``mode``; the visualize modes render test sequences
+(:meth:`BaseRunner.run_visualize`).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import shutil
 import numpy as np
 import torch
 
+from ..data import define_actions, get_dataset
 from ..engine import PredictionEngine
 from ..models import get_model
 
@@ -50,6 +54,9 @@ class BaseRunner:
                 model_opts.setdefault(
                     "auto_batch_hint", int(config["train_batch_size"]))
             model = get_model(model_name, **model_opts)
+            if config["engine"].get("callbacks"):
+                config["engine"]["callbacks"].setdefault(
+                    "log_dir", config["save"]["path"]["base"])
             self.engine = PredictionEngine(config["engine"], model,
                                            self.logger, device=device)
         self.save_files()
@@ -88,5 +95,31 @@ class BaseRunner:
         raise NotImplementedError
 
     def run_visualize(self):
-        raise NotImplementedError(
-            "visualization is not ported yet (ROADMAP Queue 1 item 3)")
+        """Render the first 8 test sequences of each action (the debug
+        action in a ``-debug`` mode, else all) into the visualize
+        directory: ``A<action>_S<i>.gif`` and ``.png``
+        (:meth:`..utils.visualization.Visualizer.plot_single`); nothing is
+        written without matplotlib and imageio."""
+        from ..utils.visualization import Visualizer
+        dataset_name = self.config["dataset"]["name"]
+        train_cfg = self.config["dataset"]["train"]
+        if "debug" in self.config["mode"]:
+            test_acts = define_actions("debug", dataset_name)
+            train_cfg[dataset_name]["actions"] = "debug"
+        else:
+            test_acts = define_actions("all", dataset_name)
+            train_cfg[dataset_name]["actions"] = "all"
+        train_dataset = get_dataset(dataset_name, **train_cfg)
+        test_cfg = self.config["dataset"]["test"]
+        test_cfg[dataset_name]["scaler"] = train_dataset.scale_tsfm
+        vis = Visualizer(self.dataset)
+        for act in test_acts:
+            test_cfg[dataset_name]["actions"] = act
+            test_dataset = get_dataset(dataset_name, **test_cfg)
+            for i in range(len(test_dataset)):
+                seq = test_dataset.all_seqs[i]
+                vis.plot_single(seq, self.config["save"]["path"]["visualize"],
+                                f"A{act}_S{i + 1}",
+                                self.config["setting"]["input_n"])
+                if i + 1 >= 8:
+                    break

@@ -4,7 +4,8 @@ Counterpart of ``dstdgcn_tpu/runner/simple_runner.py``: one test loader (no
 per-action split).  ``run_train`` trains epoch by epoch, evaluates after
 each, appends a row to ``training_loss.csv`` and writes the ``last`` and
 ``best`` checkpoints, then appends the best row; ``run_test`` writes
-``testing_loss.csv``.  The CSV files are written with the ``csv`` module.
+``testing_loss.csv``; ``run_visualize`` renders every test sequence.  The
+CSV files are written with the ``csv`` module.
 """
 
 from __future__ import annotations
@@ -139,6 +140,21 @@ class SimpleRunner(BaseRunner):
         raise NotImplementedError("test-all is defined for the per-action "
                                   "datasets (h36m, cmu), as in the JAX "
                                   "package")
+
+
+    def run_visualize(self):
+        """Render every test sequence into the visualize directory:
+        ``S<i>.gif`` and ``.png`` (nothing without matplotlib and
+        imageio)."""
+        from ..utils.visualization import Visualizer
+        cfg = self.config
+        name = cfg["dataset"]["name"]
+        test_dataset = get_dataset(name, **cfg["dataset"]["test"])
+        vis = Visualizer(self.dataset)
+        for i in range(len(test_dataset)):
+            vis.plot_single(test_dataset.all_seqs[i],
+                            cfg["save"]["path"]["visualize"],
+                            f"S{i + 1}", cfg["setting"]["input_n"])
 
 
 class PW3DRunner(SimpleRunner):

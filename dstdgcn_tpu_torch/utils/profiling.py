@@ -1,15 +1,21 @@
-"""Step timing.
+"""Step timing and the profiler trace hook.
 
-Counterpart of ``StepTimer`` in ``dstdgcn_tpu/utils/profiling.py``; the
-profiler trace hook (``trace``) waits for ROADMAP Queue 1 item 3.
+Counterparts of ``StepTimer`` and ``trace`` in
+``dstdgcn_tpu/utils/profiling.py``: ``trace`` records ``torch.profiler``
+activity (host operators and, with a card, its kernels) and writes it as
+one Chrome trace into a directory (the ``engine.profile`` config key).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
-__all__ = ["StepTimer"]
+import torch
+
+__all__ = ["StepTimer", "trace"]
 
 
 class StepTimer:
@@ -57,3 +63,23 @@ class StepTimer:
         return (f"{self.steps} steps | avg {self.avg_ms:.2f} ms | "
                 f"min {lo:.2f} / max {hi:.2f} ms | "
                 f"{self.steps_per_s:.2f} steps/s")
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Record ``torch.profiler`` activity (of the CPU, and of the card
+    when a card is present) and write it to ``log_dir`` as
+    ``trace_<pid>_<time ns>.json`` in the Chrome trace format (no-op if
+    ``log_dir`` is None or empty)."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -64,8 +64,8 @@ def test_bridge_rejects_missing_extra_and_misshaped_keys():
 def test_routed_op_in_train_mode_raises():
     """A routed op in train mode no longer raises: it trains through the
     kernels' autograd Function (the plain ops on the CPU) with the same
-    gradients as the plain path; what still raises in training is
-    ``remat``."""
+    gradients as the plain path, and under ``remat`` (no longer refused)
+    with the same gradients again."""
     x = torch.from_numpy(np.random.RandomState(0).randn(
         2, 8, 22, 3).astype(np.float32))
     grads = []
@@ -77,8 +77,12 @@ def test_routed_op_in_train_mode_raises():
     for routed in grads[:2]:
         for a, b in zip(routed, grads[2]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DSTDGCN(**SMALL, remat=True)
+    for remat in (True, "dots"):
+        model = DSTDGCN(**dict(SMALL, st_gcnn_dropout=0.0), use_pallas=True,
+                        remat=remat).train()
+        model(x).square().mean().backward()
+        for p, b in zip(model.parameters(), grads[0]):
+            torch.testing.assert_close(p.grad, b, rtol=0, atol=0)
 
 
 def test_auto_knobs_and_unported_options_raise():

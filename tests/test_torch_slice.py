@@ -191,16 +191,25 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What the port still refuses: engine.solver, engine.callbacks, and a
-    checkpoint of the JAX package."""
+    """What the port refused before its engine slice now runs:
+    engine.solver and engine.callbacks train and write the callback CSV,
+    and a checkpoint of the JAX engine loads in test and train mode."""
     cfg = _small_config(tmp_path)
-    for key, value in (("solver", {"name": "adam"}),
-                       ("callbacks", {"log_dir": str(tmp_path)})):
-        bad = copy.deepcopy(cfg)
-        bad["engine"][key] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run(bad, "cpu")
-    # a msgpack checkpoint written by the JAX engine is recognised
+    cfg["dataset"]["train"]["synthetic"]["num_sequences"] = 16
+    cfg["train_batch_size"] = 8
+    trained = copy.deepcopy(cfg)
+    trained.update(mode="train", epoch=1)
+    trained["engine"].update(
+        solver={"optimizer_name": "adam", "bias_lr_factor": 2.0},
+        callbacks={"name": "train"})
+    trained["save"]["path"]["base"] = str(tmp_path / "solver")
+    runner, history = run(trained, "cpu")
+    assert [g["label"] for g in runner.engine.optimizer.param_groups] == [
+        "base", "bias"]
+    with open(tmp_path / "solver" / "train_loss.csv") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["epoch", "joint", "total"] and len(rows) == 2
+    # a msgpack checkpoint written by the JAX engine loads
     from dstdgcn_tpu.engine.checkpoint import save_checkpoint
     mcfg = resolve(cfg)["model"]
     jeng = JaxEngine(cfg["engine"], jax_get_model(
@@ -210,11 +219,16 @@ def test_unported_modes_raise(tmp_path):
     ckpt = tmp_path / "jax.ckpt"
     save_checkpoint(str(ckpt), state, dict(lr=3e-3, err=1.0, epoch=0))
     cfg["model"].update(load=True, ckpt=str(ckpt))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(copy.deepcopy(cfg), "cpu")
-    cfg["mode"] = "train"
-    with pytest.raises(NotImplementedError, match="JAX package"):
-        run(cfg, "cpu")
+    runner, _ = run(copy.deepcopy(cfg), "cpu")
+    kernel = state.params["conv_st_in"]["block"]["spatial"]["wf"]
+    np.testing.assert_array_equal(
+        runner.engine.model.conv_st_in.block.spatial.wf.detach().numpy(),
+        np.asarray(kernel))
+    assert os.path.isfile(tmp_path / "testing_loss.csv")
+    cfg.update(mode="train", epoch=2)
+    runner, history = run(cfg, "cpu")
+    # from the payload's epoch 0, as the JAX runner resumes
+    assert [row[0] for row in history] == [1, 2]
 
 
 def test_slice_config_yaml_equals_dict():

@@ -9,15 +9,30 @@ of each of a backward call's four launches from ``torch.profiler`` keys
 bf16 train step's judgement (``step_verdict``) is held on made-up distances.
 The removal variants of ``fwd_variants.py`` (a kernel's split by phase) must
 each apply to this checkout's CUDA sources, the sparse ones to the code of
-the kernels they name alone.
+the kernels they name alone.  ``write_jax_checkpoint`` (phase 12's
+JAX-layout checkpoint) reads back through ``flax.serialization``.
 """
 
 import os
 
+import jax
+import numpy as np
 import pytest
+import torch
+from flax import serialization
+from flax.traverse_util import flatten_dict
 
 import chip_smoke as cs
 import fwd_variants
+from dstdgcn_tpu.engine import PredictionEngine as JaxEngine
+from dstdgcn_tpu.engine.checkpoint import restore_checkpoint
+from dstdgcn_tpu.models import get_model as jax_get_model
+from dstdgcn_tpu_torch import configs
+from dstdgcn_tpu_torch.data import Synthetic
+from dstdgcn_tpu_torch.engine import PredictionEngine
+from dstdgcn_tpu_torch.engine.checkpoint import (msgpack_restore,
+                                                 read_jax_checkpoint)
+from dstdgcn_tpu_torch.models import get_model
 
 SASS = """
 \tcode for sm_90a
@@ -338,3 +353,107 @@ def test_every_sparse_variant_names_its_kernels():
     sparse = {name for name, edits in fwd_variants.VARIANTS.items()
               if edits[0][0].endswith("block_sparse.cu")}
     assert sparse == set(fwd_variants.SPARSE_KERNELS)
+
+
+#: the engine forms ``chip_smoke.jax_train_state`` writes: the engine
+#: slice's solver block, and Adam alone, with L2 decay, under the clip
+JAX_FORMS = {
+    "slice_solver": {},
+    "adam": dict(solver=None),
+    "adam_l2": dict(solver=None, learn=dict(opt="adam", lr=3e-3,
+                                            weight_decay=1e-4, gamma=0.9,
+                                            step_size=5)),
+    "adam_clip": dict(solver=None, clip=1.0),
+}
+
+
+@pytest.mark.parametrize("form", list(JAX_FORMS))
+def test_write_jax_checkpoint_reads_back_through_flax(form, tmp_path):
+    """The bytes of ``write_jax_checkpoint`` restore through
+    ``flax.serialization`` into the JAX engine's ``TrainState`` for the
+    same engine block (``restore_checkpoint``: the same tree, shapes and
+    dtypes), with the port engine's parameters, statistics and Adam
+    moments; the port's own reader gives what flax's ``msgpack_restore``
+    gives."""
+    small = dict(input_channels=6, input_time_frame=4, output_time_frame=4,
+                 st_gcnn_dropout=0.0, joints_to_consider=22, num_feature=8,
+                 num_layers=1, layout="h36m", remat=True)
+    ecfg = dict(configs.synthetic_h36m_engine_train()["engine"],
+                **JAX_FORMS[form])
+    for key in ("callbacks", "profile", "profile_steps"):
+        ecfg.pop(key)
+    if ecfg["solver"] is None:
+        del ecfg["solver"]
+    ds = Synthetic(layout="h36m", num_sequences=16, input_n=4, output_n=4,
+                   mode="train")
+    eng = PredictionEngine(dict(ecfg), get_model("dstdgcn", dstdgcn=small),
+                           device="cpu")
+    eng.init()
+    for i in range(2):
+        eng.train_step(*[a[i * 8:(i + 1) * 8] for a in ds.arrays()[:3]])
+    payload = dict(lr=eng.lr, err=3.25, epoch=1)
+    path = str(tmp_path / "jax.ckpt")
+    cs.write_jax_checkpoint(path, eng, payload)
+
+    jsmall = {k: v for k, v in small.items() if k != "remat"}
+    jeng = JaxEngine(dict(ecfg), jax_get_model("dstdgcn", dstdgcn=jsmall))
+    jeng.init(ds.input_seqs[:1])
+    state, got_payload = restore_checkpoint(path, jeng.state)
+    assert got_payload == payload
+    same = jax.tree.map(lambda a, b: a.shape == b.shape and a.dtype == b.dtype,
+                        state, jeng.state)
+    assert all(jax.tree.leaves(same))
+    flat = {name: p.detach().numpy()
+            for name, p in eng.model.named_parameters()}
+    for key, val in flatten_dict(jax.tree.map(np.asarray, state.params),
+                                 sep=".").items():
+        np.testing.assert_array_equal(val, flat[key])
+    stats = eng.model.state_dict()
+    for key, val in flatten_dict(jax.tree.map(
+            np.asarray, state.batch_stats), sep=".").items():
+        np.testing.assert_array_equal(val, stats[key].numpy())
+    # every parameter's Adam moments somewhere in the optax state, at its
+    # count
+    opt_sd = serialization.to_state_dict(jax.device_get(state.opt_state))
+    nodes = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if set(tree) == {"count", "mu", "nu"}:
+                nodes.append(tree)
+            for v in tree.values():
+                walk(v)
+
+    walk(opt_sd)
+    assert nodes and all(int(n["count"]) == 2 for n in nodes)
+    for name, p in eng.model.named_parameters():
+        found = []
+        for node in nodes:
+            mu, nu = node["mu"], node["nu"]
+            for part in name.split("."):
+                mu, nu = mu[part], nu[part]
+            if not isinstance(mu, dict):
+                found.append((mu, nu))
+        assert len(found) == 1, name
+        st = eng.optimizer.state[p]
+        np.testing.assert_array_equal(found[0][0], st["exp_avg"].numpy())
+        np.testing.assert_array_equal(found[0][1], st["exp_avg_sq"].numpy())
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        f.read(n)
+        blob = f.read()
+    flat_flax = flatten_dict(serialization.msgpack_restore(blob), sep=".")
+    flat_mine = flatten_dict(read_jax_checkpoint(path)[0], sep=".")
+    assert flat_flax.keys() == flat_mine.keys()
+    for key, val in flat_flax.items():
+        np.testing.assert_array_equal(flat_mine[key], val)
+    assert msgpack_restore(blob).keys() == {"params", "batch_stats",
+                                            "opt_state", "dropout_key"}
+    # the port recovers its own engine's state from it, bit for bit
+    back = PredictionEngine(dict(ecfg), get_model("dstdgcn", dstdgcn=small),
+                            device="cpu")
+    back.init(seed=4)
+    assert back.recover(path) == (1, 3.25)
+    for a, b in zip(eng.model.state_dict().values(),
+                    back.model.state_dict().values()):
+        assert torch.equal(a, b)
