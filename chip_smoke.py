@@ -182,7 +182,30 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    profiler's time; ``visualize-debug`` on a seeded H36M tree of the debug
    action (8 GIFs and 8 PNGs with matplotlib and imageio, none without
    them, as on the card);
-13. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
+13. the parallel slice (``dstdgcn_tpu_torch/parallel/``): (a)
+   ``main.run`` on ``synthetic_h36m_dp_train`` (the training slice with
+   ``parallel: {data: auto}``) under a one-rank NCCL group started by the
+   ``DSTDGCN_*`` variables: the launch counts, losses and per-frame MPJPE
+   of phase 7 exactly (a group of one adds nothing to a sum), and the three
+   ``shard.py`` ops at world size 1 against the plain ops within 1e-5
+   max(|plain|, 1); (b) DP_RANKS ranks on the one card, each a child
+   process (``chip_smoke.py --dp-rank``) started with the ``DSTDGCN_*``
+   variables and ``DSTDGCN_BACKEND=gloo`` (NCCL takes one rank a GPU), each
+   with a run directory of its own: 2 epochs of DP_STEPS steps at a global
+   batch of 32 (16 a rank), exact launch counts on each rank at batch 16,
+   finite losses equal on both ranks, rank 0's csv and checkpoints and no
+   file from rank 1; then one step (dropout 0, BatchNorm calibrated)
+   against the single-process kernel path at batch 32 (loss within
+   LOSS_RTOL) and by phase 7's rules; then the two edge-partitioned
+   ``shard.py`` ops over the two ranks (gloo's CUDA tensors take the
+   all-gather and the reduce-scatter) against the plain ops, output and x
+   gradient within 1e-5 max(|plain|, 1); (c) what the card runs with two
+   ranks (PROBES, a finding, not a check: NCCL's refusal of two ranks on
+   one GPU, each collective on gloo's CUDA tensors); printed: the step's
+   wall on 1 and 2 ranks, the CUDA-event ms of a step's flat gradient
+   all-reduce and of one BatchNorm's statistics all-reduce under NCCL (1
+   rank) and gloo (2 ranks), the phase's seconds;
+14. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
    its main path (the training slice for the float32 one-op kernels, the
    bf16 slice for their bf16 variants, the fused slices for the encoder
    kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
@@ -190,8 +213,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    tensor cores' rate for the dtype: dense bf16, or for float32 3xTF32,
    the dense TF32 rate over 3; the rest at the float32 rate), the float32
    one-op kernels' launches in phase 11's training runs beside them
-   (``real_launches``), and the four float32 DSTD-GC kernels' in phase
-   12's slice run (``remat_launches``).
+   (``real_launches``), the four float32 DSTD-GC kernels' in phase
+   12's slice run (``remat_launches``), and every kernel's in phase 13's
+   runs (``dp_launches``: world size 1 and each rank of the two).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -910,7 +934,7 @@ def forward_shapes(model_cfg):
 
 
 def train_step_check(torch, fused, engine, rcfg, batch, label,
-                     fwd_per_step=14):
+                     fwd_per_step=14, kernel_step=None):
     """One train step of ``engine`` (the kernel path) on ``batch`` (inputs,
     inverse inputs, targets) against the plain path with the same weights,
     dropout 0, BatchNorm calibrated on the batch: the loss within
@@ -918,8 +942,11 @@ def train_step_check(torch, fused, engine, rcfg, batch, label,
     float64 (within GRAD_TOL of max(|float64|, 1) or twice the plain
     float32 path's own distance), and the launches of one step
     (``fwd_per_step`` of each float32 forward kernel: 14, or 28 under
-    remat; 14 calls of each backward one, nothing else).  Prints under
-    ``label``; returns (report, the plain path's engine)."""
+    remat; 14 calls of each backward one, nothing else).  ``kernel_step``
+    (default ``engine.compute_gradients(*batch)``) computes the kernel
+    path's losses and gradients: phase 13 passes the data-parallel step on
+    this rank's share.  Prints under ``label``; returns (report, the plain
+    path's engine)."""
     from dstdgcn_tpu_torch.engine import PredictionEngine
     from dstdgcn_tpu_torch.models import get_model
     device = engine.device
@@ -935,7 +962,8 @@ def train_step_check(torch, fused, engine, rcfg, batch, label,
     for m in (tmodel, pmodel):
         m.do_in.p = 0.0
     before = fused.launch_counts()
-    k_loss = float(engine.compute_gradients(*batch)["total"])
+    k_loss = float((kernel_step or (lambda: engine.compute_gradients(
+        *batch)))()["total"])
     after = fused.launch_counts()
     p_loss = float(peng.compute_gradients(*batch)["total"])
     loss_rel = abs(k_loss - p_loss) / abs(p_loss)
@@ -2718,6 +2746,518 @@ def engine_phase(torch, np, fused, device):
     return report, counts
 
 
+# -- phase 13: the parallel slice ------------------------------------------
+
+#: phase 13's two-rank run: processes on the one card over gloo, train
+#: steps an epoch (2 epochs), and seconds before its ranks are killed
+DP_RANKS = 2
+DP_STEPS = 4
+DP_TIMEOUT = 420
+#: the environment of a launch (parallel/distributed.py)
+LAUNCH_VARS = ("DSTDGCN_COORDINATOR", "DSTDGCN_NUM_PROCESSES",
+               "DSTDGCN_PROCESS_ID", "DSTDGCN_BACKEND")
+
+
+def free_port():
+    """A TCP port of this host that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_env(coordinator, world, rank, backend=None):
+    """The ``DSTDGCN_*`` variables of rank ``rank`` of ``world``: the launch
+    recipe a user follows (``parallel/distributed.py``)."""
+    env = dict(DSTDGCN_COORDINATOR=coordinator,
+               DSTDGCN_NUM_PROCESSES=str(world),
+               DSTDGCN_PROCESS_ID=str(rank))
+    if backend:
+        env["DSTDGCN_BACKEND"] = backend
+    return env
+
+
+def start_ranks(args, world, coordinator, backend=None, env=None):
+    """Start ``chip_smoke.py ARGS`` as the ranks of a launch on this host,
+    each with its ``DSTDGCN_*`` variables (and ``env``)."""
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
+    base.update(env or {},
+                PYTHONPATH=REPO + os.pathsep + base.get("PYTHONPATH", ""))
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args], cwd=REPO,
+        env=dict(base, **launch_env(coordinator, world, r, backend)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def finish_ranks(procs, deadline):
+    """Each process's (exit code, output), waiting until ``deadline``
+    (``time.monotonic``) and killing what still runs then; every process
+    is ended on return or on a raise."""
+    out = []
+    try:
+        for p in procs:
+            try:
+                log = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                log = p.communicate()[0] + "\n(killed at the time limit)"
+            out.append((p.returncode, log))
+    finally:
+        end_all(procs)
+    return out
+
+
+def end_all(procs):
+    """Kill every process of ``procs`` that still runs."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def dp_config(steps=None):
+    """``synthetic_h36m_dp_train``, ``steps`` train steps an epoch when
+    given."""
+    from dstdgcn_tpu_torch import configs
+    cfg = configs.synthetic_h36m_dp_train()
+    if steps is not None:
+        cfg["engine"]["max_iter"] = steps
+    return cfg
+
+
+def rank_report(log):
+    """The report a rank of phase 13 printed on its ``dp_rank`` line."""
+    for line in log.splitlines():
+        if line.startswith("dp_rank "):
+            return json.loads(line[len("dp_rank "):])
+    raise SmokeFailure("a rank printed no report:\n" + log[-4000:])
+
+
+def files_under(root):
+    """Every file under ``root``, relative, sorted (directories left out)."""
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, names in os.walk(root) for f in names)
+
+
+def allreduce_ms(torch, dist, group, numel, device, iters=20):
+    """CUDA-event ms of one all-reduce of ``numel`` float32 values over
+    ``group`` (a step's flat gradient and losses), after 3 warm-up
+    calls."""
+    buf = torch.ones(numel, device=device)
+    for _ in range(3):
+        dist.all_reduce(buf, group=group)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(iters):
+        dist.all_reduce(buf, group=group)
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / iters
+
+
+def step_numel(model):
+    """Values in a step's flat all-reduce: the gradients and the two
+    losses (``joint``, ``total``)."""
+    return sum(p.numel() for p in model.parameters()) + 2
+
+
+#: values in one BatchNorm's statistics all-reduce (mean and mean_sq of
+#: (V, C)); a step takes 30 of them forward and 30 backward (15 BatchNorms,
+#: two passes)
+BN_NUMEL = 2 * V * 64
+
+
+def shard_checks(torch, np, plain, shard, mesh, device):
+    """The three ``parallel/shard.py`` ops on ``mesh`` (world size 1: the
+    whole joint axis on this rank) against the plain ops on the card at the
+    slice's shapes: max |op - plain| within 1e-5 max(max |plain|, 1)."""
+    fns = dict(dstd_spatial_edge_partitioned=("spatial", plain.dstd_spatial),
+               dstd_spatial_ring=("spatial", plain.dstd_spatial),
+               dstd_temporal_edge_partitioned=("temporal",
+                                               plain.dstd_temporal))
+    lines = []
+    for name, (mode, ref) in fns.items():
+        args = op_inputs(torch, np, mode, 64, 64, device, seed=19)
+        with torch.no_grad():
+            got = getattr(shard, name)(mesh, *args)
+            want = ref(*args)
+        err = float((got - want).abs().max())
+        norm = err / max(float(want.abs().max()), 1.0)
+        lines.append(dict(op=name, max_abs_err=err, max_norm_err=norm))
+        print("parallel: world 1 " + json.dumps(lines[-1]))
+        check(norm <= 1e-5, f"{name} at world size 1: {norm} of "
+                            "max(|plain|, 1) from the plain op")
+    return lines
+
+
+def shard_pair_checks(torch, np, plain, shard, mesh, device):
+    """The two edge-partitioned ops (``parallel/shard.py``) on this rank's
+    joint slice of the slice's shapes (C = 64), ranks on the card over
+    gloo, whose CUDA tensors take the all-gather and the reduce-scatter
+    (the ring's sends they do not): the gathered output and x gradient
+    (seeded cotangent) against the plain op and its autograd, within 1e-5
+    of max(|plain|, 1)."""
+    from dstdgcn_tpu_torch.parallel.collectives import all_gather
+    n, i, group = mesh.shape["graph"], mesh.index("graph"), \
+        mesh.group("graph")
+    cut = slice(i * (V // n), (i + 1) * (V // n))
+    g = torch.from_numpy(np.random.RandomState(20).randn(
+        N, T, V, 64).astype(np.float32)).to(device)
+    lines = []
+    for name, mode, ref in (
+            ("dstd_spatial_edge_partitioned", "spatial", plain.dstd_spatial),
+            ("dstd_temporal_edge_partitioned", "temporal",
+             plain.dstd_temporal)):
+        args = op_inputs(torch, np, mode, 64, 64, device, seed=19)
+        x = args[0][:, :, cut].clone().requires_grad_()
+        y = getattr(shard, name)(mesh, x, *args[1:])
+        (y * g[:, :, cut]).sum().backward()
+        got = all_gather(y.detach(), 2, group)
+        dx = all_gather(x.grad, 2, group)
+        xw = args[0].clone().requires_grad_()
+        want = ref(xw, *args[1:])
+        (want * g).sum().backward()
+        line = dict(op=name, ranks=n)
+        for key, a, b in (("out", got, want.detach()), ("dx", dx, xw.grad)):
+            line[key] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1.0)
+        line["ok"] = max(line["out"], line["dx"]) <= 1e-5
+        lines.append(line)
+    return lines
+
+
+def dp_step_check(torch, np, fused, engine, rcfg, rank, world):
+    """One step of the data-parallel engine on this rank's share of a
+    global batch of N, dropout 0 and BatchNorm calibrated: on rank 0 by
+    phase 7's rules (``train_step_check``: the plain path and float64 at
+    the global batch, the launches of one step) and, loss within
+    LOSS_RTOL, against the single-process kernel path on the whole batch;
+    the other ranks take the step's collectives with it (BatchNorm
+    statistics, the flat gradient all-reduce)."""
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.models import get_model
+    train_ds = get_dataset("synthetic", **rcfg["dataset"]["train"])
+    batch = [a[:N] for a in train_ds.arrays()[:3]]
+    share = [a[rank::world] for a in batch]
+
+    def dp_step():
+        return engine.compute_gradients(*share)
+
+    if rank:
+        engine.model.do_in.p = 0.0
+        return dict(loss=float(dp_step()["total"]))
+    report, _ = train_step_check(torch, fused, engine, rcfg, batch,
+                                 f"parallel: rank 0 of {world}",
+                                 kernel_step=dp_step)
+    topts = {k: v for k, v in rcfg["model"].items() if k != "name"}
+    kmodel = get_model("dstdgcn", **topts)
+    keng = PredictionEngine(rcfg["engine"], kmodel, device=engine.device)
+    keng.init()
+    kmodel.load_state_dict(engine.model.state_dict())
+    kmodel.do_in.p = 0.0
+    single = float(keng.compute_gradients(*batch)["total"])
+    rel = abs(report["loss"] - single) / abs(single)
+    print(f"parallel: {world}-rank step loss {report['loss']} against the "
+          f"single-process kernel path {single} (rel {rel:.3g})")
+    check(rel <= LOSS_RTOL, f"the {world}-rank step's loss {report['loss']} "
+                            f"against one process's {single}")
+    report.update(single_loss=single, single_rel=rel)
+    return report
+
+
+#: the collectives phase 13 tries on CUDA tensors with two ranks on the one
+#: card, each group of ops in a launch of its own (an op a backend does not
+#: take may abort its process): under NCCL, and under gloo the three data
+#: parallelism uses, then each of the three the graph-axis ops use
+PROBES = (("nccl", ("all_reduce",)),
+          ("gloo", ("all_reduce", "broadcast", "barrier")),
+          ("gloo", ("all_gather_into_tensor",)),
+          ("gloo", ("reduce_scatter_tensor",)),
+          ("gloo", ("batch_isend_irecv",)))
+
+
+def probe_rank_main(ops):
+    """One rank of a phase 13 probe (``chip_smoke.py --probe-rank OP,...``,
+    the backend from ``DSTDGCN_BACKEND``): each op on CUDA tensors of this
+    rank's device, its outcome printed as soon as it is known
+    (``probe_op {op: "ok" or the error's first line}``); no teardown."""
+    import torch
+    import torch.distributed as dist
+    from dstdgcn_tpu_torch.parallel import distributed
+    distributed.initialize(None, device="cuda")
+    dev = distributed.device_of("cuda")
+    me, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(me + 1), device=dev)
+
+    def p2p():
+        out = torch.empty_like(x)
+        ops_ = [dist.P2POp(dist.isend, x, (me + 1) % world),
+                dist.P2POp(dist.irecv, out, (me - 1) % world)]
+        for req in dist.batch_isend_irecv(ops_):
+            req.wait()
+
+    calls = dict(
+        all_reduce=lambda: dist.all_reduce(x.clone()),
+        broadcast=lambda: dist.broadcast(x.clone(), src=0),
+        barrier=dist.barrier,
+        all_gather_into_tensor=lambda: dist.all_gather_into_tensor(
+            x.new_empty(4 * world), x),
+        reduce_scatter_tensor=lambda: dist.reduce_scatter_tensor(
+            x.new_empty(4 // world), x),
+        batch_isend_irecv=p2p)
+    for op in ops:
+        print(f"probe_start {op}", flush=True)
+        try:
+            calls[op]()
+            torch.cuda.synchronize(dev)
+            result = "ok"
+        except Exception as e:  # the backend's refusal is the finding
+            result = (str(e).strip().splitlines() or [type(e).__name__])[0]
+        print("probe_op " + json.dumps({op: result[:200]}), flush=True)
+    os._exit(0)                 # a probe's group needs no teardown
+
+
+def probe_outcome(log, returncode):
+    """Each op's outcome in a probe rank's ``log``: its ``probe_op`` line,
+    or for an op started and never ended, how the process ended (the last
+    line of its output); NCCL's ``Duplicate GPU`` warning when printed."""
+    out, started = {}, None
+    for line in log.splitlines():
+        if line.startswith("probe_start "):
+            started = line.split(" ", 1)[1]
+        elif line.startswith("probe_op "):
+            out.update(json.loads(line[len("probe_op "):]))
+            started = None
+        elif "Duplicate GPU" in line:
+            out["nccl_warn"] = line.strip()[-200:]
+    if started is not None:
+        tail = [ln for ln in log.splitlines() if ln.strip()][-1:]
+        out[started] = (f"process ended ({returncode}): "
+                        + (tail[0].strip()[:200] if tail else ""))
+    return out
+
+
+def backend_probes(timeout=120):
+    """Run every probe of PROBES at once, each on two ranks of the one
+    card; returns [(backend, ops, [each rank's outcomes])].  A finding,
+    not a check: NCCL takes one rank a GPU, gloo's CUDA tensors a subset
+    of the collectives."""
+    launches = []
+    try:
+        for backend, ops in PROBES:
+            launches.append((backend, ops, start_ranks(
+                ["--probe-rank", ",".join(ops)], 2,
+                f"127.0.0.1:{free_port()}", backend,
+                env=dict(NCCL_DEBUG="WARN"))))
+        deadline = time.monotonic() + timeout
+        return [(backend, list(ops),
+                 [probe_outcome(log, rc)
+                  for rc, log in finish_ranks(procs, deadline)])
+                for backend, ops, procs in launches]
+    finally:
+        end_all([p for _, _, procs in launches for p in procs])
+
+
+def dp_rank_main():
+    """One rank of phase 13's two-rank run (``chip_smoke.py --dp-rank``,
+    started by :func:`parallel_phase` with the ``DSTDGCN_*`` variables):
+    ``main.run`` on ``synthetic_h36m_dp_train`` for 2 epochs of DP_STEPS
+    steps, the all-reduce's time, one step against the single-process
+    paths; prints its report on a ``dp_rank`` line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dstdgcn_tpu_torch.kernels import fused
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.ops import dstd as plain
+    from dstdgcn_tpu_torch.parallel import make_mesh, shard
+    from dstdgcn_tpu_torch.utils.config import resolve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["DSTDGCN_PROCESS_ID"])
+    run_dir = os.path.join(OUT_DIR, f"dp{DP_RANKS}_rank{rank}")
+    cfg = dp_config(DP_STEPS)
+    try:
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner, history = run(cfg, "cuda", run_dir=run_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng = runner.engine
+        report = dict(
+            rank=rank, world=dist.get_world_size(),
+            backend=dist.get_backend(), device=str(eng.device),
+            mesh=eng.mesh.shape, history=np.asarray(history).tolist(),
+            launches=fused.launch_counts(),
+            step_seconds=eng.train_step_seconds, wall=wall,
+            files=files_under(run_dir),
+            allreduce_ms=allreduce_ms(torch, dist, eng.mesh.group("data"),
+                                      step_numel(eng.model), eng.device),
+            bn_allreduce_ms=allreduce_ms(torch, dist,
+                                         eng.mesh.group("data"), BN_NUMEL,
+                                         eng.device))
+        report["step_check"] = dp_step_check(
+            torch, np, fused, eng, resolve(cfg), rank, report["world"])
+        report["shard_checks"] = shard_pair_checks(
+            torch, np, plain, shard, make_mesh(graph=report["world"]),
+            eng.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print("dp_rank " + json.dumps(report), flush=True)
+
+
+def parallel_phase(torch, np, fused, plain, device, train_rows, train_counts):
+    """Phase 13: (a) ``main.run`` on ``synthetic_h36m_dp_train`` under a
+    one-rank NCCL group, bit-equal to phase 7 (``train_rows``,
+    ``train_counts``), and the three ``shard.py`` ops at world size 1;
+    (b) DP_RANKS ranks on the one card over gloo, each a child process
+    (:func:`dp_rank_main`); (c) the backend probes
+    (:func:`backend_probes`).  Returns (report, launch counts: ``world1``
+    and each rank's)."""
+    import torch.distributed as dist
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.parallel import make_mesh, shard
+    from dstdgcn_tpu_torch.utils.config import resolve
+    t_phase = time.perf_counter()
+    rcfg = resolve(dp_config())
+    epochs = rcfg["epoch"]
+    n_train = rcfg["dataset"]["train"]["synthetic"]["num_sequences"]
+    n_test = rcfg["dataset"]["test"]["synthetic"]["num_sequences"]
+    evals = epochs * -(-n_test // rcfg["test_batch_size"])
+
+    # (a) world size 1: the whole parallel code path under NCCL
+    env = launch_env(f"127.0.0.1:{free_port()}", 1, 0)
+    saved = {k: os.environ.get(k) for k in LAUNCH_VARS}
+    os.environ.update(env)
+    try:
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner, history = run(dp_config(), "cuda",
+                              run_dir=os.path.join(OUT_DIR, "dp1"))
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        counts1 = fused.launch_counts()
+        eng = runner.engine
+        rows1 = np.asarray(history, dtype=np.float64)
+        backend = dist.get_backend()
+        print(f"parallel: world 1 ({backend}, mesh {eng.mesh.shape}) "
+              f"main.run in {wall1:.2f} s; per epoch {rows1.tolist()}")
+        check(backend == "nccl" and dist.get_world_size() == 1
+              and eng.mesh.shape == {"data": 1, "graph": 1},
+              f"world size 1 ran on {backend}, mesh {eng.mesh.shape}")
+        check(np.array_equal(rows1, train_rows),
+              f"world size 1 {rows1.tolist()} is not phase 7's "
+              f"{train_rows.tolist()} bit for bit")
+        check(counts1 == train_counts, f"world size 1 launched {counts1}, "
+                                       f"phase 7 {train_counts}")
+        step1 = eng.train_step_seconds
+        shard_lines = shard_checks(torch, np, plain, shard,
+                                   make_mesh(graph=1), device)
+        nccl_ms = allreduce_ms(torch, dist, eng.mesh.group("data"),
+                               step_numel(eng.model), eng.device)
+        nccl_bn_ms = allreduce_ms(torch, dist, eng.mesh.group("data"),
+                                  BN_NUMEL, eng.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (b) DP_RANKS ranks on the one card over gloo, the user's recipe
+    t0 = time.perf_counter()
+    ended = finish_ranks(
+        start_ranks(["--dp-rank"], DP_RANKS, f"127.0.0.1:{free_port()}",
+                    "gloo"), time.monotonic() + DP_TIMEOUT)
+    wall2 = time.perf_counter() - t0
+    for r, (rc, log) in enumerate(ended):
+        with open(os.path.join(OUT_DIR, f"dp_rank{r}.log"), "w") as f:
+            f.write(log)
+        check(rc == 0, f"rank {r} of {DP_RANKS} exited {rc}:\n"
+                       f"{log[-4000:]}")
+    reports = [rank_report(log) for _, log in ended]
+    steps = epochs * min(-(-n_train // rcfg["train_batch_size"]), DP_STEPS)
+    want = {name: 14 * steps + 7 * evals for name in FORWARD}
+    want.update({name: fused.BWD_LAUNCHES * 14 * steps
+                 for name in BACKWARD})
+    want.update({name: 0 for name in CHAINS + BF16_FORWARD + BF16_BACKWARD
+                 + BF16_CHAINS})
+    for rep in reports:
+        r = rep["rank"]
+        rows = np.asarray(rep["history"], dtype=np.float64)
+        print(f"parallel: rank {r} of {rep['world']} ({rep['backend']}, "
+              f"{rep['device']}, mesh {rep['mesh']}) per epoch "
+              f"{rows.tolist()}; launches {rep['launches']}; files "
+              f"{rep['files']}")
+        check(rep["world"] == DP_RANKS and rep["backend"] == "gloo"
+              and rep["mesh"] == {"data": DP_RANKS, "graph": 1},
+              f"rank {r} ran {rep['world']} ranks on {rep['backend']}")
+        check(rep["launches"] == want,
+              f"rank {r} launched {rep['launches']}, expected {want} "
+              f"({steps} steps of {N // DP_RANKS}, {evals} eval batches)")
+        check(rows.shape == (epochs, 4 + len(rcfg["setting"]["eval_frame"]))
+              and bool(np.all(np.isfinite(rows))),
+              f"rank {r}: non-finite losses or MPJPE {rows.tolist()}")
+        check(np.array_equal(rows, np.asarray(reports[0]["history"])),
+              f"rank {r} reports other losses than rank 0")
+    written = reports[0]["files"]
+    for name in ("training_loss.csv", os.path.join("checkpoints", "last.ckpt"),
+                 os.path.join("checkpoints", "best.ckpt")):
+        check(name in written, f"rank 0 did not write {name}: {written}")
+    with open(os.path.join(OUT_DIR, f"dp{DP_RANKS}_rank0",
+                           "training_loss.csv")) as f:
+        csv_rows = [line for line in f if line.strip()]
+    check(len(csv_rows) == epochs + 2, f"rank 0's csv holds {csv_rows}")
+    for rep in reports[1:]:
+        check(not rep["files"], f"rank {rep['rank']} wrote {rep['files']}")
+    for rep in reports:
+        for line in rep["shard_checks"]:
+            print(f"parallel: rank {rep['rank']} of {DP_RANKS} (gloo) "
+                  + json.dumps(line))
+            check(line["ok"], f"{line['op']} over {DP_RANKS} gloo ranks on "
+                              f"the card: {line}")
+    step2 = reports[0]["step_seconds"]
+    gloo_ms = [rep["allreduce_ms"] for rep in reports]
+    gloo_bn_ms = [rep["bn_allreduce_ms"] for rep in reports]
+    print(f"parallel: train step wall ms, median after the first: 1 rank "
+          f"(nccl) {float(np.median(step1[1:])) * 1e3:.3f}, {DP_RANKS} ranks "
+          f"(gloo, rank 0) {float(np.median(step2[1:])) * 1e3:.3f}")
+    print(f"parallel: a step's gradient all-reduce ({step_numel(eng.model)} "
+          f"float32), CUDA-event ms: nccl 1 rank {nccl_ms:.4f}; gloo "
+          f"{DP_RANKS} ranks {', '.join(f'{m:.4f}' for m in gloo_ms)}")
+    print(f"parallel: one BatchNorm statistics all-reduce ({BN_NUMEL} "
+          f"float32, 60 a step over 2 ranks, none at 1), CUDA-event ms: nccl "
+          f"1 rank "
+          f"{nccl_bn_ms:.4f}; gloo {DP_RANKS} ranks "
+          f"{', '.join(f'{m:.4f}' for m in gloo_bn_ms)}")
+    # what the card runs with two ranks under each backend
+    facts = backend_probes()
+    for backend, _, outcomes in facts:
+        for r, res in enumerate(outcomes):
+            print(f"parallel: two ranks on the card, {backend}, rank {r}: "
+                  + json.dumps(res))
+    seconds = time.perf_counter() - t_phase
+    print(f"parallel: phase 13 {seconds:.1f} s ({DP_RANKS}-rank launch "
+          f"{wall2:.1f} s)")
+    counts = dict(world1=counts1, **{f"rank{rep['rank']}": rep["launches"]
+                                     for rep in reports})
+    return dict(world1=dict(history=rows1.tolist(), launches=counts1,
+                            step_seconds=step1, wall=wall1,
+                            shard_checks=shard_lines,
+                            allreduce_ms=nccl_ms, bn_allreduce_ms=nccl_bn_ms),
+                ranks=reports, launch_seconds=wall2, card_facts=facts,
+                step_check=reports[0]["step_check"],
+                seconds=seconds), counts
+
+
 def run_smoke():
     import numpy as np
     import torch
@@ -3349,7 +3889,12 @@ def run_smoke():
     # trace, a JAX-layout checkpoint, time_looped and visualize-debug
     report["engine"], ecounts = engine_phase(torch, np, fused, device)
 
-    # 13. the kernels line.  One-op kernels: times summed over the 7 calls
+    # 13. the parallel slice: world size 1 under NCCL against phase 7, then
+    # two ranks on the one card over gloo
+    report["parallel"], dcounts = parallel_phase(torch, np, fused, plain,
+                                                 device, rows, tcounts)
+
+    # 14. the kernels line.  One-op kernels: times summed over the 7 calls
     # of one forward (or of its backward) at their (Ci, Co), with the
     # model's aggregation, N=32 for the float32 kernels and N=128 (the bf16
     # slice's batch) for the bf16 variants; launches those of the training
@@ -3408,6 +3953,7 @@ def run_smoke():
             library_ms=None, call_ms=call_ms,
             serving_launches=counts[name], fused_launches=fcounts[name],
             real_launches={k: c[name] for k, c in rcounts.items()},
+            dp_launches={k: c[name] for k, c in dcounts.items()},
             timed_by="+".join(sorted(timed_by))))
         if name in FORWARD + BACKWARD:
             kernels[-1].update(remat_launches=ecounts[name])
@@ -3426,6 +3972,12 @@ def run_smoke():
 
 
 def main():
+    if sys.argv[1:] == ["--dp-rank"]:   # a rank of phase 13's launch
+        dp_rank_main()
+        return 0
+    if sys.argv[1:2] == ["--probe-rank"]:   # a rank of phase 13's probe
+        probe_rank_main(sys.argv[2].split(","))
+        return 0
     try:
         result = run_smoke()
     except Exception:  # any failed phase: report it, print no result

@@ -1,7 +1,8 @@
 """Configs of the port as Python dicts (no PyYAML needed).
 
 ``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED``,
-``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_ENGINE_TRAIN``,
+``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_DP_TRAIN``,
+``SYNTHETIC_H36M_ENGINE_TRAIN``,
 ``SYNTHETIC_H36M_TPU_TRAIN``, ``SYNTHETIC_H36M_TPU_FUSED``,
 ``REAL_H36M_TRAIN``, ``REAL_CMU_TRAIN`` and ``REAL_3DPW_TRAIN`` equal the YAML files of the same names in lower case
 as ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass
@@ -18,6 +19,7 @@ import copy
 __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
            "SYNTHETIC_H36M_FUSED", "synthetic_h36m_fused",
            "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train",
+           "SYNTHETIC_H36M_DP_TRAIN", "synthetic_h36m_dp_train",
            "SYNTHETIC_H36M_ENGINE_TRAIN", "synthetic_h36m_engine_train",
            "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train",
            "SYNTHETIC_H36M_TPU_FUSED", "synthetic_h36m_tpu_fused",
@@ -113,6 +115,17 @@ del SYNTHETIC_H36M_TRAIN["engine"]["fused_inference"]
 
 def synthetic_h36m_train() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+
+
+#: the training config data parallel over the processes of a launch: each
+#: global batch of 32 split over the data axis, BatchNorm statistics,
+#: gradients and losses reduced over it (one process: the training config)
+SYNTHETIC_H36M_DP_TRAIN = copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+SYNTHETIC_H36M_DP_TRAIN["parallel"] = {"data": "auto"}
+
+
+def synthetic_h36m_dp_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_DP_TRAIN)
 
 
 #: the training config with the engine's remaining blocks: every DSTD-GC op

@@ -3,6 +3,9 @@
 Counterpart of ``dstdgcn_tpu/data/loader.py::Loader`` without the device
 sharding: it yields numpy batches and the engine moves each batch to its
 device.  Deterministic given ``seed`` and the epoch (:meth:`set_epoch`).
+Under a multi-process launch each process takes its share of every global
+batch, ``idx[process_index::process_count]`` of the batch's indices, as the
+JAX loader does.
 """
 
 from __future__ import annotations
@@ -20,10 +23,16 @@ class Loader:
     """Shuffled mini-batch iterator over parallel arrays."""
 
     def __init__(self, arrays: Arrays, batch_size: int, shuffle: bool = False,
-                 seed: int = 777, drop_last: bool = False):
+                 seed: int = 777, drop_last: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         n = arrays[0].shape[0]
         if any(a.shape[0] != n for a in arrays):
             raise ValueError("arrays differ in their leading dimension")
+        if batch_size % process_count:
+            raise ValueError(f"a global batch of {batch_size} does not split "
+                             f"over {process_count} processes")
+        self.process_index = process_index
+        self.process_count = process_count
         self.arrays = arrays
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -51,5 +60,6 @@ class Loader:
         order = self._order()
         bs = self.batch_size
         for b in range(len(self)):
-            idx = order[b * bs:(b + 1) * bs]
+            idx = order[b * bs:(b + 1) * bs][
+                self.process_index::self.process_count]
             yield tuple(np.ascontiguousarray(a[idx]) for a in self.arrays)

@@ -31,8 +31,23 @@ Counterpart of ``dstdgcn_tpu/engine/engine.py::PredictionEngine``:
   reads the JAX engine's msgpack checkpoints.
 
 Dropout draws from a ``torch.Generator`` on the engine's device seeded
-``seed + 1`` (the JAX engine's ``dropout_key``); its stream cannot match
+``seed + 1`` (the JAX engine's ``dropout_key``) plus the rank's index on
+the data axis, so that ranks draw distinct masks; its stream cannot match
 JAX's.
+
+Under a ``mesh`` (:mod:`..parallel.mesh`, data parallel: each rank holds
+its process's share of every global batch) the engine keeps the JAX
+engine's single-device semantics at the same global batch, as GSPMD does
+there: the parameters and statistics are broadcast from rank 0 after
+:meth:`init`; every forward runs under the mesh, so BatchNorm statistics
+are the global batch's; each rank's gradients of its local mean loss, and
+the losses, are averaged over the data group in one flat all-reduce before
+the clip, so every rank steps the same gradient; :meth:`test` sums each
+batch's per-frame error and count over the group.  Rank 0 alone writes
+(checkpoints, callbacks, the profile trace), the others waiting at a
+barrier after a checkpoint; every rank reads in :meth:`recover`.  A mesh
+with a ``graph`` or ``model`` axis above 1 raises: the engine runs neither
+(ROADMAP items 4b and 4c).
 """
 
 from __future__ import annotations
@@ -45,9 +60,11 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import transforms as tfm
 from ..models import infer
+from ..parallel.mesh import activation_sharding_context
 from ..utils import profiling
 from ..utils.bridge import load_flax_variables
 from ..utils.device import resolve_device
@@ -75,12 +92,25 @@ class PredictionEngine:
     weight(, out_idx)]}, n_out, transform, inverse, max_iter, and optionally
     clip, detect_anomaly, solver, callbacks, profile and profile_steps.
     ``prng_impl`` names a JAX PRNG and has no meaning here; it is accepted
-    and ignored.
+    and ignored.  ``mesh`` (a :class:`..parallel.mesh.Mesh`, or None for
+    one process) makes the engine data parallel over the mesh's data
+    group.
     """
 
     def __init__(self, config: Dict[str, Any], model: torch.nn.Module,
                  logger=None, device: str | torch.device = "cuda",
-                 bone_incidence=None):
+                 bone_incidence=None, mesh=None):
+        if mesh is not None:
+            for axis, item in (("graph", "4b"), ("model", "4c")):
+                if mesh.shape.get(axis, 1) > 1:
+                    raise NotImplementedError(
+                        f"parallel: {axis}={mesh.shape[axis]} over several "
+                        f"processes: the engine runs the data axis only "
+                        f"(the {axis} axis is ROADMAP Queue 1 item {item})")
+        self.mesh = mesh
+        #: whether this process writes the run's files (rank 0, or the only
+        #: process)
+        self.writes = not dist.is_initialized() or dist.get_rank() == 0
         self.config = config
         self.logger = logger
         self.device = resolve_device(device)
@@ -128,13 +158,23 @@ class PredictionEngine:
     # -- state ------------------------------------------------------------
 
     def init(self, seed: int = 777) -> torch.nn.Module:
-        """Draw the model's parameters from ``seed``, seed the dropout
-        generator with ``seed + 1``, build the optimizer (Adam, or the
-        ``solver`` block's); eval mode."""
+        """Draw the model's parameters from ``seed`` (under a mesh, rank
+        0's, broadcast to the data group), seed the dropout generator with
+        ``seed + 1`` plus the rank's data index, build the optimizer (Adam,
+        or the ``solver`` block's); eval mode."""
         gen = torch.Generator().manual_seed(seed)
         self.model.cpu().reset_parameters(gen)
         self.model.to(self.device).eval()
-        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        rank = 0
+        if self.mesh is not None:
+            group, rank = self.mesh.group("data"), self.mesh.index("data")
+            src = dist.get_global_rank(group, 0)
+            with torch.no_grad():
+                for t in list(self.model.parameters()) + list(
+                        self.model.buffers()):
+                    dist.broadcast(t, src=src, group=group)
+        self.generator = torch.Generator(self.device).manual_seed(
+            seed + 1 + rank)
         dropout = getattr(self.model, "do_in", None)
         if dropout is not None:
             dropout.generator = self.generator
@@ -176,7 +216,8 @@ class PredictionEngine:
         """Model output for flat input sequences ``(N, T, S)`` in the flat
         exchange layout, on the engine's device (the model's forward)."""
         self.model.eval()
-        return self._serve(inputs, self.model, time_tsfm, scale_tsfm)
+        with activation_sharding_context(self.mesh):
+            return self._serve(inputs, self.model, time_tsfm, scale_tsfm)
 
     def _serve(self, inputs, forward, time_tsfm, scale_tsfm):
         x = self.transform(self.to_device(inputs))
@@ -280,21 +321,43 @@ class PredictionEngine:
         inputs, inputs_inv, targets = (self.to_device(a) for a in
                                        (inputs, inputs_inv, targets))
         wvec = None if weights is None else self.to_device(weights)
-        losses = self._one_pass(inputs, targets, time_tsfm, scale_tsfm, wvec)
-        total = functools.reduce(torch.add, losses.values())
-        if self.inverse_training:
-            losses_inv = self._one_pass(inputs_inv, targets.flip(1),
-                                        time_tsfm, scale_tsfm, wvec)
-            total = (total + functools.reduce(torch.add,
-                                              losses_inv.values())) / 2
-        self.model.zero_grad(set_to_none=True)
-        total.backward()
+        with activation_sharding_context(self.mesh):
+            losses = self._one_pass(inputs, targets, time_tsfm, scale_tsfm,
+                                    wvec)
+            total = functools.reduce(torch.add, losses.values())
+            if self.inverse_training:
+                losses_inv = self._one_pass(inputs_inv, targets.flip(1),
+                                            time_tsfm, scale_tsfm, wvec)
+                total = (total + functools.reduce(torch.add,
+                                                  losses_inv.values())) / 2
+            self.model.zero_grad(set_to_none=True)
+            total.backward()
         for p in self.model.parameters():   # optax updates every parameter
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         out = {name: val.detach() for name, val in losses.items()}
         out["total"] = total.detach()
+        if self.mesh is not None:
+            self._average_over_data(out)
         return out
+
+    def _average_over_data(self, losses: Dict[str, torch.Tensor]) -> None:
+        """Average every gradient and ``losses`` (in place) over the data
+        group: one flat all-reduce of the gradients and losses, divided by
+        the group's size."""
+        grads = [p.grad for p in self.model.parameters()]
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [v.reshape(1).to(grads[0].dtype)
+                            for v in losses.values()])
+        dist.all_reduce(flat, group=self.mesh.group("data"))
+        flat /= self.mesh.shape["data"]
+        i = 0
+        for g in grads:
+            g.copy_(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
+        for name, v in losses.items():
+            losses[name] = flat[i].to(v.dtype)
+            i += 1
 
     def train_step(self, inputs, inputs_inv, targets, time_tsfm=None,
                    scale_tsfm=None, weights=None) -> Dict[str, torch.Tensor]:
@@ -329,7 +392,7 @@ class PredictionEngine:
         """One training epoch; returns the summed average losses."""
         self.set_epoch_lr(epoch)
         # the windowed per-loss CSV of utils.callbacks (engine.callbacks)
-        cb_cfg = self.config.get("callbacks")
+        cb_cfg = self.config.get("callbacks") if self.writes else None
         if cb_cfg and self._callbacks is None:
             from ..utils.callbacks import CallbackLogger
             self._callbacks = CallbackLogger(
@@ -344,7 +407,8 @@ class PredictionEngine:
         timer = profiling.StepTimer(skip_first=1)
         # a profiler trace of steps 1 .. profile_steps of the first epoch
         # (engine.profile: the directory)
-        profile_dir = self.config.get("profile") if epoch == 0 else None
+        profile_dir = (self.config.get("profile")
+                       if epoch == 0 and self.writes else None)
         profile_steps = int(self.config.get("profile_steps", 5))
         # fail fast on non-finite losses (engine.detect_anomaly)
         detect_anomaly = bool(self.config.get("detect_anomaly", False))
@@ -362,7 +426,7 @@ class PredictionEngine:
                     tracing.enter_context(profiling.trace(profile_dir))
                 elif i == 1 + profile_steps:
                     tracing.close()
-                n = inputs.shape[0]
+                n = inputs.shape[0] * self._data_size()
                 timer.tic()
                 with (torch.profiler.record_function(f"train_step {i}")
                       if profile_dir and 1 <= i <= profile_steps
@@ -408,7 +472,9 @@ class PredictionEngine:
 
         Predictions are scattered into the full-skeleton sequence over
         ``dim_used``, ignored joints are copied from their "equal" sources,
-        and MPJPE is computed on the output frames only.
+        and MPJPE is computed on the output frames only.  Under a mesh each
+        batch's error sums and count are summed over the data group, and
+        the saved results are the global batches' (rank 0 writes them).
         """
         if eval_frame is None:
             raise ValueError("eval_frame is required")
@@ -429,13 +495,19 @@ class PredictionEngine:
         total_n = 0
         save_results = {"result": [], "target": []} if save_path else None
         self.test_batch_seconds = []
-        forward = self._eval_forward()
+        with activation_sharding_context(self.mesh):
+            forward = self._eval_forward()
         for inputs, _, _, all_seqs in test_loader:
             t0 = time.perf_counter()
             n = inputs.shape[0]
-            metric, pred_p = self._eval_step(
-                forward, inputs, all_seqs, input_n, eval_frame, dim_used,
-                idx_ignore, idx_equal, time_tsfm, scale_tsfm)
+            with activation_sharding_context(self.mesh):
+                metric, pred_p = self._eval_step(
+                    forward, inputs, all_seqs, input_n, eval_frame, dim_used,
+                    idx_ignore, idx_equal, time_tsfm, scale_tsfm)
+            if self.mesh is not None:
+                summed = torch.cat([metric, metric.new_tensor([n])])
+                dist.all_reduce(summed, group=self.mesh.group("data"))
+                metric, n = summed[:-1], int(summed[-1])
             metric = metric.cpu().numpy()
             self.test_batch_seconds.append(time.perf_counter() - t0)
             t_metric += metric
@@ -443,30 +515,55 @@ class PredictionEngine:
                 t_l.update(float(m), n)
             total_n += n
             if save_results is not None:
-                save_results["result"].append(pred_p.cpu().numpy())
                 seq = np.asarray(all_seqs, np.float32)
-                save_results["target"].append(
-                    seq.reshape(n, seq.shape[1], -1, 3)[:, input_n:])
+                save_results["result"].append(
+                    self._gather_rows(pred_p.cpu().numpy()))
+                save_results["target"].append(self._gather_rows(
+                    seq.reshape(seq.shape[0], seq.shape[1], -1,
+                                3)[:, input_n:]))
         t_metric /= max(total_n, 1)
         if self.logger is not None:
             self.logger.info(
                 f"action: {action or 'NA'}|test|loss:{t_l.avg:.2f}")
-        if save_results is not None:
+        if save_results is not None and self.writes:
             np.savez(str(save_path) + ".npz",
                      target=np.concatenate(save_results["target"]),
                      result=np.concatenate(save_results["result"]))
         return t_l.avg, t_metric
 
+    def _data_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["data"]
+
+    def _gather_rows(self, rows: np.ndarray) -> np.ndarray:
+        """The global batch of this rank's ``rows`` under a mesh: the data
+        group's shares interleaved back into the loader's order (its split
+        is ``idx[rank::count]``); ``rows`` itself without one."""
+        if self.mesh is None:
+            return rows
+        shares = [None] * self._data_size()
+        dist.all_gather_object(shares, rows, group=self.mesh.group("data"))
+        out = np.empty((sum(len(a) for a in shares),) + rows.shape[1:],
+                       rows.dtype)
+        for r, a in enumerate(shares):
+            out[r::len(shares)] = a
+        return out
+
     # -- checkpointing ----------------------------------------------------
 
     def save(self, checkpoint_dir: str, err: float, epoch: int,
              is_best: bool = False) -> None:
-        os.makedirs(checkpoint_dir, exist_ok=True)
-        payload = dict(lr=self.lr, err=float(err), epoch=int(epoch))
-        names = ["last.ckpt"] + (["best.ckpt"] if is_best else [])
-        for name in names:
-            save_checkpoint(os.path.join(checkpoint_dir, name), self.model,
-                            self.optimizer, self.generator, payload)
+        """Write ``last.ckpt`` (and ``best.ckpt``); under a mesh rank 0
+        writes and every rank waits at a barrier until it has."""
+        if self.writes:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            payload = dict(lr=self.lr, err=float(err), epoch=int(epoch))
+            names = ["last.ckpt"] + (["best.ckpt"] if is_best else [])
+            for name in names:
+                save_checkpoint(os.path.join(checkpoint_dir, name),
+                                self.model, self.optimizer, self.generator,
+                                payload)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group("data"))
 
     def recover(self, checkpoint_path: str,
                 model_only: bool = False) -> Tuple[int, float]:

@@ -18,16 +18,19 @@ below 64       None (float32)          None / None
 
 The grouping sizes are layout choices of the JAX package's XLA path with
 the same result; the port accepts them and computes the same function
-without them.  One process, no mesh: until the parallel layer is ported
-(ROADMAP Queue 1 item 4) the per-chip batch is the batch, and the
-configured batch hint is not scaled by a process count (the JAX package
-scales it by ``jax.process_count()``, which ``ADVICE.md`` records as a
-finding of that package).
+without them.  The table is read at the batch one device computes: the
+configured batch hint is the global batch, divided by the active mesh's
+data-axis size (:func:`per_chip_batch`), and a forward's own batch is
+already a rank's.  The hint is not scaled by a process count (the JAX
+package scales it by ``jax.process_count()``, which ``ADVICE.md`` records
+as a finding of that package).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Union
+
+from ..parallel.mesh import active_mesh
 
 __all__ = ["AUTO_KNOBS", "resolve_auto", "per_chip_batch", "resolve_knob"]
 
@@ -48,9 +51,13 @@ def resolve_auto(batch_size: int) -> Dict[str, Any]:
 
 
 def per_chip_batch(batch_size: int) -> int:
-    """The batch one device computes: the whole batch, since the port runs
-    one process on one device until the parallel layer lands."""
-    return batch_size
+    """The batch one device computes of a global ``batch_size``: divided by
+    the active mesh's data-axis size (at least 1), the whole batch without
+    a mesh, as in the JAX package."""
+    mesh = active_mesh()
+    if mesh is None:
+        return batch_size
+    return max(1, batch_size // mesh.shape["data"])
 
 
 def resolve_knob(name: str, value: Union[str, int, None], batch_size: int,
@@ -58,8 +65,10 @@ def resolve_knob(name: str, value: Union[str, int, None], batch_size: int,
     """``value`` unless it is the string "auto"; then the table's value at
     ``batch_hint`` (the configured batch size, which the runner passes as
     ``auto_batch_hint`` so that a ragged last batch or an eval batch of
-    another size does not flip the knobs within a run) or, without a hint,
-    at ``batch_size``."""
+    another size does not flip the knobs within a run), a global batch read
+    per chip, or, without a hint, at ``batch_size``, a forward's own (a
+    rank's) batch."""
     if value == "auto":
-        return resolve_auto(per_chip_batch(batch_hint or batch_size))[name]
+        n = per_chip_batch(batch_hint) if batch_hint else batch_size
+        return resolve_auto(n)[name]
     return value

@@ -35,6 +35,8 @@ class DSTDGCN(nn.Module):
     of :mod:`.autotune` (:meth:`resolve_knobs`), and the submodules see only
     the resolved values.  ``remat`` (``True`` or ``"dots"``) recomputes
     every DSTD-GC op in the backward pass (:class:`.layers.DSTDGC`).
+    ``bn_axis_name`` names the mesh axis every BatchNorm reduces its
+    training statistics over (:class:`.layers.JointBatchNorm`).
     Parameters start from
     ``torch.Generator().manual_seed(seed)``; call :meth:`reset_parameters`
     with another generator to draw them again.  Dropout draws its masks from
@@ -57,10 +59,6 @@ class DSTDGCN(nn.Module):
         if pair_flat == "auto":
             raise ValueError("pair_flat takes no 'auto' (the knobs that do: "
                              f"{', '.join(autotune.AUTO_KNOBS)})")
-        if bn_axis_name is not None:
-            raise NotImplementedError(
-                "bn_axis_name (cross-replica BatchNorm) belongs to the "
-                "parallel layer, ROADMAP Queue 1 item 4")
         del pair_flat
         #: the knobs as configured ("auto" or a value) and the batch that
         #: resolves "auto" when given
@@ -81,10 +79,10 @@ class DSTDGCN(nn.Module):
             auto_batch_hint or 1)["compute_dtype"]
         common = dict(time_dim=t, joints_dim=v, layout=layout, fast=fast,
                       use_pallas=use_pallas, compute_dtype=self.active_dtype,
-                      remat=remat)
+                      remat=remat, bn_axis_name=bn_axis_name)
         self.conv_st_in = STGCNNLayer(input_channels, f, residual=False,
                                       **common)
-        self.bn_in = JointBatchNorm(v, f)
+        self.bn_in = JointBatchNorm(v, f, axis_name=bn_axis_name)
         self.prelu = PReLU()
         # the engine hands over a generator on its device, seeded seed + 1
         self.do_in = Dropout(st_gcnn_dropout,
@@ -92,7 +90,8 @@ class DSTDGCN(nn.Module):
         for i in range(num_layers):
             self.add_module(f"encoder_{i}",
                             STGCNNLayer(f, f, residual=True, **common))
-            self.add_module(f"encoder_bn_{i}", JointBatchNorm(v, f))
+            self.add_module(f"encoder_bn_{i}",
+                            JointBatchNorm(v, f, axis_name=bn_axis_name))
             self.add_module(f"encoder_prelu_{i}", PReLU())
         self.conv_st_out = STGCNNLayer(f, input_channels // 2,
                                        residual=False, **common)

@@ -26,6 +26,8 @@ from ..graphs import skeleton as sk
 from ..graphs import temporal as tg
 from ..kernels import fused as fk
 from ..ops import dstd as ops
+from ..parallel import mesh as pmesh
+from ..parallel.collectives import all_reduce_sum
 
 __all__ = ["Dense", "Conv", "JointBatchNorm", "PReLU", "Dropout", "DSTDGC",
            "DSTDGCB", "ConvTemporalGraphical", "STGCNNLayer", "reset_all"]
@@ -102,14 +104,25 @@ class JointBatchNorm(nn.Module):
     ``dtype`` (the JAX module's ``dtype``: the DSTD-GC block sets its
     activation dtype); with ``None`` it keeps the arithmetic's type,
     float32 for a float32 or bf16 input.
+
+    In training under a mesh (the engine enters it,
+    :func:`..parallel.mesh.activation_sharding_context`), ``mean`` and
+    ``mean_sq`` are averaged over the ranks of a group and ``cnt`` counts
+    the group's samples (the JAX module's ``pmean`` over ``axis_name``), the
+    gradient flowing back through the reduction: over the mesh's
+    ``axis_name`` group when one is named (a ``ValueError`` without such a
+    mesh), else over its data group when that has more than one rank
+    (:func:`..parallel.mesh.stats_group`).
     """
 
     def __init__(self, joints: int, channels: int, momentum: float = 0.1,
-                 eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
+                 eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
         self.dtype = dtype
+        self.axis_name = axis_name
         self.scale = nn.Parameter(torch.ones(joints, channels))
         self.bias = nn.Parameter(torch.zeros(joints, channels))
         self.register_buffer("mean", torch.zeros(joints, channels))
@@ -127,7 +140,14 @@ class JointBatchNorm(nn.Module):
             xf = x.to(torch.promote_types(x.dtype, self.scale.dtype))
             cnt = x.shape[0] * x.shape[1]
             mean = xf.mean(dim=(0, 1))
-            var = (xf * xf).mean(dim=(0, 1)) - mean * mean
+            mean_sq = (xf * xf).mean(dim=(0, 1))
+            sync = pmesh.stats_group(self.axis_name)
+            if sync is not None:
+                group, size = sync
+                mean, mean_sq = all_reduce_sum(
+                    torch.stack([mean, mean_sq]), group) / size
+                cnt = cnt * size
+            var = mean_sq - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * (cnt / max(cnt - 1, 1))
@@ -286,14 +306,16 @@ class DSTDGCB(nn.Module):
     ``R_t`` learnable (init 0).  With a ``compute_dtype`` the block's
     activations flow in that dtype as in the JAX block: both ops emit it,
     ``bn`` and ``residual_bn`` cast to it, and the PReLU keeps it.
-    ``remat`` goes to both ops (:class:`DSTDGC`).
+    ``remat`` goes to both ops (:class:`DSTDGC`), ``bn_axis_name`` to both
+    BatchNorms (:class:`JointBatchNorm`'s ``axis_name``).
     """
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int,
                  joint_dim: int, layout: str = "h36m", fast: bool = False,
                  use_pallas: Union[bool, str] = False,
                  compute_dtype: Optional[str] = None,
-                 remat: Union[bool, str] = False):
+                 remat: Union[bool, str] = False,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         a_s = sk.stacked_adjacency(layout)                  # (2, V, V)
         a_t = tg.stacked_adjacency(time_dim)                # (1, T, T)
@@ -316,11 +338,12 @@ class DSTDGCB(nn.Module):
         ci, co = in_channels, out_channels
         if ci != co:
             self.residual_proj = Dense(ci, co)
-            self.residual_bn = JointBatchNorm(joint_dim, co)
+            self.residual_bn = JointBatchNorm(joint_dim, co,
+                                              axis_name=bn_axis_name)
         agg = "left" if fast else "right"
         self.spatial = DSTDGC(ci, co, time_dim, ks, mode="spatial", agg=agg,
                               use_pallas=use_pallas, remat=remat)
-        self.bn = JointBatchNorm(joint_dim, co)
+        self.bn = JointBatchNorm(joint_dim, co, axis_name=bn_axis_name)
         self.prelu = PReLU()
         self.temporal = DSTDGC(co, co, joint_dim, kt, mode="temporal",
                                agg=agg, use_pallas=use_pallas, remat=remat)
@@ -404,7 +427,8 @@ class STGCNNLayer(nn.Module):
                  layout: str = "h36m", fast: bool = False,
                  use_pallas: Union[bool, str] = False,
                  compute_dtype: Optional[str] = None,
-                 remat: Union[bool, str] = False):
+                 remat: Union[bool, str] = False,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         self.residual = residual
         if residual and (stride != 1 or in_channels != out_channels):
@@ -413,7 +437,8 @@ class STGCNNLayer(nn.Module):
             self.block = DSTDGCB(in_channels, out_channels, time_dim,
                                  joints_dim, layout=layout, fast=fast,
                                  use_pallas=use_pallas,
-                                 compute_dtype=compute_dtype, remat=remat)
+                                 compute_dtype=compute_dtype, remat=remat,
+                                 bn_axis_name=bn_axis_name)
         else:
             self.tgcn = ConvTemporalGraphical(time_dim, joints_dim, layout)
             self.conv = Conv(in_channels, out_channels, kernel_size, stride)

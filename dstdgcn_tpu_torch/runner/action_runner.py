@@ -69,9 +69,8 @@ class ActionRunner(BaseRunner):
             if scaler is not None:
                 test_cfg[name]["scaler"] = scaler
             ds = get_dataset(name, **test_cfg)
-            loaders[act] = Loader(ds.arrays(),
-                                  self.config["test_batch_size"],
-                                  shuffle=False)
+            loaders[act] = self._loader(ds, self.config["test_batch_size"],
+                                        shuffle=False)
             self._last_test_dataset = ds
         self.data_seconds["test"] = time.perf_counter() - t0
         return loaders
@@ -122,8 +121,8 @@ class ActionRunner(BaseRunner):
         train_dataset = self._train_dataset()
         self.logger.info(
             "train data shape {}".format(train_dataset.all_seqs.shape[0]))
-        train_loader = Loader(train_dataset.arrays(),
-                              cfg["train_batch_size"], shuffle=True)
+        train_loader = self._loader(train_dataset, cfg["train_batch_size"],
+                                    shuffle=True)
         test_loaders = self._build_test_loaders(
             test_acts, scaler=train_dataset.scale_tsfm)
 
@@ -253,7 +252,11 @@ class ActionRunner(BaseRunner):
         return rows
 
     def _write_csv(self, filename, head, rows, mode="w"):
+        """Write ``rows`` (after ``head``) into the run directory's
+        ``filename``, on the writing process only; returns its path."""
         out = os.path.join(self.config["save"]["path"]["base"], filename)
+        if not self.writes:
+            return out
         with open(out, mode, newline="") as f:
             writer = csv.writer(f)
             if head is not None:

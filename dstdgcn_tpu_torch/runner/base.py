@@ -5,7 +5,10 @@ and engine for the train/test modes (``engine.callbacks`` writes into the
 run directory unless its ``log_dir`` says otherwise), snapshots source
 files into the run directory, seeds numpy and ``random`` with 777 and
 dispatches on ``mode``; the visualize modes render test sequences
-(:meth:`BaseRunner.run_visualize`).
+(:meth:`BaseRunner.run_visualize`).  The optional ``parallel`` block
+(``data``, ``graph``, ``model``) builds the process mesh by the JAX
+runner's rules (:meth:`BaseRunner._build_mesh`), and every loader takes
+this process's share of each global batch (:meth:`BaseRunner._loader`).
 """
 
 from __future__ import annotations
@@ -16,10 +19,13 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..data import define_actions, get_dataset
+from ..data import Loader, define_actions, get_dataset
 from ..engine import PredictionEngine
 from ..models import get_model
+from ..parallel.distributed import process_info
+from ..parallel.mesh import activation_sharding_context, make_mesh
 
 __all__ = ["BaseRunner", "setup_seed"]
 
@@ -41,6 +47,8 @@ class BaseRunner:
         self.data_seconds = {}
         #: host seconds of each batch of the last evaluation sweep
         self.test_batch_seconds = []
+        #: whether this process writes the run's files (rank 0)
+        self.writes = process_info()[0] == 0
         if "t" in self.config["mode"]:
             model_opts = {k: v for k, v in dict(config["model"]).items()
                           if k != "name"}
@@ -53,14 +61,58 @@ class BaseRunner:
             if any(isinstance(v, str) and v == "auto" for v in knobs):
                 model_opts.setdefault(
                     "auto_batch_hint", int(config["train_batch_size"]))
-            model = get_model(model_name, **model_opts)
+            mesh = self._build_mesh()
+            with activation_sharding_context(mesh):
+                model = get_model(model_name, **model_opts)
             if config["engine"].get("callbacks"):
                 config["engine"]["callbacks"].setdefault(
                     "log_dir", config["save"]["path"]["base"])
             self.engine = PredictionEngine(config["engine"], model,
-                                           self.logger, device=device)
+                                           self.logger, device=device,
+                                           mesh=mesh)
         self.save_files()
         setup_seed(777)
+
+    def _build_mesh(self):
+        """The process mesh of the ``parallel`` block, resolved as the JAX
+        runner resolves it with the world size in place of the device
+        count: ``data: auto`` is the world over graph x model; a world that
+        graph x model does not divide drops both to 1; a mesh larger than
+        the world warns and runs single-device.  None without the block or
+        without a process group (one process: nothing to reduce).  Under
+        several processes the mesh must hold every rank (a ``ValueError``
+        otherwise)."""
+        par = self.config.get("parallel")
+        if not par or not dist.is_initialized():
+            return None
+        graph = int(par.get("graph", 1))
+        model = int(par.get("model", 1))
+        data = par.get("data", "auto")
+        data = None if data in ("auto", None, "None") else int(data)
+        world = dist.get_world_size()
+        if data is None and world % (graph * model) != 0:
+            graph = model = 1
+        size = (data or (world // (graph * model))) * graph * model
+        if size != world and world > 1:
+            raise ValueError(f"parallel: a mesh of {size} ranks "
+                             f"({data}x{graph}x{model}) over {world} "
+                             "processes: every process must be a rank")
+        if size > world:
+            self.logger.warning(
+                f"parallel config requests {data}x{graph}x{model} ranks, "
+                f"have {world}; falling back to single-device")
+            return None
+        mesh = make_mesh(data=data, graph=graph, model=model)
+        self.logger.info(f"process mesh: {mesh.shape}")
+        return mesh
+
+    def _loader(self, dataset, batch_size, shuffle) -> Loader:
+        """A loader of ``dataset`` that takes this process's share of
+        each global batch of ``batch_size``; ragged last batches are
+        dropped under several processes, so that every share is equal."""
+        pi, pc = process_info()
+        return Loader(dataset.arrays(), batch_size, shuffle=shuffle,
+                      drop_last=pc > 1, process_index=pi, process_count=pc)
 
     def save_files(self) -> None:
         for path in list(self.config["save"]["path"].keys()):
@@ -70,7 +122,7 @@ class BaseRunner:
                 self.config["save"]["path"][path] = update
                 os.makedirs(update, exist_ok=True)
         for file in self.config["save"].get("files", []):
-            if os.path.exists(file):
+            if os.path.exists(file) and self.writes:
                 shutil.copy(file, self.config["save"]["path"]["files"])
 
     def run(self):

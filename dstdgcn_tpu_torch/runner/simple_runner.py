@@ -5,7 +5,8 @@ per-action split).  ``run_train`` trains epoch by epoch, evaluates after
 each, appends a row to ``training_loss.csv`` and writes the ``last`` and
 ``best`` checkpoints, then appends the best row; ``run_test`` writes
 ``testing_loss.csv``; ``run_visualize`` renders every test sequence.  The
-CSV files are written with the ``csv`` module.
+CSV files are written with the ``csv`` module, by the writing process only
+(rank 0 of a multi-process launch).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import time
 
 import numpy as np
 
-from ..data import Loader, get_dataset
+from ..data import get_dataset
 from .base import BaseRunner
 
 __all__ = ["SimpleRunner", "PW3DRunner", "SyntheticRunner"]
@@ -42,6 +43,8 @@ class SimpleRunner(BaseRunner):
         return result
 
     def _append_row(self, row, head=None):
+        if not self.writes:
+            return
         out = os.path.join(self.config["save"]["path"]["base"],
                            "training_loss.csv")
         with open(out, "w" if head else "a", newline="") as f:
@@ -61,14 +64,14 @@ class SimpleRunner(BaseRunner):
         train_dataset = get_dataset(name, **cfg["dataset"]["train"])
         t1 = time.perf_counter()
         self.logger.info("train data shape {}".format(len(train_dataset)))
-        train_loader = Loader(train_dataset.arrays(),
-                              cfg["train_batch_size"], shuffle=True)
+        train_loader = self._loader(train_dataset, cfg["train_batch_size"],
+                                    shuffle=True)
         test_dataset = get_dataset(name, **cfg["dataset"]["test"])
         self.data_seconds = dict(train=t1 - t0,
                                  test=time.perf_counter() - t1)
         self.logger.info("test data shape {}".format(len(test_dataset)))
-        test_loader = Loader(test_dataset.arrays(), cfg["test_batch_size"],
-                             shuffle=False)
+        test_loader = self._loader(test_dataset, cfg["test_batch_size"],
+                                   shuffle=False)
 
         self.engine.init()
         if cfg["model"].get("load"):
@@ -116,8 +119,8 @@ class SimpleRunner(BaseRunner):
         cfg = self.config
         name = cfg["dataset"]["name"]
         test_dataset = get_dataset(name, **cfg["dataset"]["test"])
-        test_loader = Loader(test_dataset.arrays(), cfg["test_batch_size"],
-                             shuffle=False)
+        test_loader = self._loader(test_dataset, cfg["test_batch_size"],
+                                   shuffle=False)
         self.logger.info(
             "test data shape {}".format(test_dataset.all_seqs.shape[0]))
         self.engine.init()
@@ -129,10 +132,12 @@ class SimpleRunner(BaseRunner):
                                            save_path)
         self.logger.info("Loss: {:.5f}".format(err_avg))
         out = os.path.join(cfg["save"]["path"]["base"], "testing_loss.csv")
-        with open(out, "w", newline="") as f:
-            writer = csv.writer(f)
-            writer.writerow(self._heads())
-            writer.writerow([float(err_avg)] + [float(e) for e in err_all])
+        if self.writes:
+            with open(out, "w", newline="") as f:
+                writer = csv.writer(f)
+                writer.writerow(self._heads())
+                writer.writerow([float(err_avg)]
+                                + [float(e) for e in err_all])
         self.logger.info("Save result to " + out)
         return err_avg, err_all
 

@@ -1,4 +1,6 @@
-"""Logger setup: console + ``log.txt`` (colorlog optional)."""
+"""Logger setup: console + ``log.txt`` (colorlog optional), rank-aware: a
+process of rank above 0 gets a logger without handlers, as in the JAX
+package."""
 
 from __future__ import annotations
 
@@ -9,12 +11,12 @@ import sys
 __all__ = ["setup_logger"]
 
 
-def setup_logger(name: str, save_dir: str | None,
+def setup_logger(name: str, save_dir: str | None, distributed_rank: int = 0,
                  filename: str = "log.txt") -> logging.Logger:
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
-    if logger.handlers:
+    if distributed_rank > 0 or logger.handlers:
         return logger
 
     fmt = "%(asctime)s %(name)s %(levelname)s: %(message)s"

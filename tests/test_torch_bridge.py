@@ -93,8 +93,12 @@ def test_auto_knobs_and_unported_options_raise():
     assert model.resolve_knobs(8)["compute_dtype"] is None
     with pytest.raises(ValueError, match="auto"):
         DSTDGCN(**SMALL, pair_flat="auto")
-    with pytest.raises(NotImplementedError):
-        DSTDGCN(**SMALL, bn_axis_name="data")
+    # cross-rank BatchNorm builds; a train-mode forward needs a mesh with
+    # the named axis, as JAX needs the axis bound
+    synced = DSTDGCN(**SMALL, bn_axis_name="data").train()
+    with pytest.raises(ValueError, match="'data'"):
+        synced(torch.zeros(2, SMALL["input_time_frame"]
+                           + SMALL["output_time_frame"], 22, 3))
     with pytest.raises(ValueError):
         DSTDGCN(**SMALL, use_pallas="sometimes")
 

@@ -10,7 +10,11 @@ bf16 train step's judgement (``step_verdict``) is held on made-up distances.
 The removal variants of ``fwd_variants.py`` (a kernel's split by phase) must
 each apply to this checkout's CUDA sources, the sparse ones to the code of
 the kernels they name alone.  ``write_jax_checkpoint`` (phase 12's
-JAX-layout checkpoint) reads back through ``flax.serialization``.
+JAX-layout checkpoint) reads back through ``flax.serialization``.  Phase
+13's launch helpers: the ``DSTDGCN_*`` variables it starts each rank with
+reach ``parallel.distributed.initialize`` as a user's would, its config is
+the training slice with a data axis, it reads each rank's report, written
+files and probe outcomes, and it kills a child past its deadline.
 """
 
 import os
@@ -457,3 +461,102 @@ def test_write_jax_checkpoint_reads_back_through_flax(form, tmp_path):
     for a, b in zip(eng.model.state_dict().values(),
                     back.model.state_dict().values()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("backend", [None, "gloo"])
+def test_launch_env_reaches_initialize_as_the_users_recipe(monkeypatch,
+                                                          backend):
+    from dstdgcn_tpu_torch.parallel import distributed
+    captured = {}
+
+    def fake_init(name, **kw):
+        captured.update(kw, backend=name)
+
+    monkeypatch.setattr(torch.distributed, "init_process_group", fake_init)
+    env = cs.launch_env("127.0.0.1:29500", 2, 1, backend)
+    assert set(env) <= set(cs.LAUNCH_VARS)
+    for key in cs.LAUNCH_VARS:
+        monkeypatch.delenv(key, raising=False)
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    distributed.initialize(None, device="cuda")
+    assert captured == dict(backend=backend or "nccl",
+                            init_method="tcp://127.0.0.1:29500",
+                            world_size=2, rank=1,
+                            timeout=distributed.TIMEOUT)
+
+
+def test_dp_config_is_the_training_slice_with_a_data_axis():
+    cfg = cs.dp_config(cs.DP_STEPS)
+    assert cfg.pop("parallel") == {"data": "auto"}
+    assert cfg["engine"].pop("max_iter") == cs.DP_STEPS
+    want = configs.synthetic_h36m_train()
+    want["engine"].pop("max_iter")
+    assert cfg == want
+    assert cs.dp_config()["engine"]["max_iter"] == -1
+    # a global batch that splits over the ranks, several steps an epoch
+    assert want["train_batch_size"] % cs.DP_RANKS == 0
+    assert want["dataset"]["train"]["synthetic"]["num_sequences"] >= \
+        cs.DP_STEPS * want["train_batch_size"]
+
+
+def test_rank_report_and_files_under(tmp_path):
+    log = 'noise\ndp_rank {"rank": 1, "launches": {"dstd_spatial": 3}}\n'
+    assert cs.rank_report(log) == {"rank": 1,
+                                   "launches": {"dstd_spatial": 3}}
+    with pytest.raises(cs.SmokeFailure, match="no report"):
+        cs.rank_report("Traceback: boom")
+    (tmp_path / "checkpoints").mkdir()
+    (tmp_path / "empty").mkdir()
+    (tmp_path / "checkpoints" / "last.ckpt").write_text("x")
+    (tmp_path / "log.txt").write_text("x")
+    assert cs.files_under(tmp_path) == [
+        os.path.join("checkpoints", "last.ckpt"), "log.txt"]
+    assert cs.files_under(tmp_path / "empty") == []
+
+
+def test_step_numel_counts_the_flat_all_reduce():
+    model = get_model("dstdgcn", dstdgcn=dict(
+        input_channels=6, input_time_frame=4, output_time_frame=4,
+        st_gcnn_dropout=0.0, joints_to_consider=22, num_feature=8,
+        num_layers=1, layout="h36m"))
+    eng = PredictionEngine(configs.synthetic_h36m_train()["engine"], model,
+                           device="cpu")
+    eng.init()
+    losses = eng.compute_gradients(*np.zeros((3, 2, 8, 66), np.float32))
+    assert cs.step_numel(model) == sum(
+        p.grad.numel() for p in model.parameters()) + len(losses)
+
+
+def test_probe_outcome_reads_each_op_and_a_crash():
+    log = ("probe_start all_reduce\nprobe_op {\"all_reduce\": \"ok\"}\n"
+           "probe_start all_gather_into_tensor\n"
+           "terminate called after throwing an instance of 'X'\n"
+           "  what():  writev: Bad address\n")
+    assert cs.probe_outcome(log, -6) == {
+        "all_reduce": "ok",
+        "all_gather_into_tensor": "process ended (-6): what():  writev: "
+                                  "Bad address"}
+    warn = ("host:1:1 [0] NCCL WARN Duplicate GPU detected : rank 1 and "
+            "rank 0 both on CUDA device 1000\nprobe_start all_reduce\n"
+            'probe_op {"all_reduce": "NCCL error: invalid usage"}\n')
+    got = cs.probe_outcome(warn, 0)
+    assert got["all_reduce"] == "NCCL error: invalid usage"
+    assert "Duplicate GPU detected" in got["nccl_warn"]
+    assert {ops for _, ops in cs.PROBES} >= {("batch_isend_irecv",)}
+
+
+def test_finish_ranks_kills_what_outlives_the_deadline():
+    import subprocess
+    import sys
+    import time
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for code in ("print('done')", "import time; time.sleep(120)")]
+    t0 = time.monotonic()
+    (rc0, log0), (rc1, log1) = cs.finish_ranks(procs, t0 + 5)
+    assert time.monotonic() - t0 < 60
+    assert (rc0, log0) == (0, "done\n")
+    assert rc1 != 0 and "killed at the time limit" in log1
+    assert all(p.poll() is not None for p in procs)

@@ -118,8 +118,12 @@ def test_engine_refuses_unported_keys_and_accepts_prng_impl():
     model = get_model("dstdgcn", dstdgcn=SMALL)
     base = configs.synthetic_h36m_train()["engine"]
     PredictionEngine(dict(base, prng_impl="rbg"), model, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_model("dstdgcn", dstdgcn=dict(SMALL, bn_axis_name="data"))
+    # cross-rank BatchNorm builds; training it needs a mesh with its axis
+    synced = PredictionEngine(base, get_model(
+        "dstdgcn", dstdgcn=dict(SMALL, bn_axis_name="data")), device="cpu")
+    synced.init()
+    with pytest.raises(ValueError, match="'data'"):
+        synced.train_step(*np.zeros((3, 1, 20, 66), np.float32))
     with pytest.raises(RuntimeError, match="init"):
         PredictionEngine(base, model, device="cpu").train_step(
             *np.zeros((3, 1, 20, 66), np.float32))
