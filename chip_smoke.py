@@ -205,7 +205,31 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    wall on 1 and 2 ranks, the CUDA-event ms of a step's flat gradient
    all-reduce and of one BatchNorm's statistics all-reduce under NCCL (1
    rank) and gloo (2 ranks), the phase's seconds;
-14. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
+14. the graph and model axes: the float32 one-op kernels, forward and
+   backward, both aggregations, against their plain versions at the model
+   axis's new shapes (AXIS_SHAPES: 6 -> 32 and 64 -> 32, T=35, V=22) by
+   phase 3's rules; then AXIS_RANKS ranks on the one card, each a child
+   process (``chip_smoke.py --axis-rank``) started with the ``DSTDGCN_*``
+   variables and ``DSTDGCN_BACKEND=gloo``, each running
+   ``synthetic_h36m_graph_train`` (``parallel: {graph: 2}``: every op's
+   kernels on all joints of the gathered input, the rank's rows kept),
+   ``synthetic_h36m_model_train`` (``{model: 2}``: every op's kernels at
+   half the output channels, the 64 -> 3 out layer whole) and
+   ``synthetic_h36m_fast_graph_train`` (the fast variant of
+   ``configs/dstdgcn_fast_multihost.yaml``, the plain edge-partitioned
+   ops) through ``main.run`` for one epoch of AXIS_STEPS steps and an eval
+   sweep: exact launch counts on each rank (14 of each forward kernel a
+   step and 7 an eval batch, 14 backward calls a step; none on the plain
+   path), finite losses equal on both ranks, rank 0's csv and checkpoints
+   and no file from rank 1; ``engine.test`` under the mesh within 1e-4
+   relative of one process with the same state and, on the kernel path,
+   with ``engine.fused_inference`` (the whole-encoder kernel whole on each
+   rank, one launch a batch) within 1e-4 relative of it; one step (dropout 0,
+   BatchNorm calibrated) against the single-process path at the same
+   global batch (loss within LOSS_RTOL) and by phase 7's rules; printed:
+   each rank's step wall, the collectives a step issues (calls and values
+   of each ``torch.distributed`` function), the phase's seconds;
+15. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
    its main path (the training slice for the float32 one-op kernels, the
    bf16 slice for their bf16 variants, the fused slices for the encoder
    kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
@@ -214,8 +238,9 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    the dense TF32 rate over 3; the rest at the float32 rate), the float32
    one-op kernels' launches in phase 11's training runs beside them
    (``real_launches``), the four float32 DSTD-GC kernels' in phase
-   12's slice run (``remat_launches``), and every kernel's in phase 13's
-   runs (``dp_launches``: world size 1 and each rank of the two).
+   12's slice run (``remat_launches``), every kernel's in phase 13's
+   runs (``dp_launches``: world size 1 and each rank of the two) and in
+   phase 14's (``axis_launches``: each config, each rank).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -934,7 +959,7 @@ def forward_shapes(model_cfg):
 
 
 def train_step_check(torch, fused, engine, rcfg, batch, label,
-                     fwd_per_step=14, kernel_step=None):
+                     fwd_per_step=14, kernel_step=None, routed=True):
     """One train step of ``engine`` (the kernel path) on ``batch`` (inputs,
     inverse inputs, targets) against the plain path with the same weights,
     dropout 0, BatchNorm calibrated on the batch: the loss within
@@ -942,17 +967,19 @@ def train_step_check(torch, fused, engine, rcfg, batch, label,
     float64 (within GRAD_TOL of max(|float64|, 1) or twice the plain
     float32 path's own distance), and the launches of one step
     (``fwd_per_step`` of each float32 forward kernel: 14, or 28 under
-    remat; 14 calls of each backward one, nothing else).  ``kernel_step``
+    remat; 14 calls of each backward one, nothing else; none with
+    ``routed`` False, a config on the plain path).  ``kernel_step``
     (default ``engine.compute_gradients(*batch)``) computes the kernel
-    path's losses and gradients: phase 13 passes the data-parallel step on
-    this rank's share.  Prints under ``label``; returns (report, the plain
-    path's engine)."""
+    path's losses and gradients: phases 13 and 14 pass the step of a mesh
+    on this rank's share.  Prints under ``label``; returns (report, the
+    plain path's engine)."""
     from dstdgcn_tpu_torch.engine import PredictionEngine
     from dstdgcn_tpu_torch.models import get_model
     device = engine.device
     tmodel = engine.model
     topts = {k: v for k, v in rcfg["model"].items() if k != "name"}
-    pmodel = get_model("dstdgcn", **dict(topts, use_pallas=False))
+    pmodel = get_model(rcfg["model"]["name"], **dict(topts,
+                                                     use_pallas=False))
     peng = PredictionEngine(rcfg["engine"], pmodel, device=device)
     peng.init()
     pmodel.load_state_dict(tmodel.state_dict())
@@ -1010,9 +1037,10 @@ def train_step_check(torch, fused, engine, rcfg, batch, label,
     check(excess[worst_name] <= 1.0,
           f"{label} gradient of {worst_name}: {worst} of max(|float64|, "
           f"1), the plain float32 path {grad_errs[worst_name][2]}")
+    per = int(routed)
     check(step_launches == {
-        **{k: fwd_per_step for k in FORWARD},
-        **{k: 14 * fused.BWD_LAUNCHES for k in BACKWARD},
+        **{k: fwd_per_step * per for k in FORWARD},
+        **{k: 14 * fused.BWD_LAUNCHES * per for k in BACKWARD},
         **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD
            + BF16_CHAINS}},
         f"{label}: one train step launched {step_launches}")
@@ -1969,13 +1997,14 @@ REAL_STEPS = 4
 
 
 def real_op_checks(torch, np, fused, plain, plain_bwd, device, label, t, v,
-                   shapes):
+                   shapes, tag="real"):
     """Each float32 one-op kernel, forward and backward, both aggregations,
     against its plain version at N=32, (T, V) = (``t``, ``v``) and every
     (mode, Ci, Co) of ``shapes``, by phase 3's rules: forward within 1e-4 +
     1e-4 |plain| elementwise, the backward's 11 tensors each within 1e-4
-    max(max |plain|, 1), two calls of each bit-equal.  Returns the check
-    lines (with the tile the wrapper chose)."""
+    max(max |plain|, 1), two calls of each bit-equal.  Prints each line
+    after ``tag``; returns the check lines (with the tile the wrapper
+    chose)."""
     lines = []
     for mode, ci, co in sorted(set(shapes)):
         fwd, ref = getattr(fused, f"dstd_{mode}"), getattr(plain,
@@ -2008,7 +2037,7 @@ def real_op_checks(torch, np, fused, plain, plain_bwd, device, label, t, v,
                         backward=dict(max_abs_err=b_abs, max_norm_err=b_norm,
                                       ok=b_ok, repeatable=b_rep))
             lines.append(line)
-            print("real check " + json.dumps(line))
+            print(f"{tag} check " + json.dumps(line))
             where = f"{label} (T={t}, V={v}) dstd_{mode} agg={agg} {ci}->{co}"
             check(f_ok, f"{where}: forward max abs err {f_abs}")
             check(b_ok, f"{where}: backward {b_norm} of max(|plain|, 1)")
@@ -2827,11 +2856,12 @@ def dp_config(steps=None):
     return cfg
 
 
-def rank_report(log):
-    """The report a rank of phase 13 printed on its ``dp_rank`` line."""
+def rank_report(log, tag="dp_rank"):
+    """The report a rank printed on its ``tag`` line (phase 13's
+    ``dp_rank``, phase 14's ``axis_rank``)."""
     for line in log.splitlines():
-        if line.startswith("dp_rank "):
-            return json.loads(line[len("dp_rank "):])
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
     raise SmokeFailure("a rank printed no report:\n" + log[-4000:])
 
 
@@ -2930,40 +2960,47 @@ def shard_pair_checks(torch, np, plain, shard, mesh, device):
     return lines
 
 
-def dp_step_check(torch, np, fused, engine, rcfg, rank, world):
-    """One step of the data-parallel engine on this rank's share of a
-    global batch of N, dropout 0 and BatchNorm calibrated: on rank 0 by
-    phase 7's rules (``train_step_check``: the plain path and float64 at
-    the global batch, the launches of one step) and, loss within
-    LOSS_RTOL, against the single-process kernel path on the whole batch;
-    the other ranks take the step's collectives with it (BatchNorm
-    statistics, the flat gradient all-reduce)."""
+def dp_step_check(torch, np, fused, engine, rcfg, rank, world,
+                  label="parallel", step=None):
+    """One step of the engine on a mesh on this rank's share of a global
+    batch of ``train_batch_size`` (its data index's), dropout 0 and
+    BatchNorm calibrated: on rank 0 by phase 7's rules
+    (``train_step_check``: the plain path and float64 at the global batch,
+    the launches of one step) and, loss within LOSS_RTOL, against the
+    single-process path of the config on the whole batch; the other ranks
+    take the step's collectives with it (BatchNorm statistics, the flat
+    gradient all-reduce and, under a graph or model axis, the gathers).
+    ``step`` (default ``engine.compute_gradients``) runs the rank's
+    step."""
     from dstdgcn_tpu_torch.data import get_dataset
     from dstdgcn_tpu_torch.engine import PredictionEngine
     from dstdgcn_tpu_torch.models import get_model
     train_ds = get_dataset("synthetic", **rcfg["dataset"]["train"])
-    batch = [a[:N] for a in train_ds.arrays()[:3]]
-    share = [a[rank::world] for a in batch]
+    batch = [a[:rcfg["train_batch_size"]] for a in train_ds.arrays()[:3]]
+    i, n = engine.mesh.index("data"), engine.mesh.shape["data"]
+    share = [a[i::n] for a in batch]
 
     def dp_step():
-        return engine.compute_gradients(*share)
+        return (step or engine.compute_gradients)(*share)
 
     if rank:
         engine.model.do_in.p = 0.0
         return dict(loss=float(dp_step()["total"]))
+    routed = bool(rcfg["model"].get("use_pallas"))
     report, _ = train_step_check(torch, fused, engine, rcfg, batch,
-                                 f"parallel: rank 0 of {world}",
-                                 kernel_step=dp_step)
+                                 f"{label}: rank 0 of {world}",
+                                 kernel_step=dp_step, routed=routed)
     topts = {k: v for k, v in rcfg["model"].items() if k != "name"}
-    kmodel = get_model("dstdgcn", **topts)
+    kmodel = get_model(rcfg["model"]["name"], **topts)
     keng = PredictionEngine(rcfg["engine"], kmodel, device=engine.device)
     keng.init()
     kmodel.load_state_dict(engine.model.state_dict())
     kmodel.do_in.p = 0.0
     single = float(keng.compute_gradients(*batch)["total"])
     rel = abs(report["loss"] - single) / abs(single)
-    print(f"parallel: {world}-rank step loss {report['loss']} against the "
-          f"single-process kernel path {single} (rel {rel:.3g})")
+    print(f"{label}: {world}-rank step loss {report['loss']} against the "
+          f"single-process {'kernel' if routed else 'plain'} path {single} "
+          f"(rel {rel:.3g})")
     check(rel <= LOSS_RTOL, f"the {world}-rank step's loss {report['loss']} "
                             f"against one process's {single}")
     report.update(single_loss=single, single_rel=rel)
@@ -3255,6 +3292,280 @@ def parallel_phase(torch, np, fused, plain, device, train_rows, train_counts):
                             allreduce_ms=nccl_ms, bn_allreduce_ms=nccl_bn_ms),
                 ranks=reports, launch_seconds=wall2, card_facts=facts,
                 step_check=reports[0]["step_check"],
+                seconds=seconds), counts
+
+
+# -- phase 14: the graph and model axes -----------------------------------
+
+#: phase 14's configs (``synthetic_h36m_<name>_train``), each run by
+#: AXIS_RANKS gloo ranks on the one card for one epoch of AXIS_STEPS train
+#: steps; seconds before the ranks are killed
+AXIS_CONFIGS = ("graph", "model", "fast_graph")
+AXIS_RANKS = 2
+AXIS_STEPS = 3
+AXIS_TIMEOUT = 300
+#: the (mode, Ci, Co) the model axis of 2 gives the one-op kernels that no
+#: earlier phase does: the output columns of 64 halved
+AXIS_SHAPES = (("spatial", 6, 32), ("spatial", 64, 32),
+               ("temporal", 64, 32))
+#: the torch.distributed calls a step's collectives go through
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "broadcast", "barrier")
+
+
+def axis_config(name):
+    """``synthetic_h36m_<name>_train`` for one epoch of AXIS_STEPS steps."""
+    from dstdgcn_tpu_torch import configs
+    cfg = getattr(configs, f"synthetic_h36m_{name}_train")()
+    cfg["epoch"] = 1
+    cfg["engine"]["max_iter"] = AXIS_STEPS
+    return cfg
+
+
+def axis_launches(fused, rcfg, world):
+    """Each kernel's launches on one rank of ``world`` over a run of
+    ``rcfg``: every op is one launch of its kernel on each rank whatever
+    the axis (all joints of the rank's data share under ``graph``, the
+    rank's output columns under ``model``), none on the plain path."""
+    routed = int(bool(rcfg["model"].get("use_pallas")))
+    n_train = rcfg["dataset"]["train"]["synthetic"]["num_sequences"]
+    n_test = rcfg["dataset"]["test"]["synthetic"]["num_sequences"]
+    steps = rcfg["epoch"] * min(n_train // rcfg["train_batch_size"],
+                                rcfg["engine"]["max_iter"])
+    evals = rcfg["epoch"] * (n_test // rcfg["test_batch_size"] if world > 1
+                             else -(-n_test // rcfg["test_batch_size"]))
+    want = {name: routed * (14 * steps + 7 * evals) for name in FORWARD}
+    want.update({name: routed * fused.BWD_LAUNCHES * 14 * steps
+                 for name in BACKWARD})
+    want.update({name: 0 for name in CHAINS + BF16_FORWARD + BF16_BACKWARD
+                 + BF16_CHAINS})
+    return want
+
+
+class CountedCollectives:
+    """Counts the calls of each of COLLECTIVES, and the float32 values of
+    their first tensor argument, while entered (the functions of
+    ``torch.distributed`` wrapped, every thread: autograd's too)."""
+
+    def __init__(self, dist):
+        self.dist = dist
+        self.counts = {}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.dist, name) for name in COLLECTIVES}
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, self._wrap(name, fn))
+        return self.counts
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            entry = self.counts.setdefault(name, dict(calls=0, values=0))
+            entry["calls"] += 1
+            if args and hasattr(args[0], "numel"):
+                entry["values"] += int(args[0].numel())
+            return fn(*args, **kwargs)
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def axis_eval_check(torch, np, fused, engine, rcfg):
+    """``engine.test`` under the mesh on the config's test split (the
+    rank's data share of each batch) and, on rank 0, one process with the
+    same state on the whole batches: the per-frame MPJPE of both.  On the
+    kernel path the sweep once more with ``engine.fused_inference``: the
+    whole-encoder kernel runs whole on each rank under the mesh, one launch
+    a batch, within 1e-4 relative of the standard sweep (phase 5's
+    rule)."""
+    from dstdgcn_tpu_torch.data import Loader, get_dataset
+    from dstdgcn_tpu_torch.engine import PredictionEngine
+    from dstdgcn_tpu_torch.models import get_model
+    import torch.distributed as dist
+    setting = rcfg["setting"]
+    ds = get_dataset("synthetic", **rcfg["dataset"]["test"])
+    mesh = engine.mesh
+    # the runner's arguments (runner/simple_runner.py::_test_once)
+    kw = dict(input_n=setting["input_n"],
+              eval_frame=np.asarray(setting["eval_frame"]),
+              dim_used=np.asarray(setting["dim_used"]),
+              joint_to_ignore=np.asarray(setting["joint_to_ignore"]),
+              joint_equal=np.asarray(setting["joint_to_equal"]),
+              time_tsfm=ds.time_tsfm)
+    split = Loader(ds.arrays(), rcfg["test_batch_size"], drop_last=True,
+                   process_index=mesh.index("data"),
+                   process_count=mesh.shape["data"])
+    _, got = engine.test(split, **kw)
+    out = dict(mesh=got.tolist())
+    if rcfg["model"].get("use_pallas"):
+        before = fused.launch_counts()["dstd_encoder_chain"]
+        engine.fused_inference = True
+        try:
+            _, fz = engine.test(split, **kw)
+        finally:
+            engine.fused_inference = False
+        launches = fused.launch_counts()["dstd_encoder_chain"] - before
+        rel = float(np.max(np.abs(fz - got) / np.abs(got)))
+        out.update(fused=fz.tolist(), fused_launches=launches, fused_rel=rel,
+                   fused_ok=rel <= 1e-4 and launches == len(split))
+    if dist.get_rank() == 0:
+        topts = {k: v for k, v in rcfg["model"].items() if k != "name"}
+        one = PredictionEngine(rcfg["engine"], get_model(
+            rcfg["model"]["name"], **topts), device=engine.device)
+        one.init()
+        one.model.load_state_dict(engine.model.state_dict())
+        _, want = one.test(Loader(ds.arrays(), rcfg["test_batch_size"],
+                                  drop_last=True), **kw)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        out.update(one=want.tolist(), max_rel=rel, ok=rel <= 1e-4)
+    return out
+
+
+def axis_rank_main():
+    """One rank of phase 14's launch (``chip_smoke.py --axis-rank``,
+    started by :func:`axis_phase` with the ``DSTDGCN_*`` variables): for
+    each of AXIS_CONFIGS ``main.run`` for one epoch of AXIS_STEPS steps,
+    the eval sweep under the mesh against one process, one step against
+    the single-process paths with the collectives it issues counted;
+    prints its reports on an ``axis_rank`` line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dstdgcn_tpu_torch.kernels import fused
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.utils.config import resolve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["DSTDGCN_PROCESS_ID"])
+    reports = {}
+    try:
+        for name in AXIS_CONFIGS:
+            cfg = axis_config(name)
+            run_dir = os.path.join(OUT_DIR, f"axis_{name}_rank{rank}")
+            fused.reset_launch_counts()
+            t0 = time.perf_counter()
+            runner, history = run(cfg, "cuda", run_dir=run_dir)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eng = runner.engine
+            rcfg = resolve(cfg)
+            rep = dict(rank=rank, world=dist.get_world_size(),
+                       backend=dist.get_backend(), device=str(eng.device),
+                       mesh=eng.mesh.shape,
+                       history=np.asarray(history).tolist(),
+                       launches=fused.launch_counts(),
+                       step_seconds=eng.train_step_seconds, wall=wall,
+                       files=files_under(run_dir))
+            rep["eval"] = axis_eval_check(torch, np, fused, eng, rcfg)
+            counted = {}
+
+            def step(*share):
+                with CountedCollectives(dist) as counts:
+                    out = eng.compute_gradients(*share)
+                    torch.cuda.synchronize()
+                counted.update(counts)
+                return out
+
+            rep["step_check"] = dp_step_check(
+                torch, np, fused, eng, rcfg, rank, rep["world"],
+                label=f"axes {name}", step=step)
+            rep["collectives"] = counted
+            reports[name] = rep
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print("axis_rank " + json.dumps(reports), flush=True)
+
+
+def axis_phase(torch, np, fused, plain, plain_bwd, device):
+    """Phase 14: the one-op kernels at the model axis's new shapes
+    (AXIS_SHAPES) by phase 3's rules, then AXIS_RANKS ranks on the one
+    card over gloo, each a child process (:func:`axis_rank_main`) running
+    every config of AXIS_CONFIGS.  Returns (report, launch counts: each
+    config's, each rank's)."""
+    from dstdgcn_tpu_torch.utils.config import resolve
+    t_phase = time.perf_counter()
+    op_lines = real_op_checks(torch, np, fused, plain, plain_bwd, device,
+                              "model axis", T, V, AXIS_SHAPES, tag="axes")
+    t0 = time.perf_counter()
+    ended = finish_ranks(
+        start_ranks(["--axis-rank"], AXIS_RANKS, f"127.0.0.1:{free_port()}",
+                    "gloo"), time.monotonic() + AXIS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r, (rc, log) in enumerate(ended):
+        with open(os.path.join(OUT_DIR, f"axis_rank{r}.log"), "w") as f:
+            f.write(log)
+        check(rc == 0, f"phase 14: rank {r} of {AXIS_RANKS} exited {rc}:\n"
+                       f"{log[-4000:]}")
+    reports = [rank_report(log, "axis_rank") for _, log in ended]
+    counts, summary = {}, {}
+    for name in AXIS_CONFIGS:
+        rcfg = resolve(axis_config(name))
+        want_mesh = {"data": AXIS_RANKS // 2, "graph": 1}
+        want_mesh.update({k: v for k, v in rcfg["parallel"].items()
+                          if k in ("graph", "model")})
+        want = axis_launches(fused, rcfg, AXIS_RANKS)
+        reps = [rep[name] for rep in reports]
+        for rep in reps:
+            r = rep["rank"]
+            rows = np.asarray(rep["history"], dtype=np.float64)
+            walls = rep["step_seconds"]
+            print(f"axes {name}: rank {r} of {rep['world']} "
+                  f"({rep['backend']}, {rep['device']}, mesh {rep['mesh']}) "
+                  f"per epoch {rows.tolist()}; launches {rep['launches']}; "
+                  f"step wall ms {[round(t * 1e3, 3) for t in walls]}; "
+                  f"files {rep['files']}")
+            check(rep["world"] == AXIS_RANKS and rep["backend"] == "gloo"
+                  and rep["mesh"] == want_mesh,
+                  f"axes {name}: rank {r} ran mesh {rep['mesh']} of "
+                  f"{rep['world']} on {rep['backend']}")
+            check(rep["launches"] == want,
+                  f"axes {name}: rank {r} launched {rep['launches']}, "
+                  f"expected {want}")
+            check(bool(np.all(np.isfinite(rows))),
+                  f"axes {name}: rank {r}: non-finite {rows.tolist()}")
+            check(np.array_equal(rows, np.asarray(reps[0]["history"])),
+                  f"axes {name}: rank {r} reports other losses than rank 0")
+            check(rep["eval"]["mesh"] == reps[0]["eval"]["mesh"],
+                  f"axes {name}: rank {r} evaluates otherwise than rank 0")
+            if "fused" in rep["eval"]:
+                print(f"axes {name}: rank {r} fused eval "
+                      f"{rep['eval']['fused']} (rel "
+                      f"{rep['eval']['fused_rel']:.3g} of the standard "
+                      f"sweep), {rep['eval']['fused_launches']} "
+                      "dstd_encoder_chain launches")
+                check(rep["eval"]["fused_ok"],
+                      f"axes {name}: rank {r} fused eval {rep['eval']}")
+            print(f"axes {name}: rank {r} one step's collectives "
+                  + json.dumps(rep["collectives"]))
+        ev, sc = reps[0]["eval"], reps[0]["step_check"]
+        print(f"axes {name}: eval MPJPE under the mesh {ev['mesh']} vs one "
+              f"process {ev['one']} (max rel {ev['max_rel']:.3g})")
+        check(ev["ok"], f"axes {name}: eval MPJPE {ev['mesh']} vs one "
+                        f"process {ev['one']}")
+        check("training_loss.csv" in reps[0]["files"]
+              and os.path.join("checkpoints", "last.ckpt") in reps[0]["files"],
+              f"axes {name}: rank 0 wrote {reps[0]['files']}")
+        for rep in reps[1:]:
+            check(not rep["files"], f"axes {name}: rank {rep['rank']} "
+                                    f"wrote {rep['files']}")
+        median = [float(np.median(rep["step_seconds"][1:])) * 1e3
+                  for rep in reps]
+        print(f"axes {name}: train step wall ms, median after the first, "
+              f"per rank {median}")
+        counts[name] = {f"rank{rep['rank']}": rep["launches"] for rep in reps}
+        summary[name] = dict(
+            mesh=reps[0]["mesh"], launches=want, step_median_ms=median,
+            step_seconds=[rep["step_seconds"] for rep in reps],
+            collectives=reps[0]["collectives"], eval=ev,
+            loss=sc["loss"], single_loss=sc["single_loss"],
+            loss_rel=sc["single_rel"], worst_grad=sc["worst_grad"],
+            worst_param=sc["worst_param"], history=reps[0]["history"])
+    seconds = time.perf_counter() - t_phase
+    print(f"axes: phase 14 {seconds:.1f} s ({AXIS_RANKS}-rank launch "
+          f"{wall:.1f} s)")
+    return dict(op_checks=op_lines, configs=summary, launch_seconds=wall,
                 seconds=seconds), counts
 
 
@@ -3894,7 +4205,12 @@ def run_smoke():
     report["parallel"], dcounts = parallel_phase(torch, np, fused, plain,
                                                  device, rows, tcounts)
 
-    # 14. the kernels line.  One-op kernels: times summed over the 7 calls
+    # 14. the graph and model axes: two gloo ranks on the one card through
+    # the graph, model and fast graph slices
+    report["axes"], acounts = axis_phase(torch, np, fused, plain, plain_bwd,
+                                         device)
+
+    # 15. the kernels line.  One-op kernels: times summed over the 7 calls
     # of one forward (or of its backward) at their (Ci, Co), with the
     # model's aggregation, N=32 for the float32 kernels and N=128 (the bf16
     # slice's batch) for the bf16 variants; launches those of the training
@@ -3954,6 +4270,8 @@ def run_smoke():
             serving_launches=counts[name], fused_launches=fcounts[name],
             real_launches={k: c[name] for k, c in rcounts.items()},
             dp_launches={k: c[name] for k, c in dcounts.items()},
+            axis_launches={cfg: {r: c[name] for r, c in per.items()}
+                           for cfg, per in acounts.items()},
             timed_by="+".join(sorted(timed_by))))
         if name in FORWARD + BACKWARD:
             kernels[-1].update(remat_launches=ecounts[name])
@@ -3974,6 +4292,9 @@ def run_smoke():
 def main():
     if sys.argv[1:] == ["--dp-rank"]:   # a rank of phase 13's launch
         dp_rank_main()
+        return 0
+    if sys.argv[1:] == ["--axis-rank"]:   # a rank of phase 14's launch
+        axis_rank_main()
         return 0
     if sys.argv[1:2] == ["--probe-rank"]:   # a rank of phase 13's probe
         probe_rank_main(sys.argv[2].split(","))

@@ -2,7 +2,8 @@
 
 ``SYNTHETIC_H36M_SERVING``, ``SYNTHETIC_H36M_FUSED``,
 ``SYNTHETIC_H36M_TRAIN``, ``SYNTHETIC_H36M_DP_TRAIN``,
-``SYNTHETIC_H36M_ENGINE_TRAIN``,
+``SYNTHETIC_H36M_GRAPH_TRAIN``, ``SYNTHETIC_H36M_MODEL_TRAIN``,
+``SYNTHETIC_H36M_FAST_GRAPH_TRAIN``, ``SYNTHETIC_H36M_ENGINE_TRAIN``,
 ``SYNTHETIC_H36M_TPU_TRAIN``, ``SYNTHETIC_H36M_TPU_FUSED``,
 ``REAL_H36M_TRAIN``, ``REAL_CMU_TRAIN`` and ``REAL_3DPW_TRAIN`` equal the YAML files of the same names in lower case
 as ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass
@@ -20,6 +21,10 @@ __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
            "SYNTHETIC_H36M_FUSED", "synthetic_h36m_fused",
            "SYNTHETIC_H36M_TRAIN", "synthetic_h36m_train",
            "SYNTHETIC_H36M_DP_TRAIN", "synthetic_h36m_dp_train",
+           "SYNTHETIC_H36M_GRAPH_TRAIN", "synthetic_h36m_graph_train",
+           "SYNTHETIC_H36M_MODEL_TRAIN", "synthetic_h36m_model_train",
+           "SYNTHETIC_H36M_FAST_GRAPH_TRAIN",
+           "synthetic_h36m_fast_graph_train",
            "SYNTHETIC_H36M_ENGINE_TRAIN", "synthetic_h36m_engine_train",
            "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train",
            "SYNTHETIC_H36M_TPU_FUSED", "synthetic_h36m_tpu_fused",
@@ -126,6 +131,53 @@ SYNTHETIC_H36M_DP_TRAIN["parallel"] = {"data": "auto"}
 
 def synthetic_h36m_dp_train() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_DP_TRAIN)
+
+
+#: the training config with the joint axis split over two ranks (the
+#: ``graph`` mesh axis) and the data axis over the rest: each rank runs the
+#: DSTD-GC ops' kernels on all joints of its data share and keeps its rows
+SYNTHETIC_H36M_GRAPH_TRAIN = copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+SYNTHETIC_H36M_GRAPH_TRAIN["parallel"] = {"data": "auto", "graph": 2}
+
+
+def synthetic_h36m_graph_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_GRAPH_TRAIN)
+
+
+#: the training config with the feature channels split over two ranks (the
+#: ``model`` mesh axis, ``param_sharding``'s columns): each rank launches
+#: each op's kernels at half the output channels
+SYNTHETIC_H36M_MODEL_TRAIN = copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+SYNTHETIC_H36M_MODEL_TRAIN["parallel"] = {"data": "auto", "model": 2}
+
+
+def synthetic_h36m_model_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_MODEL_TRAIN)
+
+
+#: configs/dstdgcn_fast_multihost.yaml at its own width: the fast variant
+#: (16 features, 2 layers, left aggregation) at batch 64, T = 10 + 10, on
+#: the plain path, with the joint axis over two ranks
+SYNTHETIC_H36M_FAST_GRAPH_TRAIN = copy.deepcopy(SYNTHETIC_H36M_TRAIN)
+SYNTHETIC_H36M_FAST_GRAPH_TRAIN.update(
+    train_batch_size=64, test_batch_size=64,
+    parallel={"data": "auto", "graph": 2,
+              "distributed": {"coordinator": "auto"}})
+for _split in ("train", "test"):
+    SYNTHETIC_H36M_FAST_GRAPH_TRAIN["dataset"][_split]["synthetic"][
+        "output_n"] = 10
+SYNTHETIC_H36M_FAST_GRAPH_TRAIN["setting"].update(output_n=10,
+                                                   eval_frame=[1, 3, 7, 9])
+SYNTHETIC_H36M_FAST_GRAPH_TRAIN["model"] = {
+    "name": "dstdgcn_fast", "load": False, "ckpt": "None",
+    "dstdgcn_fast": {"input_channels": 6, "input_time_frame": 10,
+                     "output_time_frame": 10, "st_gcnn_dropout": 0.1,
+                     "joints_to_consider": 22, "num_feature": 16,
+                     "num_layers": 2, "layout": "h36m"}}
+
+
+def synthetic_h36m_fast_graph_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_FAST_GRAPH_TRAIN)
 
 
 #: the training config with the engine's remaining blocks: every DSTD-GC op

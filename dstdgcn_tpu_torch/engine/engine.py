@@ -35,19 +35,25 @@ Dropout draws from a ``torch.Generator`` on the engine's device seeded
 the data axis, so that ranks draw distinct masks; its stream cannot match
 JAX's.
 
-Under a ``mesh`` (:mod:`..parallel.mesh`, data parallel: each rank holds
-its process's share of every global batch) the engine keeps the JAX
-engine's single-device semantics at the same global batch, as GSPMD does
-there: the parameters and statistics are broadcast from rank 0 after
+Under a ``mesh`` (:mod:`..parallel.mesh`: each rank holds its data
+index's share of every global batch) the engine keeps the JAX engine's
+single-device semantics at the same global batch, as GSPMD does there: the
+parameters and statistics are broadcast from rank 0 over the mesh after
 :meth:`init`; every forward runs under the mesh, so BatchNorm statistics
 are the global batch's; each rank's gradients of its local mean loss, and
 the losses, are averaged over the data group in one flat all-reduce before
 the clip, so every rank steps the same gradient; :meth:`test` sums each
-batch's per-frame error and count over the group.  Rank 0 alone writes
-(checkpoints, callbacks, the profile trace), the others waiting at a
-barrier after a checkpoint; every rank reads in :meth:`recover`.  A mesh
-with a ``graph`` or ``model`` axis above 1 raises: the engine runs neither
-(ROADMAP items 4b and 4c).
+batch's per-frame error and count over the data group.  Under a ``graph``
+or ``model`` axis above 1 each rank runs the model on its shard of the
+activations (:mod:`..models.layers`) and gets the whole output: each rank
+back-propagates ``total / (graph * model)`` (the gathers at the model's
+exit sum the identical cotangents of the ranks that share a data index),
+the flat all-reduce runs over all the mesh's ranks and divides by
+``data``, and each rank's block of the running BatchNorm statistics is
+gathered after the step (:meth:`_gather_statistics`), so every rank holds
+the whole, equal state.  Rank 0 alone writes (checkpoints, callbacks, the
+profile trace), the others waiting at a barrier after a checkpoint; every
+rank reads in :meth:`recover`.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch.distributed as dist
 
 from ..data import transforms as tfm
 from ..models import infer
+from ..models.layers import JointBatchNorm
 from ..parallel.mesh import activation_sharding_context
 from ..utils import profiling
 from ..utils.bridge import load_flax_variables
@@ -93,20 +100,13 @@ class PredictionEngine:
     clip, detect_anomaly, solver, callbacks, profile and profile_steps.
     ``prng_impl`` names a JAX PRNG and has no meaning here; it is accepted
     and ignored.  ``mesh`` (a :class:`..parallel.mesh.Mesh`, or None for
-    one process) makes the engine data parallel over the mesh's data
-    group.
+    one process) makes the engine data parallel over the mesh's data group
+    and splits the model's activations over its graph and model axes.
     """
 
     def __init__(self, config: Dict[str, Any], model: torch.nn.Module,
                  logger=None, device: str | torch.device = "cuda",
                  bone_incidence=None, mesh=None):
-        if mesh is not None:
-            for axis, item in (("graph", "4b"), ("model", "4c")):
-                if mesh.shape.get(axis, 1) > 1:
-                    raise NotImplementedError(
-                        f"parallel: {axis}={mesh.shape[axis]} over several "
-                        f"processes: the engine runs the data axis only "
-                        f"(the {axis} axis is ROADMAP Queue 1 item {item})")
         self.mesh = mesh
         #: whether this process writes the run's files (rank 0, or the only
         #: process)
@@ -159,20 +159,20 @@ class PredictionEngine:
 
     def init(self, seed: int = 777) -> torch.nn.Module:
         """Draw the model's parameters from ``seed`` (under a mesh, rank
-        0's, broadcast to the data group), seed the dropout generator with
-        ``seed + 1`` plus the rank's data index, build the optimizer (Adam,
-        or the ``solver`` block's); eval mode."""
+        0's, broadcast to every rank of the mesh), seed the dropout
+        generator with ``seed + 1`` plus the rank's data index (equal on the
+        ranks of one data index), build the optimizer (Adam, or the
+        ``solver`` block's); eval mode."""
         gen = torch.Generator().manual_seed(seed)
         self.model.cpu().reset_parameters(gen)
         self.model.to(self.device).eval()
         rank = 0
         if self.mesh is not None:
-            group, rank = self.mesh.group("data"), self.mesh.index("data")
-            src = dist.get_global_rank(group, 0)
+            rank = self.mesh.index("data")
             with torch.no_grad():
                 for t in list(self.model.parameters()) + list(
                         self.model.buffers()):
-                    dist.broadcast(t, src=src, group=group)
+                    dist.broadcast(t, src=0, group=self.mesh.all_group)
         self.generator = torch.Generator(self.device).manual_seed(
             seed + 1 + rank)
         dropout = getattr(self.model, "do_in", None)
@@ -331,7 +331,8 @@ class PredictionEngine:
                 total = (total + functools.reduce(torch.add,
                                                   losses_inv.values())) / 2
             self.model.zero_grad(set_to_none=True)
-            total.backward()
+            split = self._split()
+            (total / split if split > 1 else total).backward()
         for p in self.model.parameters():   # optax updates every parameter
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -341,15 +342,27 @@ class PredictionEngine:
             self._average_over_data(out)
         return out
 
+    def _split(self) -> int:
+        """``graph * model``: the ranks that share a data index."""
+        return 1 if self.mesh is None else self.mesh.size // \
+            self.mesh.shape["data"]
+
     def _average_over_data(self, losses: Dict[str, torch.Tensor]) -> None:
         """Average every gradient and ``losses`` (in place) over the data
         group: one flat all-reduce of the gradients and losses, divided by
-        the group's size."""
+        the group's size.  Under a graph or model axis the all-reduce runs
+        over every rank of the mesh: each rank holds its share of the
+        gradient of ``total / (graph * model)`` and the losses of its data
+        index, which enter divided by ``graph * model``; then the running
+        statistics are gathered (:meth:`_gather_statistics`)."""
+        split = self._split()
         grads = [p.grad for p in self.model.parameters()]
-        flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [v.reshape(1).to(grads[0].dtype)
-                            for v in losses.values()])
-        dist.all_reduce(flat, group=self.mesh.group("data"))
+        vals = [v.reshape(1).to(grads[0].dtype) for v in losses.values()]
+        if split > 1:
+            vals = [v / split for v in vals]
+        flat = torch.cat([g.reshape(-1) for g in grads] + vals)
+        dist.all_reduce(flat, group=self.mesh.group("data") if split == 1
+                        else self.mesh.all_group)
         flat /= self.mesh.shape["data"]
         i = 0
         for g in grads:
@@ -358,6 +371,48 @@ class PredictionEngine:
         for name, v in losses.items():
             losses[name] = flat[i].to(v.dtype)
             i += 1
+        if split > 1:
+            self._gather_statistics()
+
+    @torch.no_grad()
+    def _gather_statistics(self) -> None:
+        """Make every JointBatchNorm's running statistics whole on every
+        rank: a rank's train-mode forward updated its (joint, channel)
+        block alone (:class:`..models.layers.JointBatchNorm`).  One
+        all-gather over the mesh's ranks of each rank's blocks, every
+        block's rows padded to the graph split's block size."""
+        mesh = self.mesh
+        bns = [m for m in self.model.modules()
+               if isinstance(m, JointBatchNorm)]
+        g = mesh.shape.get("graph", 1)
+
+        def block(bn, rank):
+            c = mesh.coords_of(rank)
+            return (mesh.joints(bn.mean.shape[0], c["graph"]),
+                    mesh.channels(bn.mean.shape[1], c["model"]))
+
+        pieces = []
+        me = dist.get_rank(mesh.all_group)
+        for bn in bns:
+            rows, cols = block(bn, me)
+            piece = torch.stack([bn.mean[rows, cols], bn.var[rows, cols]])
+            pad = -(-bn.mean.shape[0] // g) - piece.shape[1]
+            pieces.append(torch.cat([piece, piece.new_zeros(
+                (2, pad, piece.shape[2]))], 1).reshape(-1))
+        flat = torch.cat(pieces)
+        every = flat.new_empty(mesh.size * flat.numel())
+        dist.all_gather_into_tensor(every, flat, group=mesh.all_group)
+        every = every.view(mesh.size, -1)
+        for rank in range(mesh.size):
+            i = 0
+            for bn, piece in zip(bns, pieces):
+                rows, cols = block(bn, rank)
+                got = every[rank, i:i + piece.numel()].view(
+                    2, -1, cols.stop - cols.start)
+                n = rows.stop - rows.start
+                bn.mean[rows, cols] = got[0, :n]
+                bn.var[rows, cols] = got[1, :n]
+                i += piece.numel()
 
     def train_step(self, inputs, inputs_inv, targets, time_tsfm=None,
                    scale_tsfm=None, weights=None) -> Dict[str, torch.Tensor]:
@@ -563,7 +618,7 @@ class PredictionEngine:
                                 self.model, self.optimizer, self.generator,
                                 payload)
         if self.mesh is not None:
-            dist.barrier(group=self.mesh.group("data"))
+            dist.barrier(group=self.mesh.all_group)
 
     def recover(self, checkpoint_path: str,
                 model_only: bool = False) -> Tuple[int, float]:

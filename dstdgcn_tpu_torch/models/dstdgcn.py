@@ -15,6 +15,8 @@ from typing import Any, Optional, Union
 import torch
 from torch import nn
 
+from ..parallel import mesh as pmesh
+from ..parallel.collectives import gather_channels, gather_joints
 from . import autotune
 from .layers import (DSTDGCB, Dropout, JointBatchNorm, PReLU, STGCNNLayer,
                      reset_all)
@@ -36,7 +38,11 @@ class DSTDGCN(nn.Module):
     the resolved values.  ``remat`` (``True`` or ``"dots"``) recomputes
     every DSTD-GC op in the backward pass (:class:`.layers.DSTDGC`).
     ``bn_axis_name`` names the mesh axis every BatchNorm reduces its
-    training statistics over (:class:`.layers.JointBatchNorm`).
+    training statistics over (:class:`.layers.JointBatchNorm`).  Under a
+    graph or model axis (the engine's active mesh) every rank takes the
+    whole input, keeps its joint range after the motion decomposition, runs
+    the layers on its shard and gathers the output at the exit, so the
+    caller sees the whole output on every rank.
     Parameters start from
     ``torch.Generator().manual_seed(seed)``; call :meth:`reset_parameters`
     with another generator to draw them again.  Dropout draws its masks from
@@ -86,7 +92,8 @@ class DSTDGCN(nn.Module):
         self.prelu = PReLU()
         # the engine hands over a generator on its device, seeded seed + 1
         self.do_in = Dropout(st_gcnn_dropout,
-                             torch.Generator().manual_seed(seed + 1))
+                             torch.Generator().manual_seed(seed + 1),
+                             features=(v, f))
         for i in range(num_layers):
             self.add_module(f"encoder_{i}",
                             STGCNNLayer(f, f, residual=True, **common))
@@ -127,12 +134,21 @@ class DSTDGCN(nn.Module):
         # frame; channels = (position, position - last)
         residual = x[:, -1:]
         h = torch.cat([x, x - residual], dim=-1)
+        mesh = pmesh.splitting_mesh()
+        if mesh is not None:    # this rank's joints from here on
+            rows = mesh.joints(v)
+            h, residual = h[:, :, rows], residual[:, :, rows]
         h = self.do_in(self.prelu(self.bn_in(self.conv_st_in(h))))
         for i in range(self.num_layers):
             h = getattr(self, f"encoder_{i}")(h)
             h = getattr(self, f"encoder_bn_{i}")(h)
             h = getattr(self, f"encoder_prelu_{i}")(h)
-        return self.conv_st_out(h) + residual
+        if mesh is None:
+            return self.conv_st_out(h) + residual
+        # the whole output on every rank, as GSPMD gives it to the loss
+        out = gather_channels(mesh, self.conv_st_out(h),
+                              self.input_channels // 2)
+        return gather_joints(mesh, out + residual, v)
 
 
 _REGISTRY = {

@@ -9,6 +9,17 @@ empty; :meth:`reset_parameters` fills them from an explicit
 
 Train or eval follows ``module.training`` (``model.train()`` /
 ``model.eval()``) instead of a ``train=`` argument.
+
+Under an active mesh with a ``graph`` or ``model`` axis above 1
+(:func:`..parallel.mesh.splitting_mesh`; the engine enters it) each layer
+works on this rank's shard of the activation: its joint range
+(``mesh.joints``) and, for a width the model axis divides, its column range
+(``mesh.channels``, ``param_sharding``'s rule); a width the axis does not
+divide is computed whole on every rank.  Parameters and statistics stay
+whole; a layer uses their rows and columns.  A layer that mixes channels
+gathers its input's channels first; a DSTD-GC op mixes joints as its
+formulation asks (:class:`DSTDGC`).  The legacy ``STGCNNLayer(refine=
+False)``, which no config uses, takes no split.
 """
 
 from __future__ import annotations
@@ -27,7 +38,9 @@ from ..graphs import temporal as tg
 from ..kernels import fused as fk
 from ..ops import dstd as ops
 from ..parallel import mesh as pmesh
-from ..parallel.collectives import all_reduce_sum
+from ..parallel import shard
+from ..parallel.collectives import (all_reduce_sum, gather_channels,
+                                    gather_joints)
 
 __all__ = ["Dense", "Conv", "JointBatchNorm", "PReLU", "Dropout", "DSTDGC",
            "DSTDGCB", "ConvTemporalGraphical", "STGCNNLayer", "reset_all"]
@@ -46,7 +59,9 @@ def _kaiming_out(p: torch.Tensor, fan_out: int, g: torch.Generator) -> None:
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with flax's ``(Ci, Co)`` kernel layout."""
+    """``y = x @ kernel + bias`` with flax's ``(Ci, Co)`` kernel layout;
+    under a model axis the input's channels gathered and this rank's output
+    columns computed."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -58,7 +73,17 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        mesh = pmesh.splitting_mesh()
+        if mesh is None:
+            return x @ self.kernel + self.bias
+        x = gather_channels(mesh, x, self.kernel.shape[0])
+        cols = mesh.channels(self.kernel.shape[1])
+        return x @ self.kernel[:, cols] + self.bias[cols]
+
+
+def _shard(mesh, y: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a whole (N, T, V, C) activation."""
+    return y[:, :, mesh.joints(y.shape[2]), mesh.channels(y.shape[3])]
 
 
 class Conv(nn.Module):
@@ -112,7 +137,12 @@ class JointBatchNorm(nn.Module):
     gradient flowing back through the reduction: over the mesh's
     ``axis_name`` group when one is named (a ``ValueError`` without such a
     mesh), else over its data group when that has more than one rank
-    (:func:`..parallel.mesh.stats_group`).
+    (:func:`..parallel.mesh.stats_group`).  Under a graph or model axis the
+    layer normalizes this rank's (joint, channel) block with those rows and
+    columns of ``scale``, ``bias``, ``mean`` and ``var``, and updates that
+    block of the running statistics alone (the engine gathers the blocks
+    after a step); the statistics are per (joint, channel), so nothing is
+    reduced over ``graph`` or ``model``.
     """
 
     def __init__(self, joints: int, channels: int, momentum: float = 0.1,
@@ -136,8 +166,16 @@ class JointBatchNorm(nn.Module):
         self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, bias, run_mean, run_var = self.scale, self.bias, self.mean, \
+            self.var
+        mesh = pmesh.splitting_mesh()
+        if mesh is not None:    # this rank's (joint, channel) block
+            block = (mesh.joints(scale.shape[0]),
+                     mesh.channels(scale.shape[1]))
+            scale, bias, run_mean, run_var = (
+                t[block] for t in (scale, bias, run_mean, run_var))
         if self.training:
-            xf = x.to(torch.promote_types(x.dtype, self.scale.dtype))
+            xf = x.to(torch.promote_types(x.dtype, scale.dtype))
             cnt = x.shape[0] * x.shape[1]
             mean = xf.mean(dim=(0, 1))
             mean_sq = (xf * xf).mean(dim=(0, 1))
@@ -148,15 +186,15 @@ class JointBatchNorm(nn.Module):
                     torch.stack([mean, mean_sq]), group) / size
                 cnt = cnt * size
             var = mean_sq - mean * mean
-            with torch.no_grad():
+            with torch.no_grad():   # in place: a block is a view
                 m = self.momentum
                 unbiased = var * (cnt / max(cnt - 1, 1))
-                self.mean.mul_(1 - m).add_(m * mean)
-                self.var.mul_(1 - m).add_(m * unbiased)
+                run_mean.mul_(1 - m).add_(m * mean)
+                run_var.mul_(1 - m).add_(m * unbiased)
         else:
-            mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.eps) * self.scale
-        out = (x - mean) * inv + self.bias
+            mean, var = run_mean, run_var
+        inv = torch.rsqrt(var + self.eps) * scale
+        out = (x - mean) * inv + bias
         return out if self.dtype is None else out.to(self.dtype)
 
 
@@ -184,13 +222,20 @@ class Dropout(nn.Module):
 
     In train mode each element is kept with probability ``1 - p`` and scaled
     by ``1 / (1 - p)``.  The mask is drawn on the generator's device and
-    moved to the input's; torch's global generator is never used.
+    moved to the input's; torch's global generator is never used.  Under a
+    graph or model axis the mask of the whole (N, T, ``features``)
+    activation is drawn, as one rank would, and the rank keeps its block:
+    the ranks of one data index draw from equal generators, so their blocks
+    tile one mask.
     """
 
-    def __init__(self, p: float, generator: torch.Generator):
+    def __init__(self, p: float, generator: torch.Generator,
+                 features: Tuple[int, int]):
         super().__init__()
         self.p = p
         self.generator = generator
+        #: the whole (V, C) of the input, which a split mask needs
+        self.features = tuple(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
@@ -198,7 +243,13 @@ class Dropout(nn.Module):
         if self.p >= 1:
             return torch.zeros_like(x)
         g = self.generator
-        keep = torch.rand(x.shape, generator=g, device=g.device) >= self.p
+        mesh = pmesh.splitting_mesh()
+        if mesh is None:
+            keep = torch.rand(x.shape, generator=g, device=g.device) >= self.p
+        else:
+            keep = _shard(mesh, torch.rand(
+                x.shape[:2] + self.features, generator=g,
+                device=g.device) >= self.p)
         return x * keep.to(device=x.device, dtype=x.dtype) / (1 - self.p)
 
 
@@ -221,6 +272,11 @@ class DSTDGC(nn.Module):
     see into, so ``"dots"`` recomputes it as ``True`` does: the forward
     kernel runs again in the backward pass, and the backward kernel reads
     the same saved inputs.  No dropout or BatchNorm sits in the region.
+
+    Under a graph or model axis the op runs on this rank's shard
+    (:func:`_split_op`); under remat its collectives sit inside the
+    recomputed region and run again in the backward pass, in the same order
+    on every rank.
     """
 
     def __init__(self, in_channels: int, out_channels: int, ref_len: int,
@@ -269,12 +325,16 @@ class DSTDGC(nn.Module):
                  else getattr(torch, self.compute_dtype))
         args = (x, base_adj, alpha, self.wf, self.bf, self.wm1, self.bm1,
                 self.wm2, self.bm2, self.wrm, self.brm, mask)
-        if self.routed():
+        routed = self.routed()
+        if routed:
             fn = fk.dstd_spatial if self.mode == "spatial" else \
                 fk.dstd_temporal
         else:
             fn = ops.dstd_spatial if self.mode == "spatial" else \
                 ops.dstd_temporal
+        mesh = pmesh.splitting_mesh()
+        if mesh is not None:
+            fn = functools.partial(_split_op, mesh, self.mode, fn, routed)
         if not (self.remat and torch.is_grad_enabled()):
             return fn(*args, agg=self.agg, dtype=dtype)
         context_fn = checkpoint.noop_context_fn
@@ -284,6 +344,43 @@ class DSTDGC(nn.Module):
         return checkpoint.checkpoint(fn, *args, agg=self.agg, dtype=dtype,
                                      use_reentrant=False,
                                      context_fn=context_fn)
+
+
+def _split_op(mesh, mode, op, routed, x, base, alpha, wf, bf, wm1, bm1, wm2,
+              bm2, wrm, brm, mask=None, agg="right", dtype=None):
+    """One DSTD-GC op ``op`` (kernel wrapper or plain) on this rank's shard
+    of x under a graph or model axis; returns the rank's shard of the
+    output.
+
+    Model axis: the input's channels are gathered, q and k come from the
+    whole input with the replicated weights, and the rank computes its
+    output columns with ``wf[..., cols]`` and ``bf[..., cols]`` (all of
+    them when the axis does not divide the width).  Graph axis: the plain
+    float32 op runs edge-partitioned on the rank's joints
+    (:mod:`..parallel.shard`, for its mode and ``agg``); the kernel path
+    (``routed``), a compute dtype or a mask gather the joints, run the op
+    on all of them as GSPMD runs a custom call on whole operands, and keep
+    the rank's rows: the gather's backward sums every rank's share of
+    ``dx``.
+    """
+    ci, co = wf.shape[1], wf.shape[2]
+    x = gather_channels(mesh, x, ci)
+    cols = mesh.channels(co)
+    wf, bf = wf[..., cols], bf[..., cols]
+    if routed:              # the kernels read contiguous operands
+        wf, bf = wf.contiguous(), bf.contiguous()
+    v = base.shape[-1] if mode == "spatial" else wrm.shape[-1]
+    rest = (base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm)
+    if mesh.shape.get("graph", 1) == 1:
+        return op(x.contiguous() if routed else x, *rest, mask, agg=agg,
+                  dtype=dtype)
+    if not routed and dtype is None and mask is None:
+        fn = shard.dstd_spatial_edge_partitioned if mode == "spatial" \
+            else shard.dstd_temporal_edge_partitioned
+        return fn(mesh, x, *rest, agg=agg)
+    whole = gather_joints(mesh, x, v).contiguous()
+    return op(whole, *rest, mask, agg=agg, dtype=dtype)[:, :,
+                                                        mesh.joints(v)]
 
 
 def _save_dots(ctx, op, *args, **kwargs):

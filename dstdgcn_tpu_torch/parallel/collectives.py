@@ -16,6 +16,13 @@ transpose of its forward, as JAX transposes ``psum``, ``all_gather``,
 Gathers and scatters run along any dimension ``dim``: the tensor is moved so
 that ``dim`` leads, which is the layout ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor`` concatenate and split along.
+
+:func:`gather_blocks` and :func:`scatter_blocks` take a dimension split
+unevenly (``mesh.split``: blocks of ``ceil(size / n)``, the last ones
+shorter): a short block is padded with zeros for the transfer and the
+padding dropped after, so it enters no result.  :func:`gather_joints` and
+:func:`gather_channels` make a layer's activation whole along the mesh's
+``graph`` or ``model`` axis.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce_sum", "all_gather", "reduce_scatter", "RingShift"]
+__all__ = ["all_reduce_sum", "all_gather", "reduce_scatter", "RingShift",
+           "gather_blocks", "scatter_blocks", "gather_joints",
+           "gather_channels"]
 
 
 def _lead(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -107,6 +116,57 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     a rank in rank order; this rank's block (``psum_scatter(...,
     tiled=True)``)."""
     return _ReduceScatter.apply(x, dim, group)
+
+
+def _padded(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``x`` with zeros appended along ``dim`` up to ``size``."""
+    short = size - x.shape[dim]
+    if not short:
+        return x
+    pad = list(x.shape)
+    pad[dim] = short
+    return torch.cat([x, x.new_zeros(pad)], dim)
+
+
+def gather_blocks(x: torch.Tensor, dim: int, group,
+                  size: int) -> torch.Tensor:
+    """:func:`all_gather` of a dimension of ``size`` split unevenly over
+    the ranks of ``group`` (``x`` is this rank's block): every block padded
+    to ``ceil(size / n)`` for the transfer, the padding dropped after.  Its
+    backward sums each rank's block of the cotangent over the ranks."""
+    n = dist.get_world_size(group)
+    block = -(-size // n)
+    out = all_gather(_padded(x, dim, block), dim, group)
+    return out if n * block == size else out.narrow(dim, 0, size)
+
+
+def scatter_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`reduce_scatter` of ``x`` whose dimension ``dim`` is split
+    unevenly over the ranks of ``group``: zeros appended up to ``n`` blocks
+    of ``ceil(size / n)``, this rank's block of the sum without them."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim]
+    block = -(-size // n)
+    out = reduce_scatter(_padded(x, dim, n * block), dim, group)
+    keep = max(min(size - me * block, block), 0)
+    return out if keep == block else out.narrow(dim, 0, keep)
+
+
+def gather_joints(mesh, x: torch.Tensor, v: int) -> torch.Tensor:
+    """The (N, T, V, C) activation whose rank holds its joint range
+    (``mesh.joints(v)``) made whole over the mesh's graph group."""
+    if mesh.shape.get("graph", 1) == 1:
+        return x
+    return gather_blocks(x, 2, mesh.group("graph"), v)
+
+
+def gather_channels(mesh, x: torch.Tensor, c: int) -> torch.Tensor:
+    """The activation of ``c`` channels made whole over the mesh's model
+    group when the rank holds its column range (``mesh.channels(c)``); as
+    it is when it holds all ``c``."""
+    if x.shape[-1] == c:
+        return x
+    return all_gather(x, x.dim() - 1, mesh.group("model"))
 
 
 def _p2p(sends: Sequence[torch.Tensor], recvs: Sequence[torch.Tensor],

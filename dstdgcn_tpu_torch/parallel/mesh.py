@@ -10,50 +10,78 @@ code:
 JAX (``parallel/mesh.py``)   port
 ==========================  ===============================================
 ``make_mesh``               :func:`make_mesh`: a :class:`Mesh` of named
-                            process groups, the same shape rules
+                            process groups, the same shape rules, and a
+                            group of all its ranks (``all_group``)
 ``batch_sharding``          the loader's split of every global batch by
-                            process (``data/loader.py``)
+                            the rank's data index (``runner/base.py``)
 ``replicated``              one broadcast of the parameters and statistics
-                            from rank 0 after ``engine.init``
+                            from rank 0 over the mesh after ``engine.init``
 ``place_tree``              the same broadcast
 ``activation_sharding_     :func:`activation_sharding_context`: the active
-context``                   mesh, which ``JointBatchNorm`` (statistics over
-                            the data group) and ``per_chip_batch`` read
-``constrain_activation``    nothing: a rank's activations are its shard
+context``                   mesh, which the model's layers read
+``activation_spec``         :meth:`Mesh.joints` (the rank's joint range on
+                            ``graph``) and :meth:`Mesh.channels` (its
+                            column range on ``model``)
+``constrain_activation``    the layers themselves: each keeps the rank's
+                            joints and columns, gathers what an op needs
+                            whole (``parallel/collectives.py``) and the
+                            model gathers its output at the exit
 ``param_sharding``          :func:`param_sharding`: the same rule by leaf
-                            name, as specs
+                            name, as specs; the layers use those column
+                            slices of parameters kept whole on every rank
 ==========================  ===============================================
 
-The engine (``engine/engine.py``) averages gradients and losses over the
-data group, which GSPMD does by making every array global.
+A split that does not divide its dimension is GSPMD's: blocks of
+``ceil(size / n)``, the last ones shorter (:func:`split`); V = 25 over
+``graph: 2`` gives joints 0-12 and 13-24.  Transfers pad a short block to
+the block size and drop the padding after, so a padded joint enters no
+score, sum or statistic.  A channel width that ``model`` does not divide
+is replicated: every rank computes it whole (``param_sharding``'s rule).
+
+The engine (``engine/engine.py``) reduces gradients over all the mesh's
+ranks and losses over the data group, which GSPMD does by making every
+array global.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from collections.abc import Mapping
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "activation_sharding_context",
-           "active_mesh", "stats_group", "param_sharding"]
+__all__ = ["Mesh", "make_mesh", "split", "activation_sharding_context",
+           "active_mesh", "splitting_mesh", "stats_group", "param_sharding"]
 
 #: the mesh axes, outermost first: ranks are numbered row major over them
 AXES = ("data", "graph", "model")
+
+
+def split(size: int, parts: int) -> List[Tuple[int, int]]:
+    """The ``(lo, hi)`` range of each of ``parts`` ranks along a dimension
+    of ``size``, as GSPMD splits it: blocks of ``ceil(size / parts)``, the
+    last ones shorter, or empty when ``parts`` blocks overshoot."""
+    block = -(-size // parts)
+    return [(min(i * block, size), min((i + 1) * block, size))
+            for i in range(parts)]
 
 
 class Mesh:
     """Named process groups over the ranks ``0 .. size - 1``, row major over
     ``axis_names``, like ``jax.sharding.Mesh`` over devices: ``shape`` maps
     each axis to its size, :meth:`group` gives this rank's group along an
-    axis and :meth:`index` its position in it (``axis_index``)."""
+    axis and :meth:`index` its position in it (``axis_index``);
+    ``all_group`` holds every rank of the mesh, in rank order."""
 
     def __init__(self, shape: Dict[str, int], groups: Dict[str, Any],
-                 coords: Dict[str, int]):
+                 coords: Dict[str, int], all_group=None):
         self.shape = dict(shape)
         self.axis_names: Tuple[str, ...] = tuple(shape)
+        self.size = math.prod(self.shape.values())
+        self.all_group = all_group
         self._groups = groups
         self._coords = coords
 
@@ -64,6 +92,35 @@ class Mesh:
     def index(self, axis: str) -> int:
         """This rank's position along ``axis``."""
         return self._coords[axis]
+
+    @property
+    def splits(self) -> bool:
+        """Whether activations are split: ``graph`` or ``model`` above 1."""
+        return self.shape.get("graph", 1) > 1 or self.shape.get("model",
+                                                                1) > 1
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of mesh rank ``rank`` (row major)."""
+        g, m = self.shape.get("graph", 1), self.shape.get("model", 1)
+        return dict(data=rank // (g * m), graph=(rank // m) % g,
+                    model=rank % m)
+
+    def joints(self, v: int, index: Optional[int] = None) -> slice:
+        """The joint range of graph index ``index`` (default this rank's)
+        among ``v`` joints: all of them without a graph axis."""
+        g = self.shape.get("graph", 1)
+        i = self.index("graph") if index is None else index
+        return slice(*split(v, g)[i]) if g > 1 else slice(0, v)
+
+    def channels(self, c: int, index: Optional[int] = None) -> slice:
+        """The column range of model index ``index`` (default this rank's)
+        among ``c`` channels: all of them without a model axis or when the
+        axis does not divide ``c`` (the width is replicated)."""
+        m = self.shape.get("model", 1)
+        if m == 1 or c % m:
+            return slice(0, c)
+        i = self.index("model") if index is None else index
+        return slice(i * (c // m), (i + 1) * (c // m))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -112,7 +169,9 @@ def make_mesh(data: Optional[int] = None, graph: int = 1,
             group = dist.new_group(ranks)
             if mine is not None and rank in ranks:
                 groups[axis] = group
-    return Mesh(shape, groups, mine or {})
+    everyone = dist.new_group(list(range(data * graph * model)))
+    return Mesh(shape, groups, mine or {},
+                everyone if mine is not None else None)
 
 
 def _product(sizes):
@@ -126,8 +185,9 @@ def _product(sizes):
 
 # -- the active mesh ---------------------------------------------------------
 # The engine enters the mesh around every forward pass, so that model code
-# stays mesh-agnostic: JointBatchNorm reduces its statistics over the mesh's
-# data group and models/autotune.py reads the data-axis size.
+# takes no mesh argument: JointBatchNorm reduces its statistics over the
+# mesh's data group, models/autotune.py reads the data-axis size, and under
+# a graph or model axis every layer keeps the rank's joints and columns.
 
 _ACTIVE_MESH: contextvars.ContextVar[Optional[Mesh]] = \
     contextvars.ContextVar("dstdgcn_torch_active_mesh", default=None)
@@ -145,6 +205,14 @@ def activation_sharding_context(mesh: Optional[Mesh]):
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE_MESH.get()
+
+
+def splitting_mesh() -> Optional[Mesh]:
+    """The active mesh when it splits activations (``Mesh.splits``), else
+    None: the layers' switch between the single-rank code and the split
+    one."""
+    mesh = _ACTIVE_MESH.get()
+    return mesh if mesh is not None and mesh.splits else None
 
 
 def stats_group(axis_name: Optional[str]):
@@ -188,9 +256,10 @@ def param_sharding(mesh: Mesh, tree):
     ``tree`` is a nested dict (a flax-style tree of parameters, statistics
     or Adam moments) or a flat dict of dotted names (``named_parameters``,
     ``state_dict``, or an optimizer's moments keyed by the parameters'
-    names); the result has the same structure.  The engine does not run a
-    model axis (ROADMAP item 4c): the specs say which dimension would
-    shard.
+    names); the result has the same structure.  The engine keeps every
+    leaf whole on every rank; under a model axis each layer uses the
+    column slice its spec names (:meth:`Mesh.channels`), and a leaf the
+    axis does not divide is used whole.
     """
     m = mesh.shape.get("model", 1)
 

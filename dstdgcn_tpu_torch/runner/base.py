@@ -8,7 +8,8 @@ dispatches on ``mode``; the visualize modes render test sequences
 (:meth:`BaseRunner.run_visualize`).  The optional ``parallel`` block
 (``data``, ``graph``, ``model``) builds the process mesh by the JAX
 runner's rules (:meth:`BaseRunner._build_mesh`), and every loader takes
-this process's share of each global batch (:meth:`BaseRunner._loader`).
+the share of each global batch of this rank's data index
+(:meth:`BaseRunner._loader`).
 """
 
 from __future__ import annotations
@@ -108,11 +109,18 @@ class BaseRunner:
 
     def _loader(self, dataset, batch_size, shuffle) -> Loader:
         """A loader of ``dataset`` that takes this process's share of
-        each global batch of ``batch_size``; ragged last batches are
+        each global batch of ``batch_size``: under a mesh the share of the
+        rank's data index (``mesh.index("data")`` of ``mesh.shape["data"]``),
+        so that ranks which differ only along ``graph`` or ``model`` get the
+        same batch; without one the process's.  Ragged last batches are
         dropped under several processes, so that every share is equal."""
         pi, pc = process_info()
+        drop = pc > 1
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is not None:
+            pi, pc = mesh.index("data"), mesh.shape["data"]
         return Loader(dataset.arrays(), batch_size, shuffle=shuffle,
-                      drop_last=pc > 1, process_index=pi, process_count=pc)
+                      drop_last=drop, process_index=pi, process_count=pc)
 
     def save_files(self) -> None:
         for path in list(self.config["save"]["path"].keys()):

@@ -186,3 +186,55 @@ def test_two_process_main_matches_one_process(tmp_path):
     log = (two / "log.txt").read_text()
     assert "rank: 0 of 2" in log and "rank: 1 of 2" not in log
     assert "process mesh: {'data': 2, 'graph': 1}" in log
+
+
+def _files_under(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, names in os.walk(root) for f in names)
+
+
+def test_two_process_graph_axis_main_matches_one_process(tmp_path):
+    """``synthetic_h36m_fast_graph_train`` (the fast variant with the joint
+    axis over two ranks) cut to 8 features, 1 layer, dropout 0 and 128
+    train and 64 test sequences, launched as two ``main`` processes, each
+    with a run directory of its own: rank 0's ``training_loss.csv`` within
+    1e-4 relative of one process's, and rank 1 writes no file."""
+    import yaml
+    cfg = configs.synthetic_h36m_fast_graph_train()
+    cfg["model"]["dstdgcn_fast"].update(num_feature=8, num_layers=1,
+                                        st_gcnn_dropout=0.0)
+    cfg["dataset"]["train"]["synthetic"]["num_sequences"] = 128
+    cfg["dataset"]["test"]["synthetic"]["num_sequences"] = 64
+    config = tmp_path / "graph.yaml"
+    config.write_text(yaml.safe_dump(cfg))
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    dirs = [tmp_path / f"rank{r}" for r in range(2)] + [tmp_path / "one"]
+    procs = [_main(config, dirs[r], dict(
+        env, DSTDGCN_COORDINATOR=f"file://{tmp_path}/rendezvous",
+        DSTDGCN_NUM_PROCESSES="2", DSTDGCN_PROCESS_ID=str(r)))
+        for r in range(2)]
+    procs.append(_main(config, dirs[2], env))
+    deadline = time.monotonic() + LAUNCH_TIMEOUT
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, p, log in zip(("rank 0", "rank 1", "one process"), procs,
+                            logs):
+        assert p.returncode == 0, f"{name} failed:\n{log[-6000:]}"
+    head2, rows2 = _read_csv(dirs[0] / "training_loss.csv")
+    head1, rows1 = _read_csv(dirs[2] / "training_loss.csv")
+    assert head2 == head1 and rows2.shape == rows1.shape == (3, 8)
+    np.testing.assert_allclose(rows2, rows1, rtol=1e-4)
+    for ckpt in ("last.ckpt", "best.ckpt"):
+        assert (dirs[0] / "checkpoints" / ckpt).is_file()
+    assert _files_under(dirs[1]) == []
+    assert "process mesh: {'data': 1, 'graph': 2}" in (
+        dirs[0] / "log.txt").read_text()

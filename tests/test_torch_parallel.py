@@ -10,8 +10,8 @@ against the port's plain ops.  Two launches serve every multi-rank test:
 
 * 2 ranks: the three ``shard.py`` ops on a graph=2 mesh; ``JointBatchNorm``
   over the data group (with and without ``axis_name``); a data-parallel
-  train step of a small model; the ``graph`` and ``model`` axes refused
-  through the runner (ROADMAP items 4b, 4c);
+  train step of a small model; a train step with the ``graph`` and with
+  the ``model`` axis built through the runner;
 * 4 ranks: the three ops on a graph=4 mesh and the order of the ring's
   posts, waits and round computes (the counterpart of
   ``dstdgcn_tpu/parallel/hlo_check.py``).
@@ -267,25 +267,33 @@ def _step_results(mesh, flat_vars):
     return res
 
 
-def _refusals(tmp, rank):
-    """The runner with ``parallel: {graph: 2}`` and ``{model: 2}``: the
-    NotImplementedError messages."""
+def _axis_steps(tmp, rank):
+    """The runner with ``parallel: {graph: 2}`` and ``{model: 2}`` (the
+    training slice narrowed to 8 features and 1 layer, dropout on): the
+    mesh it built, the losses of one train step on a seeded batch and the
+    state after it."""
     from dstdgcn_tpu_torch import configs
     from dstdgcn_tpu_torch.runner import get_runner
     from dstdgcn_tpu_torch.utils.config import EasyDict, resolve
-    msgs = {}
+    rng = np.random.RandomState(9)
+    batch = rng.randn(4, 35, 66).astype(np.float32)
+    targets = rng.randn(4, 35, 66).astype(np.float32)
+    res, extra = {}, {}
     for axis in ("graph", "model"):
         cfg = configs.synthetic_h36m_train()
         cfg["parallel"] = {axis: 2}
         cfg["model"]["dstdgcn"].update(num_feature=8, num_layers=1)
-        cfg["save"]["path"]["base"] = str(tmp / f"refused_{axis}_{rank}")
+        cfg["save"]["path"]["base"] = str(tmp / f"axis_{axis}_{rank}")
         opts = EasyDict(resolve(cfg))
-        opts["logger"] = logging.getLogger(f"refused_{rank}")
-        try:
-            get_runner("synthetic", opts, device="cpu")
-        except NotImplementedError as e:
-            msgs[axis] = str(e)
-    return msgs
+        opts["logger"] = logging.getLogger(f"axis_{rank}")
+        eng = get_runner("synthetic", opts, device="cpu").engine
+        eng.init()
+        losses = eng.train_step(batch, batch[:, ::-1].copy(), targets)
+        extra[axis] = dict(mesh=eng.mesh.shape,
+                           losses={k: float(v) for k, v in losses.items()})
+        res.update({f"axis/{axis}/{k}": v.numpy().copy()
+                    for k, v in eng.model.state_dict().items()})
+    return res, extra
 
 
 def _rank_main(scenario, tmp):
@@ -305,7 +313,8 @@ def _rank_main(scenario, tmp):
         res.update(_step_results(dmesh, {
             k.split("/", 1)[1]: v for k, v in inputs.items()
             if k.startswith("var/")}))
-        extra["refusals"] = _refusals(tmp, rank)
+        axes, extra["axes"] = _axis_steps(tmp, rank)
+        res.update(axes)
     else:
         extra["ring_order"] = _ring_order(make_mesh(graph=world),
                                           cases["spatial_ring"])
@@ -523,10 +532,24 @@ def test_data_parallel_step_matches_the_jax_single_device_step(pair):
         np.testing.assert_array_equal(r0[key], r1[key], err_msg=key)
 
 
-def test_graph_and_model_axes_over_two_processes_are_refused(pair):
-    for _, extra in pair[0]:
-        assert "item 4b" in extra["refusals"]["graph"]
-        assert "item 4c" in extra["refusals"]["model"]
+def test_graph_and_model_axes_over_two_processes_build_and_step(pair):
+    """The runner builds a graph=2 and a model=2 mesh over the two
+    processes and the engine steps on both; both ranks hold equal losses
+    and bit-equal state after the step (``tests/test_torch_mesh_axes.py``
+    holds the steps against the JAX engine)."""
+    (r0, x0), (r1, x1) = pair[0]
+    want = {"graph": {"data": 1, "graph": 2},
+            "model": {"data": 1, "graph": 1, "model": 2}}
+    for axis, shape in want.items():
+        for extra in (x0, x1):
+            assert extra["axes"][axis]["mesh"] == shape
+            assert all(np.isfinite(v) for v in
+                       extra["axes"][axis]["losses"].values())
+        assert x0["axes"][axis]["losses"] == x1["axes"][axis]["losses"]
+        keys = [k for k in r0 if k.startswith(f"axis/{axis}/")]
+        assert keys
+        for key in keys:
+            np.testing.assert_array_equal(r0[key], r1[key], err_msg=key)
 
 
 @pytest.mark.parametrize("data", [2, 4])

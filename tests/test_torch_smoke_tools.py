@@ -14,7 +14,12 @@ JAX-layout checkpoint) reads back through ``flax.serialization``.  Phase
 13's launch helpers: the ``DSTDGCN_*`` variables it starts each rank with
 reach ``parallel.distributed.initialize`` as a user's would, its config is
 the training slice with a data axis, it reads each rank's report, written
-files and probe outcomes, and it kills a child past its deadline.
+files and probe outcomes, and it kills a child past its deadline.  Phase
+14's: its configs are the graph, model and fast graph slices cut to one
+epoch, the launches it expects are one a DSTD-GC op a pass on each rank
+(none on the plain path), the kernel shapes it checks first are those the
+model axis adds, and it counts a step's collectives and restores
+``torch.distributed`` after.  Phase 15 is the kernels line.
 """
 
 import os
@@ -504,6 +509,10 @@ def test_rank_report_and_files_under(tmp_path):
     log = 'noise\ndp_rank {"rank": 1, "launches": {"dstd_spatial": 3}}\n'
     assert cs.rank_report(log) == {"rank": 1,
                                    "launches": {"dstd_spatial": 3}}
+    assert cs.rank_report('axis_rank {"graph": {"rank": 0}}\n',
+                          "axis_rank") == {"graph": {"rank": 0}}
+    with pytest.raises(cs.SmokeFailure, match="no report"):
+        cs.rank_report(log, "axis_rank")
     with pytest.raises(cs.SmokeFailure, match="no report"):
         cs.rank_report("Traceback: boom")
     (tmp_path / "checkpoints").mkdir()
@@ -560,3 +569,62 @@ def test_finish_ranks_kills_what_outlives_the_deadline():
     assert (rc0, log0) == (0, "done\n")
     assert rc1 != 0 and "killed at the time limit" in log1
     assert all(p.poll() is not None for p in procs)
+
+
+@pytest.mark.parametrize("name", cs.AXIS_CONFIGS)
+def test_axis_configs_are_the_parallel_slices_cut_to_one_epoch(name):
+    cfg = cs.axis_config(name)
+    want = getattr(configs, f"synthetic_h36m_{name}_train")()
+    assert cfg.pop("epoch") == 1 and want.pop("epoch") == 2
+    assert cfg["engine"].pop("max_iter") == cs.AXIS_STEPS
+    want["engine"].pop("max_iter")
+    assert cfg == want
+    axes = {k: v for k, v in cfg["parallel"].items()
+            if k in ("graph", "model")}
+    assert list(axes.values()) == [cs.AXIS_RANKS]
+    assert cfg["dataset"]["train"]["synthetic"]["num_sequences"] >= \
+        cs.AXIS_STEPS * cfg["train_batch_size"]
+
+
+def test_axis_launches_are_one_an_op_a_pass_on_each_rank():
+    from dstdgcn_tpu_torch.kernels import fused
+    from dstdgcn_tpu_torch.utils.config import resolve
+    graph = cs.axis_launches(fused, resolve(cs.axis_config("graph")), 2)
+    # 3 steps of 14 ops (7 blocks, two passes), 2 eval batches of 7
+    assert {k: graph[k] for k in cs.FORWARD} == dict.fromkeys(
+        cs.FORWARD, 14 * 3 + 7 * 2)
+    assert {k: graph[k] for k in cs.BACKWARD} == dict.fromkeys(
+        cs.BACKWARD, fused.BWD_LAUNCHES * 14 * 3)
+    assert cs.axis_launches(fused, resolve(cs.axis_config("model")),
+                            2) == graph
+    fast = cs.axis_launches(fused, resolve(cs.axis_config("fast_graph")), 2)
+    assert set(fast.values()) == {0}      # the plain path
+    assert set(fast) == set(graph) == set(fused.launch_counts())
+
+
+def test_axis_shapes_are_what_the_model_axis_adds():
+    cfg = configs.synthetic_h36m_model_train()["model"]["dstdgcn"]
+    whole = set(cs.forward_shapes(cfg))
+    halved = {(mode, ci, co // 2 if co % 2 == 0 else co)
+              for mode, ci, co in whole}
+    assert halved - whole == set(cs.AXIS_SHAPES)
+
+
+def test_counted_collectives_counts_calls_and_restores():
+    import types
+    calls = []
+    fake = types.SimpleNamespace(**{
+        name: (lambda name: lambda *a, **k: calls.append(name))(name)
+        for name in cs.COLLECTIVES})
+    before = {name: getattr(fake, name) for name in cs.COLLECTIVES}
+    with cs.CountedCollectives(fake) as counts:
+        fake.all_reduce(torch.zeros(5))
+        fake.all_reduce(torch.zeros(3), group=None)
+        fake.all_gather_into_tensor(torch.zeros(8), torch.zeros(4))
+        fake.barrier()
+    assert counts == {"all_reduce": dict(calls=2, values=8),
+                      "all_gather_into_tensor": dict(calls=1, values=8),
+                      "barrier": dict(calls=1, values=0)}
+    assert calls == ["all_reduce", "all_reduce", "all_gather_into_tensor",
+                     "barrier"]
+    assert {name: getattr(fake, name) for name in cs.COLLECTIVES} == before
