@@ -79,11 +79,16 @@ that op at the dtype (``tests/test_torch_cuda.py::TILE_CASES``, at one
 tile if given, on the same inputs, through the card tests' own
 ``_tile_case``): per case each checked output's distance to the plain
 contract, its and the plain version's distance to the float64 run of the
-contract, and whether the card test holds it (``_held``).  ``--fault
+contract, its ratio by F4's rule (``_f4_ratio``) and, for a bf16 case at
+a profile shape past F4's rule, by the flip-row rule (``_flip_rows``;
+past 1 is refused), and whether the card test holds it.  ``--fault
 dx_joint0`` zeroes the backward kernel's dx at joint 0 after each call,
-``--fault dx_1pc`` scales it by 1.01, ``out_joint0`` and ``out_1pc`` do
-the same to the forward kernel's output (only that pass then runs, at
-either dtype): a broken kernel the card test must refuse.  ``--cases
+``--fault dx_1pc`` scales it by 1.01, ``dx_05pc`` by 1.005, ``dx_bf16``
+rounds it to bf16 once more (a lost-precision fault, at most 0.39% of
+each element), ``out_joint0``, ``out_1pc``, ``out_05pc`` and
+``out_bf16`` do the same to the forward
+kernel's output (only that pass then runs, at either dtype): a broken
+kernel the card test must refuse.  ``--cases
 encoder`` runs the card tests' bf16 encoder-chain cases the same way
 (``test_bf16_chain_kernels_match_plain`` at the encoder,
 ``ENCODER_EDGES``, through ``_bf16_chain_case``, held by
@@ -144,11 +149,17 @@ def _zero_joint0(t):
     return t
 
 
+def _to_bf16(t):
+    return t.bfloat16().float()
+
+
 #: deliberate faults of ``--cases --fault``: how the backward kernel's dx
 #: (``dx_*``) or the forward kernel's output (``out_*``) is altered after
 #: each call
 FAULTS = {"dx_joint0": _zero_joint0, "dx_1pc": lambda t: t * 1.01,
-          "out_joint0": _zero_joint0, "out_1pc": lambda t: t * 1.01}
+          "dx_05pc": lambda t: t * 1.005, "dx_bf16": _to_bf16,
+          "out_joint0": _zero_joint0, "out_1pc": lambda t: t * 1.01,
+          "out_05pc": lambda t: t * 1.005, "out_bf16": _to_bf16}
 #: the bf16 chain cases' fault that is not an alteration of the output:
 #: the float32 kernel in the bf16 one's place
 F32_CHAIN = "f32_chain"
@@ -680,13 +691,19 @@ def run_cases(torch, fused, which, dtype, fault, emit):
     for case in ct.TILE_CASES:
         if case[0] != mode or (tile_only and case[1] != int(tile_only)):
             continue
-        held, repeat = ct._tile_case(*case, device, dtype, bwd, fwd, passes)
+        if dtype is None:
+            held, repeat = ct._tile_case(*case, device, dtype, bwd, fwd,
+                                         passes)
+            ok = {key: ct._held(dtype, key, *d) for key, d in held.items()}
+            rows = {}
+        else:       # the card test's rule, with F9's flip-row rule
+            ok, repeat, held, rows = ct._bf16_tile_held(case, device, bwd,
+                                                        fwd, passes)
         emit("case", dict(case=list(case), dtype=str(dtype), fault=fault,
-                          held={key: list(d) + [ct._held(dtype, key, *d)]
+                          held={key: list(d) + [ct._f4_ratio(dtype, key, *d),
+                                                rows.get(key), ok[key]]
                                 for key, d in held.items()},
-                          ok=all(ct._held(dtype, key, *d)
-                                 for key, d in held.items()),
-                          repeatable=repeat))
+                          ok=all(ok.values()), repeatable=repeat))
 
 
 

@@ -229,7 +229,30 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    global batch (loss within LOSS_RTOL) and by phase 7's rules; printed:
    each rank's step wall, the collectives a step issues (calls and values
    of each ``torch.distributed`` function), the phase's seconds;
-15. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
+15. the remaining configurations: (a) the kernels at the shapes they
+   take there, each with the tile its wrapper chose: the bf16 one-op
+   kernels at N=128 at every (Ci, Co) of the CMU (T=35, V=25) and 3DPW
+   (T=40, V=23) models by phase 3's bf16 rules, the float32 one-op kernels
+   at every (Ci, Co) of the fast model (T=20, V=22, 16 features; N=64) by
+   phase 3's rules (``real_op_checks``), the float32 whole-encoder kernel
+   on each model's calibrated encoder by phase 3's rule and the bf16 one
+   on the CMU and 3DPW encoders by phase 3's chain rules
+   (``encoder_checks``, ``bf16_chain_checks``); (b) ``main.run`` on
+   ``real_cmu_tpu_train`` and ``real_3dpw_tpu_train`` (the JAX package's
+   TPU profiles at batch 128, "auto" resolving to bf16) on phase 11's
+   seeded trees for one epoch of 4 steps and the per-action eval: exact
+   launches of the bf16 one-op kernels and none of the float32 ones,
+   finite losses and MPJPE, one bf16 step against the plain path of its
+   contract by phase 9's rule, the ``engine.fused_inference`` sweep on
+   the trained state (one ``dstd_encoder_chain_bf16`` a batch) and one
+   calibrated batch by phase 10's rule; (c) ``main.run`` on
+   ``synthetic_h36m_fast_train`` (the fast variant, agg left, through the
+   float32 kernels) for one epoch and its eval: exact launches, one step
+   against the plain path by phase 7's rules, the fused sweep (one
+   ``dstd_encoder_chain`` and 2 + 2 one-op launches a batch) within 1e-4
+   relative of the standard one; printed: each run's step wall and device
+   ms, an eval batch's wall, a batch's fused and standard forward times;
+16. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
    its main path (the training slice for the float32 one-op kernels, the
    bf16 slice for their bf16 variants, the fused slices for the encoder
    kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
@@ -239,8 +262,10 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    one-op kernels' launches in phase 11's training runs beside them
    (``real_launches``), the four float32 DSTD-GC kernels' in phase
    12's slice run (``remat_launches``), every kernel's in phase 13's
-   runs (``dp_launches``: world size 1 and each rank of the two) and in
-   phase 14's (``axis_launches``: each config, each rank).
+   runs (``dp_launches``: world size 1 and each rank of the two), in
+   phase 14's (``axis_launches``: each config, each rank) and in phase
+   15's (``profile_launches``: each run), and each kernel's times and
+   bound at phase 15's shapes (``profile_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``ms`` / ``plain_ms``
 are device times per call from ``torch.profiler`` (the kernels' own time);
@@ -540,32 +565,33 @@ def sass_counts(text):
     return counts
 
 
-def op_weights(mode, ci, co):
+def op_weights(mode, ci, co, t=T, v=V):
     """Weight floats of one op (base, alpha, wf, bf, wm1, bm1, wm2, bm2,
-    wrm, brm)."""
+    wrm, brm) at T = ``t``, V = ``v``."""
     k, r = (2 if mode == "spatial" else 1), 2
-    ref, pair = (T, V) if mode == "spatial" else (V, T)
+    ref, pair = (t, v) if mode == "spatial" else (v, t)
     return (k * pair * pair + 1 + k * ci * co + k * co + 2 * k * ci * r
             + 2 * k * r + k * r * ref * ref + k * ref)
 
 
-def chain_cost(n, c, layers, encoder, dtype=None):
+def chain_cost(n, c, layers, encoder, dtype=None, t=T, v=V):
     """(flops, bytes, contraction flops, their peak) of one chain call of
-    ``layers`` (spatial, temporal) blocks at C channels: the ops'
-    operations (as ``op_cost``) plus, for the encoder, 10 elementwise
-    operations per activation element and layer (affine, residual and
-    PReLU after each op); x read and the output written once in float32,
-    every weight read once (the encoder's affines and slopes too)."""
-    rows = n * T * V
-    costs = [op_cost(mode, n, c, c, dtype=dtype)
+    ``layers`` (spatial, temporal) blocks at C channels, T = ``t``, V =
+    ``v``: the ops' operations (as ``op_cost``) plus, for the encoder, 10
+    elementwise operations per activation element and layer (affine,
+    residual and PReLU after each op); x read and the output written once
+    in float32, every weight read once (the encoder's affines and slopes
+    too)."""
+    rows = n * t * v
+    costs = [op_cost(mode, n, c, c, dtype=dtype, t=t, v=v)
              for mode in ("spatial", "temporal")]
     flops = layers * sum(cost[0] for cost in costs)
     tensor_flops = layers * sum(cost[2] for cost in costs)
-    weights = layers * (op_weights("spatial", c, c)
-                        + op_weights("temporal", c, c))
+    weights = layers * (op_weights("spatial", c, c, t, v)
+                        + op_weights("temporal", c, c, t, v))
     if encoder:
         flops += layers * 10 * rows * c
-        weights += layers * (4 * V * c + 2)
+        weights += layers * (4 * v * c + 2)
     return flops, 4 * (2 * rows * c + weights), tensor_flops, costs[0][3]
 
 
@@ -579,11 +605,12 @@ def bound_of(flops, nbytes, dot_flops=0.0, dot_peak=PEAK_F32_DOT_FLOPS):
     return max(t_ops, t_mem), t_ops, t_mem
 
 
-def op_cost(mode, n, ci, co, backward=False, dtype=None):
-    """(flops, bytes, contraction flops, their peak) one call needs: every
-    input read once, every output written once; tanh and the pair
-    difference count one op each.  The backward recomputes the forward up
-    to the adjacency, then does the dA and dxf products, dalpha / dbase /
+def op_cost(mode, n, ci, co, backward=False, dtype=None, t=T, v=V):
+    """(flops, bytes, contraction flops, their peak) one call needs at T =
+    ``t``, V = ``v``: every input read once, every output written once;
+    tanh and the pair difference count one op each.  The backward
+    recomputes the forward up to the adjacency, then does the dA and dxf
+    products, dalpha / dbase /
     dbrm, dx from dxf, dwf / dbf, dwrm, ds, du, the dq / dk sums, dx from
     dq / dk and dwqk / dbqk; it reads x, g and the weights and writes dx
     and the weight gradients.  The contractions (the projections, the
@@ -595,15 +622,15 @@ def op_cost(mode, n, ci, co, backward=False, dtype=None):
     reads x as bf16."""
     k = 2 if mode == "spatial" else 1
     r = 2
-    ref, pair = (T, V) if mode == "spatial" else (V, T)
-    rows = n * T * V
+    ref, pair = (t, v) if mode == "spatial" else (v, t)
+    rows = n * t * v
     scores = n * k * r * ref * pair * pair          # score entries
     adj = n * k * ref * pair * pair                 # adjacency entries
     proj = 2 * rows * ci * co * k                   # feature projection
     qk = 2 * rows * ci * 2 * r * k                  # q/k projections
     mix = 2 * scores * ref                          # frame/joint mixing
     agg = 2 * adj * co                              # aggregation
-    weights = op_weights(mode, ci, co)
+    weights = op_weights(mode, ci, co, t, v)
     if not backward:
         dots = proj + qk + mix + agg
         rest = 2 * scores + 2 * adj
@@ -625,9 +652,9 @@ def op_cost(mode, n, ci, co, backward=False, dtype=None):
                                 else PEAK_BF16_FLOPS)
 
 
-def bound_ms(mode, n, ci, co, backward=False, dtype=None):
+def bound_ms(mode, n, ci, co, backward=False, dtype=None, t=T, v=V):
     """(least ms, ms of the operations, ms of the bytes) of one call."""
-    return bound_of(*op_cost(mode, n, ci, co, backward, dtype))
+    return bound_of(*op_cost(mode, n, ci, co, backward, dtype, t, v))
 
 
 def sparse_cost(name, n, blocks, block, r, c, v, vj=None):
@@ -959,7 +986,8 @@ def forward_shapes(model_cfg):
 
 
 def train_step_check(torch, fused, engine, rcfg, batch, label,
-                     fwd_per_step=14, kernel_step=None, routed=True):
+                     fwd_per_step=14, kernel_step=None, routed=True,
+                     bwd_per_step=14):
     """One train step of ``engine`` (the kernel path) on ``batch`` (inputs,
     inverse inputs, targets) against the plain path with the same weights,
     dropout 0, BatchNorm calibrated on the batch: the loss within
@@ -967,8 +995,8 @@ def train_step_check(torch, fused, engine, rcfg, batch, label,
     float64 (within GRAD_TOL of max(|float64|, 1) or twice the plain
     float32 path's own distance), and the launches of one step
     (``fwd_per_step`` of each float32 forward kernel: 14, or 28 under
-    remat; 14 calls of each backward one, nothing else; none with
-    ``routed`` False, a config on the plain path).  ``kernel_step``
+    remat; ``bwd_per_step`` calls of each backward one, 14, nothing else;
+    none with ``routed`` False, a config on the plain path).  ``kernel_step``
     (default ``engine.compute_gradients(*batch)``) computes the kernel
     path's losses and gradients: phases 13 and 14 pass the step of a mesh
     on this rank's share.  Prints under ``label``; returns (report, the
@@ -1040,7 +1068,7 @@ def train_step_check(torch, fused, engine, rcfg, batch, label,
     per = int(routed)
     check(step_launches == {
         **{k: fwd_per_step * per for k in FORWARD},
-        **{k: 14 * fused.BWD_LAUNCHES * per for k in BACKWARD},
+        **{k: bwd_per_step * fused.BWD_LAUNCHES * per for k in BACKWARD},
         **{k: 0 for k in CHAINS + BF16_FORWARD + BF16_BACKWARD
            + BF16_CHAINS}},
         f"{label}: one train step launched {step_launches}")
@@ -1187,9 +1215,11 @@ def encoder_case(torch, cfg, batch, device="cuda"):
     from dstdgcn_tpu_torch.engine import PredictionEngine
     from dstdgcn_tpu_torch.models import get_model, infer
     from dstdgcn_tpu_torch.utils.config import resolve
-    opts = {k: v for k, v in resolve(cfg)["model"].items() if k != "name"}
+    rcfg = resolve(cfg)
+    opts = {k: v for k, v in rcfg["model"].items() if k != "name"}
     opts["use_pallas"] = False
-    engine = PredictionEngine(cfg["engine"], get_model("dstdgcn", **opts),
+    engine = PredictionEngine(cfg["engine"],
+                              get_model(rcfg["model"]["name"], **opts),
                               device=device)
     model = engine.init()
     gen = torch.Generator().manual_seed(1)
@@ -1241,10 +1271,11 @@ def chain_leaves(torch, x, blocks, dtype=None):
 
 
 def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
-                       timings, max_err):
+                       timings, max_err, t=T, v=V, f64_hold=False):
     """Each bf16 kernel (forward, and the 11 gradients of the backward)
-    against the plain version of its contract at batch ``n`` and every
-    (Ci, Co) of ``shapes``, both aggregations: the error, the tolerance and
+    against the plain version of its contract at batch ``n``, (T, V) =
+    (``t``, ``v``) and every (Ci, Co) of ``shapes``, both aggregations,
+    with the tile the wrapper chose: the error, the tolerance and
     the bf16-versus-float32 gap of the plain versions, the error within
     BF16_TOL and BF16_TOL below half the gap; for the forward and per
     gradient of the backward, the kernel's and the plain version's
@@ -1253,7 +1284,11 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
     cast (``FusedOp.launch``).  Times (the model's aggregation, right): the
     kernel (the forward on a bf16 x, as the model gives it), its plain
     version (the plain forward; the hand-derived plain backward), and the
-    float32 kernel at the same shape."""
+    float32 kernel at the same shape.  With ``f64_hold`` (phase 15) an
+    output (the forward, or one gradient) past BF16_TOL is still held
+    where the kernel lies near the plain version's float64 run, within
+    max(BF16_TOL, F64_NOISE times the plain version's own distance to it):
+    F4's rule, which the card tests' tile cases hold by (``_held``)."""
     bf16, lines = torch.bfloat16, []
     for mode in ("spatial", "temporal"):
         op, bwd = getattr(fused, f"dstd_{mode}"), getattr(fused,
@@ -1264,8 +1299,8 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
         for ci, co in sorted({(ci, co) for m, ci, co in shapes
                               if m == mode}):
             args = op_inputs(torch, np, mode, ci, co, device, seed=ci + co,
-                             n=n)
-            g = torch.randn((n, T, V, co), device=device, generator=torch
+                             n=n, t=t, v=v)
+            g = torch.randn((n, t, v, co), device=device, generator=torch
                             .Generator(device).manual_seed(ci * co))
             for agg in ("right", "left"):
                 before = fused.launch_counts()
@@ -1302,10 +1337,10 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                 norms = [max(float(b.abs().max()), 1.0) for b in gwant]
                 g_abs = max(float((a - b).abs().max())
                             for a, b in zip(grads, gwant))
+                g_errs = [float((a - b).abs().max()) / nrm
+                          for a, b, nrm in zip(grads, gwant, norms)]
                 results["backward"] = (
-                    g_abs,
-                    max(float((a - b).abs().max()) / nrm
-                        for a, b, nrm in zip(grads, gwant, norms)),
+                    g_abs, max(g_errs),
                     max(float((b - c).abs().max()) / nrm
                         for b, c, nrm in zip(gwant, gwant32, norms)))
                 # per gradient, the kernel's and the plain version's
@@ -1320,10 +1355,24 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                     name = (f"dstd_{mode}_bf16" if part == "forward"
                             else f"dstd_{mode}_bwd_bf16")
                     tol = BF16_TOL[part]
+                    kernel = op if part == "forward" else bwd
+                    if part == "forward":
+                        outs = {"forward": (err, *fwd64)}
+                    else:
+                        outs = {key: (e, *f64[key])
+                                for key, e in zip(GRADIENTS, g_errs)}
+                    held = {key: e <= tol or (f64_hold and k64 <= max(
+                        tol, F64_NOISE * p64))
+                        for key, (e, k64, p64) in outs.items()}
                     line = dict(kernel=name, agg=agg, ci=ci, co=co, n=n,
+                                t=t, v=v, tile=plan_tiles(kernel, "bf16", n,
+                                                          t, v, ci, co),
                                 max_abs_err=abs_err, norm_err=err, tol=tol,
                                 bf16_vs_f32_gap=gap,
-                                ok=err <= tol < gap / 2)
+                                ok=all(held.values()) and tol < gap / 2)
+                    if err > tol:
+                        line["held_near_f64"] = [k for k, h in held.items()
+                                                 if h and outs[k][0] > tol]
                     line.update(kernel_plain_vs_f64=f64 if part == "backward"
                                 else fwd64)
                     max_err[name] = max(max_err[name], abs_err)
@@ -1359,7 +1408,7 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
                         p_ms, p_by = device_ms(torch, plain_call, 3)
                         f32_ms, _ = device_ms(torch, f32_call, 10, f32_split)
                         b_ms, t_ops, t_mem = bound_ms(
-                            mode, n, ci, co, part == "backward", bf16)
+                            mode, n, ci, co, part == "backward", bf16, t, v)
                         timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call,
                                                         k_by, split)
                         if split is not None:
@@ -1379,6 +1428,20 @@ def bf16_kernel_checks(torch, np, fused, plain, plain_bwd, device, n, shapes,
     return lines
 
 
+def plan_tiles(kernel, variant, n, t, v, ci, co):
+    """The tiles a one-op wrapper planned for ``variant`` at a call shape
+    (``_Kernel._plans``: one a tile request)."""
+    return sorted({plan[1] for key, plan in kernel._plans.items()
+                   if key[:6] == (variant, n, t, v, ci, co)})
+
+
+def chain_tiles(kernel, variant, t, v, c):
+    """The tiles a chain wrapper chose for ``variant`` at (T, V, C)
+    (``ChainOp._tiles``)."""
+    return sorted({tile for key, tile in kernel._tiles.items()
+                   if key[:4] == (variant, t, v, c)})
+
+
 def widened(given):
     """Chain layers (nested tuples of tensors) in float64."""
     if isinstance(given, (tuple, list)):
@@ -1387,10 +1450,12 @@ def widened(given):
 
 
 def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
-                      timings, max_err):
-    """The bf16 chain kernels against their plain versions (the oracles
-    with the dtype) on the serving model's calibrated encoder at batch
-    ``n_big`` and at batch 1, both aggregations, each op of the chain scaled
+                      timings, max_err,
+                      bases=("dstd_encoder_chain", "dstd_chain")):
+    """The bf16 chain kernels of ``bases`` against their plain versions (the
+    oracles with the dtype) on the calibrated encoder of ``cfg``'s model
+    (the serving model in phase 3) at batch ``n_big`` and at batch 1, both
+    aggregations, each op of the chain scaled
     to an output peak of 1 (``chain_blocks``); the input is computed on the
     plain ops (``encoder_case``).  Layer by layer: one launch of each layer
     on the kernel's own activation against the plain layer on the same
@@ -1411,11 +1476,15 @@ def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
     of a batch-``n_big`` call no longer fit in the 50 MB L2)."""
     bf16, lines = torch.bfloat16, []
     h_all, layers = encoder_case(torch, cfg, inputs[:n_big])
+    _, t, v, _ = h_all.shape
     for agg in ("right", "left"):
-        blocks = chain_blocks(torch, plain, layers, h_all, agg)
+        blocks = (chain_blocks(torch, plain, layers, h_all, agg)
+                  if "dstd_chain" in bases else None)
         for base, ref, given in (("dstd_encoder_chain",
                                   fused._encoder_oracle, layers),
                                  ("dstd_chain", fused._chain_oracle, blocks)):
+            if base not in bases:
+                continue
             name, kernel = f"{base}_bf16", getattr(fused, base)
             arg = fused.pack_chain(given)
             one = [fused.pack_chain(given[i:i + 1])
@@ -1466,8 +1535,10 @@ def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
                 worst = max(range(len(per_layer)),
                             key=lambda i: per_layer[i][1] / per_layer[i][2])
                 l_err, l_gap = per_layer[worst][1:3]
-                line = dict(kernel=name, agg=agg, n=n, c=h.shape[-1],
-                            layers=len(given),
+                line = dict(kernel=name, agg=agg, n=n, t=t, v=v,
+                            c=h.shape[-1], layers=len(given),
+                            tile=chain_tiles(kernel, "bf16", t, v,
+                                             h.shape[-1]),
                             layer_norm_err=[e[1] for e in per_layer],
                             layer_gap=[e[2] for e in per_layer],
                             layer_plain_vs_f64=[e[3:5] for e in per_layer],
@@ -1493,7 +1564,7 @@ def bf16_chain_checks(torch, fused, plain, cfg, inputs, n_big, agg_main,
                         torch, lambda: call(h=h_all[:N]), 10)
                     b_ms, t_ops, t_mem = bound_of(*chain_cost(
                         n, h.shape[-1], len(given), base ==
-                        "dstd_encoder_chain", bf16))
+                        "dstd_encoder_chain", bf16, t, v))
                     timings[(name, agg)] = (k_ms, p_ms, k_call, k_by, None)
                     line.update(ms=k_ms, plain_ms=p_ms, call_ms=k_call,
                                 f32_kernel_ms=f32_ms, **{
@@ -1834,8 +1905,6 @@ def fused_bf16_phase(torch, np, fused, device):
     BF16_CHAIN_FRAC of the batch's bf16-versus-float32 gap (the encoder's
     five layers spread rounding flips; phase 3 holds each layer).
     Returns (report, the slice's launch counts)."""
-    from unittest import mock
-
     from dstdgcn_tpu_torch import configs
     from dstdgcn_tpu_torch.data import get_dataset
     from dstdgcn_tpu_torch.main import run
@@ -1939,11 +2008,28 @@ def fused_bf16_phase(torch, np, fused, device):
 
     # one calibrated batch: the fused path against the same function with
     # the encoder through its plain version, the float32 function beside it
+    report["check"] = fused_bf16_check(torch, fused, eng, inputs[:bs],
+                                       per_batch, "fused bf16")
+    return report, counts
+
+
+def fused_bf16_check(torch, fused, eng, inputs, per_batch, label):
+    """Phase 10's rule on one calibrated batch of ``inputs`` (every weight
+    of ``eng``'s model moved by seeded noise, BatchNorm calibrated on the
+    batch): the bf16 fused forward against the same function with the
+    encoder through its plain version (``_encoder_oracle`` with the
+    dtype), the error over the float32 function's peak within
+    BF16_CHAIN_FRAC of the batch's bf16-versus-float32 gap, and the
+    forward's launches ``per_batch``.  Returns the check line."""
+    from unittest import mock
+
+    from dstdgcn_tpu_torch.models import infer
+    model, device = eng.model, eng.device
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for p in model.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=gen).to(device))
-    x = eng.transform(eng.to_device(inputs[:bs]))
+    x = eng.transform(eng.to_device(inputs))
     calibrate_batchnorm(torch, model, x)
     weights = infer.fused_weights(model)
 
@@ -1967,18 +2053,19 @@ def fused_bf16_phase(torch, np, fused, device):
     err = abs_err / peak
     gap = float((want - want32).abs().max()) / peak
     launched = {k: after[k] - before[k] for k in after}
-    line = dict(n=bs, max_abs_err=abs_err, norm_err=err,
+    line = dict(n=x.shape[0], max_abs_err=abs_err, norm_err=err,
                 frac=BF16_CHAIN_FRAC, bf16_vs_f32_gap=gap,
                 over_gap=err / gap, peak=peak,
                 launches=launched, ok=err <= BF16_CHAIN_FRAC * gap)
-    print("check fused bf16 forward vs its plain path " + json.dumps(line))
-    check(line["ok"], f"the bf16 fused forward: {err} from its plain path, "
+    print(f"check {label} forward vs its plain path " + json.dumps(line))
+    check(line["ok"], f"{label}: the bf16 fused forward is {err} from its "
+                      "plain path, "
                       f"above {BF16_CHAIN_FRAC} of its bf16-versus-float32 "
                       f"gap {gap}")
     check(launched == {k: per_batch.get(k, 0) for k in launched},
-          f"the calibrated bf16 fused forward launched {launched}")
-    report["check"] = line
-    return report, counts
+          f"{label}: the calibrated bf16 fused forward launched "
+          f"{launched}")
+    return line
 
 
 #: the seeded trees of phase 11, in each dataset's format (the writers'
@@ -1997,14 +2084,17 @@ REAL_STEPS = 4
 
 
 def real_op_checks(torch, np, fused, plain, plain_bwd, device, label, t, v,
-                   shapes, tag="real"):
+                   shapes, tag="real", n=N, timings=None, timed_agg="right"):
     """Each float32 one-op kernel, forward and backward, both aggregations,
-    against its plain version at N=32, (T, V) = (``t``, ``v``) and every
-    (mode, Ci, Co) of ``shapes``, by phase 3's rules: forward within 1e-4 +
-    1e-4 |plain| elementwise, the backward's 11 tensors each within 1e-4
-    max(max |plain|, 1), two calls of each bit-equal.  Prints each line
-    after ``tag``; returns the check lines (with the tile the wrapper
-    chose)."""
+    against its plain version at batch ``n`` (N=32), (T, V) = (``t``,
+    ``v``) and every (mode, Ci, Co) of ``shapes``, by phase 3's rules:
+    forward within 1e-4 + 1e-4 |plain| elementwise, the backward's 11
+    tensors each within 1e-4 max(max |plain|, 1), two calls of each
+    bit-equal.  With a ``timings`` dict, each pass at ``timed_agg`` is timed
+    as phase 3 times it (device ms of the kernel and of its plain version,
+    the bound; the backward's four launches) into ``timings[(kernel, ci,
+    co, agg)]``.  Prints each line after ``tag``; returns the check lines
+    (with the tile the wrapper chose)."""
     lines = []
     for mode, ci, co in sorted(set(shapes)):
         fwd, ref = getattr(fused, f"dstd_{mode}"), getattr(plain,
@@ -2012,9 +2102,9 @@ def real_op_checks(torch, np, fused, plain, plain_bwd, device, label, t, v,
         bwd = getattr(fused, f"dstd_{mode}_bwd")
         ref_bwd = getattr(plain_bwd, f"dstd_{mode}_bwd")
         args = op_inputs(torch, np, mode, ci, co, device, seed=ci + co + t,
-                         n=N, t=t, v=v)
+                         n=n, t=t, v=v)
         gen = torch.Generator(device=device).manual_seed(ci * co + v)
-        g = torch.randn((N, t, v, co), generator=gen, device=device)
+        g = torch.randn((n, t, v, co), generator=gen, device=device)
         for agg in ("right", "left"):
             got, again = (fwd(*args, None, agg) for _ in range(2))
             want = ref(*args, None, agg)
@@ -2025,17 +2115,36 @@ def real_op_checks(torch, np, fused, plain, plain_bwd, device, label, t, v,
             want = ref_bwd(args[0], g, *args[1:], agg=agg)
             b_abs, b_norm, b_ok = grad_errors(got, want)
             b_rep = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
-            tiles = {op.name: sorted({plan[1] for key, plan in
-                                      op._plans.items()
-                                      if key[0] == "f32"
-                                      and key[2:6] == (t, v, ci, co)})
+            tiles = {op.name: plan_tiles(op, "f32", n, t, v, ci, co)
                      for op in (fwd, bwd)}
             line = dict(dataset=label, t=t, v=v, mode=mode, ci=ci, co=co,
-                        agg=agg, n=N, tiles=tiles,
+                        agg=agg, n=n, tiles=tiles,
                         forward=dict(max_abs_err=f_abs, max_rel_err=f_rel,
                                      ok=f_ok, repeatable=f_rep),
                         backward=dict(max_abs_err=b_abs, max_norm_err=b_norm,
                                       ok=b_ok, repeatable=b_rep))
+            if timings is not None and agg == timed_agg:
+                for part, call, plain_call in (
+                        ("forward", lambda: fwd(*args, None, agg),
+                         lambda: ref(*args, None, agg)),
+                        ("backward", lambda: bwd(args[0], g, *args[1:],
+                                                 agg=agg),
+                         lambda: ref_bwd(args[0], g, *args[1:], agg=agg))):
+                    name = fwd.name if part == "forward" else bwd.name
+                    split = {} if part == "backward" else None
+                    k_call = time_ms(torch, call, 10)
+                    k_ms, k_by = device_ms(torch, call, 10, split)
+                    p_ms, p_by = device_ms(torch, plain_call, 3)
+                    b_ms, t_ops, t_mem = bound_ms(
+                        mode, n, ci, co, part == "backward", None, t, v)
+                    timings[(name, ci, co, agg)] = (k_ms, p_ms, k_call,
+                                                    k_by, split)
+                    line[part].update(
+                        ms=k_ms, plain_ms=p_ms, call_ms=k_call,
+                        timed_by=[k_by, p_by], bound_ms=b_ms,
+                        bound_by="operations" if t_ops >= t_mem
+                        else "bytes", **({} if split is None
+                                         else dict(launch_ms=split)))
             lines.append(line)
             print(f"{tag} check " + json.dumps(line))
             where = f"{label} (T={t}, V={v}) dstd_{mode} agg={agg} {ci}->{co}"
@@ -3569,6 +3678,483 @@ def axis_phase(torch, np, fused, plain, plain_bwd, device):
                 seconds=seconds), counts
 
 
+# -- phase 15: the remaining configurations ---------------------------------
+
+#: the JAX package's TPU profiles phase 15 trains and serves in bf16 at
+#: batch 128 (``configs.real_<name>_tpu_train``) on phase 11's seeded trees
+PROFILES = ("cmu", "3dpw")
+
+
+def profile_launches(fused, model_cfg, steps, evals, bf16=False,
+                     fused_eval=False):
+    """Each kernel's launches over ``steps`` train steps and ``evals`` eval
+    batches of a model of ``model_cfg`` on the kernel path: each op of
+    ``forward_shapes`` one launch of its one-op kernel a forward, a train
+    step two forwards and as many backward calls, at bf16 the bf16
+    variants; with ``fused_eval`` the eval batches go through the fused
+    path: the whole-encoder kernel once a batch and, at float32, the in and
+    out layers' 2 + 2 one-op launches (at bf16 those run the plain ops)."""
+    per_fwd = sum(mode == "spatial" for mode, _, _ in
+                  forward_shapes(model_cfg))
+    fwd, bwd = ((BF16_FORWARD, BF16_BACKWARD) if bf16
+                else (FORWARD, BACKWARD))
+    want = dict.fromkeys(fused.launch_counts(), 0)
+    want.update({k: 2 * per_fwd * steps for k in fwd})
+    want.update({k: fused.BWD_LAUNCHES * 2 * per_fwd * steps for k in bwd})
+    if not fused_eval:
+        for k in fwd:
+            want[k] += per_fwd * evals
+    elif bf16:
+        want["dstd_encoder_chain_bf16"] += evals
+    else:
+        want["dstd_encoder_chain"] += evals
+        for k in FORWARD:
+            want[k] += 2 * evals
+    return want
+
+
+def chain_check(torch, fused, name, h, arg, ref, given, agg, timings,
+                max_err, iters=(20, 5), tag="check", label=None):
+    """One float32 chain kernel (``name``: ``dstd_encoder_chain`` on packed
+    encoder layers, ``dstd_chain`` on packed blocks; ``arg`` packed from
+    ``given``) on ``h`` by phase 3's rule: two launches counted, the same
+    bits, within TOL of max(max |plain|, 1) of its plain version ``ref`` on
+    ``given``.  With ``iters`` (kernel, plain calls) it is timed into
+    ``timings[(name, agg)]`` with its bound (``chain_cost``).  Prints and
+    returns the check line; ``label`` names the model it came from."""
+    kernel = getattr(fused, name)
+    n, t, v, c = h.shape
+
+    def call():
+        with torch.no_grad():
+            return kernel(h, arg, agg)
+
+    def plain_call():
+        with torch.no_grad():
+            return ref(h, given, agg)
+
+    before = kernel.launches
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    check(kernel.launches == before + 2, f"{name} did not count its launches")
+    want = plain_call()
+    abs_err, rel = norm_err(got, want)
+    repeat = bool(torch.equal(got, again))
+    max_err[name] = max(max_err[name], abs_err)
+    line = dict(kernel=name, dataset=label, agg=agg, n=n, t=t, v=v, c=c,
+                layers=len(given), tile=chain_tiles(kernel, "f32", t, v, c),
+                max_abs_err=abs_err, max_norm_err=rel,
+                peak=float(want.abs().max()), repeatable=repeat,
+                ok=rel <= TOL and repeat)
+    if iters:
+        k_call = time_ms(torch, call, iters[0])
+        k_ms, k_by = device_ms(torch, call, iters[0])
+        p_ms, p_by = device_ms(torch, plain_call, iters[1])
+        b_ms, t_ops, t_mem = bound_of(*chain_cost(
+            n, c, len(given), name == "dstd_encoder_chain", None, t, v))
+        timings[(name, agg)] = (k_ms, p_ms, k_call, k_by, None)
+        line.update(ms=k_ms, plain_ms=p_ms, call_ms=k_call,
+                    timed_by=[k_by, p_by], bound_ms=b_ms,
+                    bound_by="operations" if t_ops >= t_mem else "bytes")
+    print(f"{tag} " + json.dumps(line))
+    check(line["ok"], f"{label or ''} {name} agg={agg} (T={t}, V={v}, "
+                      f"C={c}): {rel} of max(|plain|, 1) from its plain "
+                      f"version, repeatable {repeat}")
+    return line
+
+
+def encoder_checks(torch, fused, cfg, inputs, agg_main, timings, max_err,
+                   label):
+    """The float32 whole-encoder kernel on the calibrated encoder of
+    ``cfg``'s model at the batch of ``inputs`` (``encoder_case``), both
+    aggregations, by phase 3's rule (``chain_check``), timed at
+    ``agg_main``.  Returns the check lines."""
+    h, layers = encoder_case(torch, cfg, inputs)
+    packed = fused.pack_chain(layers)
+    return [chain_check(torch, fused, "dstd_encoder_chain", h, packed,
+                        fused._encoder_oracle, layers, agg, timings, max_err,
+                        (10, 3) if agg == agg_main else None,
+                        "profiles check", label)
+            for agg in ("right", "left")]
+
+
+def summed_ms(timings, name, model_cfg, n, t, v, agg, dtype=None):
+    """A one-op kernel's device ms over the calls of one forward (or its
+    backward) of a model of ``model_cfg`` at batch ``n``, (T, V) = (``t``,
+    ``v``), from a check's ``timings``, beside its plain version's and the
+    bound (``bound_ms``)."""
+    mode, backward = name.split("_")[1], "_bwd" in name
+    ms = plain_ms = b_ms = ops_ms = mem_ms = 0.0
+    calls = 0
+    for m, ci, co in forward_shapes(model_cfg):
+        if m != mode:
+            continue
+        k_t, p_t = timings[(name, ci, co, agg)][:2]
+        b, t_ops, t_mem = bound_ms(mode, n, ci, co, backward, dtype, t, v)
+        ms, plain_ms, b_ms = ms + k_t, plain_ms + p_t, b_ms + b
+        ops_ms, mem_ms, calls = ops_ms + t_ops, mem_ms + t_mem, calls + 1
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by="operations" if ops_ms >= mem_ms else "bytes",
+                calls=calls, n=n, t=t, v=v, agg=agg)
+
+
+def forward_times(torch, eng, x, label):
+    """Wall and device ms of one forward of ``eng`` on the padded batch
+    ``x``, standard (``predict``) and fused (``engine.fused_inference``'s
+    forward), printed under ``label``."""
+    fforward = eng._eval_forward()
+
+    def fused_fwd():
+        with torch.inference_mode():
+            return eng._serve(x, fforward, None, None)
+
+    times = {}
+    for kind, fn in (("standard", lambda: eng.predict(x)),
+                     ("fused", fused_fwd)):
+        call = time_ms(torch, fn, 5)
+        dev = sum(device_profile(torch, fn, 3).values())
+        times[kind] = dict(call_ms=call, device_ms=dev)
+    print(f"{label}: batch-{len(x)} forward, standard {times['standard']}, "
+          f"fused {times['fused']} (ms)")
+    return times
+
+
+def fused_sweep(torch, np, fused, device, cfg, ckpt, run_dir, history,
+                model_cfg, bf16, label):
+    """``main.run`` of ``cfg`` in test mode on ``ckpt`` with
+    ``engine.fused_inference``: exact launches (``profile_launches``),
+    finite MPJPE, and its distance to the training run's own eval of the
+    same weights (the last row of ``history``).  Returns (the test
+    runner, its report, its launches)."""
+    from dstdgcn_tpu_torch.main import run
+    cfg["mode"] = "test"
+    cfg["model"].update(load=True, ckpt=ckpt)
+    cfg["engine"]["fused_inference"] = True
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner, _ = run(cfg, device.type, run_dir=run_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused.launch_counts()
+    eng = runner.engine
+    evals = len(runner.test_batch_seconds)
+    with open(os.path.join(run_dir, "testing_loss.csv")) as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    got = np.asarray([float(x) for x in rows[1]])
+    standard = np.asarray(history[-1][3:], dtype=np.float64)
+    rel = float(np.max(np.abs(got - standard) / np.abs(standard)))
+    want = profile_launches(fused, model_cfg, 0, evals, bf16, True)
+    print(f"{label}: fused eval sweep in {wall:.2f} s, {evals} batches, "
+          f"wall ms per batch median "
+          f"{float(np.median(runner.test_batch_seconds)) * 1e3:.3f}; test "
+          f"loss and horizons {got[:9].tolist()} against the standard "
+          f"sweep's {standard[:9].tolist()} (max rel {rel:.3g}); launches "
+          f"{counts}")
+    check(eng.fused_inference and eng.model.resolve_knobs(1)[
+        "compute_dtype"] == ("bfloat16" if bf16 else None),
+        f"{label}: the fused sweep ran {eng.model.resolve_knobs(1)}")
+    check(len(rows) == 2 and got.shape == standard.shape
+          and bool(np.all(np.isfinite(got))),
+          f"{label}: testing_loss.csv holds {rows}")
+    check(counts == want, f"{label}: the fused sweep launched {counts}, "
+                          f"expected {want}")
+    return runner, dict(wall=wall, evals=evals, mpjpe=got.tolist(),
+                        standard=standard.tolist(), max_rel=rel,
+                        batch_seconds=runner.test_batch_seconds,
+                        launches=counts), counts
+
+
+def profile_run(torch, np, fused, device, name, paths, out):
+    """Phase 15 (b): ``real_<name>_tpu_train`` through ``main.run`` on a
+    seeded tree (1 epoch of its 4 steps at batch 128 and the per-action
+    eval): the knobs resolve to bf16, exact launches of the four bf16
+    one-op kernels and no float32 DSTD-GC kernel, finite losses and MPJPE;
+    one train step's device time; one bf16 step against the plain path of
+    its contract (``bf16_step_check``, phase 9's rule); the fused eval
+    sweep on the trained state (``fused_sweep``: one
+    ``dstd_encoder_chain_bf16`` a batch) and one calibrated batch by phase
+    10's rule (``fused_bf16_check``); a batch's standard and fused forward
+    times.  Returns (report, {run: launches})."""
+    from dstdgcn_tpu_torch import configs
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.utils.config import resolve
+    label = f"profiles {name}"
+
+    def config():
+        return configs.set_data_paths(
+            getattr(configs, f"real_{name}_tpu_train")(), *paths)
+
+    rcfg = resolve(config())
+    bs, mcfg = rcfg["train_batch_size"], rcfg["model"]["dstdgcn"]
+    per_fwd = mcfg["num_layers"] + 2
+    run_dir = os.path.join(out, f"{name}_tpu")
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner, history = run(config(), device.type, run_dir=run_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused.launch_counts()
+    eng = runner.engine
+    model = eng.model
+    knobs = model.resolve_knobs(1)
+    steps = len(eng.train_step_seconds)
+    evals = rcfg["epoch"] * len(runner.test_batch_seconds)
+    rows = np.asarray(history, dtype=np.float64)
+    step_ms = [s * 1e3 for s in eng.train_step_seconds]
+    eval_ms = [s * 1e3 for s in runner.test_batch_seconds]
+    print(f"{label}: main.run on {device.type} in {wall:.2f} s, {steps} "
+          f"train steps of {bs} and {evals} eval batches; knobs at any "
+          f"batch (hint {model.auto_batch_hint}) {knobs}, the blocks run "
+          f"{model.active_dtype}")
+    print(f"{label}: wall ms per train step {[round(m, 3) for m in step_ms]}"
+          f" (median after the first {float(np.median(step_ms[1:])):.3f}); "
+          f"per eval batch median {float(np.median(eval_ms)):.3f}")
+    print(f"{label}: per epoch (epoch, lr, train loss, test loss, "
+          f"horizons) {rows[:, :12].tolist()}; launches {counts}")
+    check(knobs["compute_dtype"] == "bfloat16"
+          and model.active_dtype == "bfloat16",
+          f"{label}: resolved {knobs}, running {model.active_dtype}")
+    check(steps == rcfg["epoch"] * rcfg["engine"]["max_iter"],
+          f"{label}: {steps} train steps")
+    check(rows.shape[0] == rcfg["epoch"] and bool(np.all(np.isfinite(rows))),
+          f"{label}: non-finite losses or MPJPE")
+    want = profile_launches(fused, mcfg, steps, evals, bf16=True)
+    check(counts == want, f"{label}: launched {counts}, expected {want}")
+    report = dict(wall=wall, steps=steps, evals=evals, knobs=knobs,
+                  step_ms=step_ms, eval_ms=eval_ms, history=rows.tolist(),
+                  launches=counts)
+
+    # one train step's device time, on a batch of the train split
+    train = get_dataset(name, **copy.deepcopy(
+        rcfg["dataset"]["train"])).arrays()[:3]
+    batches = [[a[i:i + bs] for a in train]
+               for i in range(0, len(train[0]) - bs + 1, bs)]
+    prof = device_profile(torch, lambda: eng.train_step(*batches[0]), 3)
+    by_kernel = {}
+    for key, ms in prof.items():
+        kname = dstd_kernel_of(key, bf16_reduce=True)
+        if kname is not None:
+            by_kernel[kname] = by_kernel.get(kname, 0.0) + ms
+    step_dev = sum(prof.values())
+    print(f"{label}: train step device "
+          + (f"{step_dev:.3f} ms; DSTD-GC kernels {by_kernel}" if prof
+             else "not measured (the profiler recorded nothing)"))
+    check(set(by_kernel) <= set(BF16_FORWARD + BF16_BACKWARD),
+          f"{label}: a float32 DSTD-GC kernel ran in the step: {by_kernel}")
+    report.update(step_device_ms=step_dev, step_dstd_ms=by_kernel)
+    report["step_check"] = bf16_step_check(torch, fused, device, rcfg,
+                                           batches, steps, per_fwd)
+
+    # the fused eval sweep on the trained state, then a batch's times and
+    # one calibrated batch by phase 10's rule
+    trunner, report["fused"], fcounts = fused_sweep(
+        torch, np, fused, device, config(),
+        os.path.join(run_dir, "checkpoints", "best.ckpt"),
+        os.path.join(out, f"{name}_tpu_fused"), history, mcfg, True,
+        label)
+    report["forward_ms"] = forward_times(torch, trunner.engine,
+                                         train[0][:bs], label)
+    report["fused_check"] = fused_bf16_check(
+        torch, fused, trunner.engine, train[0][:bs],
+        {"dstd_encoder_chain_bf16": 1}, label)
+    return report, {f"{name}_tpu": counts, f"{name}_tpu_fused": fcounts}
+
+
+def fast_run(torch, np, fused, device, out):
+    """Phase 15 (c): ``synthetic_h36m_fast_train`` through ``main.run``
+    for one epoch and an eval sweep: exact launches of the float32 one-op
+    kernels (8 of each forward kernel a step, 4 an eval batch, 8 backward
+    calls a step), finite losses; one step against the plain path by phase
+    7's rules (``train_step_check``); the fused eval sweep on the trained
+    state (1 ``dstd_encoder_chain`` and 2 + 2 one-op launches a batch)
+    within TOL relative of the training run's standard sweep; a batch's
+    standard and fused forward times.  Returns (report, {run:
+    launches})."""
+    from dstdgcn_tpu_torch import configs
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.main import run
+    from dstdgcn_tpu_torch.utils.config import resolve
+    label = "profiles fast"
+
+    def config():
+        cfg = configs.synthetic_h36m_fast_train()
+        cfg["epoch"] = 1
+        return cfg
+
+    rcfg = resolve(config())
+    bs = rcfg["train_batch_size"]
+    mcfg = rcfg["model"][rcfg["model"]["name"]]
+    run_dir = os.path.join(out, "fast")
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner, history = run(config(), device.type, run_dir=run_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused.launch_counts()
+    eng = runner.engine
+    steps = len(eng.train_step_seconds)
+    evals = rcfg["epoch"] * len(runner.test_batch_seconds)
+    rows = np.asarray(history, dtype=np.float64)
+    step_ms = [s * 1e3 for s in eng.train_step_seconds]
+    eval_ms = [s * 1e3 for s in runner.test_batch_seconds]
+    n_train = rcfg["dataset"]["train"]["synthetic"]["num_sequences"]
+    print(f"{label}: main.run on {device.type} in {wall:.2f} s, {steps} "
+          f"train steps of {bs} and {evals} eval batches; wall ms per "
+          f"train step {[round(m, 3) for m in step_ms]}, per eval batch "
+          f"{[round(m, 3) for m in eval_ms]}; per epoch {rows.tolist()}; "
+          f"launches {counts}")
+    check(model_is_fast(eng.model) and eng.model.active_dtype is None,
+          f"{label}: the model is not the float32 fast variant")
+    check(steps == rcfg["epoch"] * -(-n_train // bs),
+          f"{label}: {steps} train steps")
+    check(bool(np.all(np.isfinite(rows))), f"{label}: non-finite {rows}")
+    want = profile_launches(fused, mcfg, steps, evals)
+    check(counts == want, f"{label}: launched {counts}, expected {want}")
+    report = dict(wall=wall, steps=steps, evals=evals, step_ms=step_ms,
+                  eval_ms=eval_ms, history=rows.tolist(), launches=counts)
+
+    batch = [a[:bs] for a in get_dataset(
+        "synthetic", **rcfg["dataset"]["train"]).arrays()[:3]]
+    prof = device_profile(torch, lambda: eng.train_step(*batch), 3)
+    report["step_device_ms"] = sum(prof.values())
+    print(f"{label}: train step device "
+          + (f"{report['step_device_ms']:.3f} ms" if prof
+             else "not measured (the profiler recorded nothing)"))
+    per_step = 2 * sum(mode == "spatial"
+                       for mode, _, _ in forward_shapes(mcfg))
+    report["step_check"], _ = train_step_check(
+        torch, fused, eng, rcfg, batch, label, fwd_per_step=per_step,
+        bwd_per_step=per_step)
+
+    trunner, report["fused"], fcounts = fused_sweep(
+        torch, np, fused, device, config(),
+        os.path.join(run_dir, "checkpoints", "best.ckpt"),
+        os.path.join(out, "fast_fused"), history, mcfg, False, label)
+    check(report["fused"]["max_rel"] <= TOL,
+          f"{label}: the fused sweep lies {report['fused']['max_rel']} "
+          "from the standard sweep (relative)")
+    report["forward_ms"] = forward_times(torch, trunner.engine, batch[0],
+                                         label)
+    return report, {"fast": counts, "fast_fused": fcounts}
+
+
+def model_is_fast(model):
+    """Whether every DSTD-GC op of ``model`` aggregates on the left (the
+    fast variant) and goes through the kernel wrappers."""
+    from dstdgcn_tpu_torch.models.layers import DSTDGC
+    ops = [m for m in model.modules() if isinstance(m, DSTDGC)]
+    return model.fast and all(op.agg == "left" and op.routed()
+                              for op in ops)
+
+
+def profiles_phase(torch, np, fused, plain, plain_bwd, device):
+    """Phase 15, the remaining configurations: (a) the bf16 one-op kernels
+    at the CMU and 3DPW models' shapes at batch 128 (``bf16_kernel_checks``,
+    phase 3's bf16 rules), the float32 one-op kernels at the fast model's
+    (``real_op_checks`` at its batch, timed at agg left), and the encoder
+    kernels on each model's calibrated encoder (float32 by phase 3's rule,
+    ``encoder_checks``; bf16 by phase 3's chain rules,
+    ``bf16_chain_checks``); (b) ``profile_run`` for each of PROFILES on
+    the seeded trees of phase 11 (REAL_TREES), removed after; (c)
+    ``fast_run``.  Returns (report, {run: launches})."""
+    from dstdgcn_tpu_torch import configs
+    from dstdgcn_tpu_torch.data import get_dataset
+    from dstdgcn_tpu_torch.utils.config import resolve
+    start = time.perf_counter()
+    out = os.path.join(OUT_DIR, "profiles")
+    data = os.path.join(out, "data")
+    shutil.rmtree(out, ignore_errors=True)
+    paths = {"cmu": write_cmu_tree(os.path.join(data, "cmu"),
+                                   **REAL_TREES["cmu"]),
+             "3dpw": write_pw3d_tree(os.path.join(data, "3dpw"),
+                                     **REAL_TREES["3dpw"])}
+    max_err = dict.fromkeys(KERNELS, 0.0)
+    checks, kernel_ms, launches = [], {}, {}
+
+    def record(config, name, entry):
+        kernel_ms.setdefault(name, {})[config] = entry
+
+    # (a) the kernels at the new shapes
+    for name in PROFILES:
+        rcfg = resolve(configs.set_data_paths(
+            getattr(configs, f"real_{name}_tpu_train")(), *paths[name]))
+        mcfg = rcfg["model"]["dstdgcn"]
+        t = mcfg["input_time_frame"] + mcfg["output_time_frame"]
+        v, n = mcfg["joints_to_consider"], rcfg["train_batch_size"]
+        timings = {}
+        checks += bf16_kernel_checks(torch, np, fused, plain, plain_bwd,
+                                     device, n, forward_shapes(mcfg),
+                                     timings, max_err, t=t, v=v,
+                                     f64_hold=True)
+        # the encoder's input from the tree's train windows, the model at
+        # float32 on the plain ops (``encoder_case``)
+        f32 = copy.deepcopy(rcfg)
+        f32["model"]["dstdgcn"].update(compute_dtype=None,
+                                       agg_group_spatial=None,
+                                       agg_group_temporal=None)
+        inputs = get_dataset(name, **copy.deepcopy(
+            rcfg["dataset"]["train"])).arrays()[0]
+        checks += encoder_checks(torch, fused, f32, inputs[:N], "right",
+                                 timings, max_err, name)
+        checks += bf16_chain_checks(torch, fused, plain, f32, inputs, n,
+                                    "right", timings, max_err,
+                                    bases=("dstd_encoder_chain",))
+        for kname in BF16_FORWARD + BF16_BACKWARD:
+            record(name, kname, summed_ms(timings, kname, mcfg, n, t, v,
+                                          "right", torch.bfloat16))
+        for kname, bn, dtype in (("dstd_encoder_chain", N, None),
+                                 ("dstd_encoder_chain_bf16", n,
+                                  torch.bfloat16)):
+            k_ms, p_ms = timings[(kname, "right")][:2]
+            b_ms, t_ops, t_mem = bound_of(*chain_cost(
+                bn, mcfg["num_feature"], mcfg["num_layers"], True, dtype,
+                t, v))
+            record(name, kname, dict(
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by="operations" if t_ops >= t_mem else "bytes",
+                calls=1, n=bn, t=t, v=v, agg="right"))
+    fcfg = resolve(configs.synthetic_h36m_fast_train())
+    fm = fcfg["model"][fcfg["model"]["name"]]
+    t = fm["input_time_frame"] + fm["output_time_frame"]
+    v, n = fm["joints_to_consider"], fcfg["train_batch_size"]
+    timings = {}
+    checks += real_op_checks(torch, np, fused, plain, plain_bwd, device,
+                             "fast", t, v, forward_shapes(fm),
+                             tag="profiles", n=n, timings=timings,
+                             timed_agg="left")
+    inputs = get_dataset("synthetic", **fcfg["dataset"]["train"]).input_seqs
+    checks += encoder_checks(torch, fused, fcfg, inputs[:n], "left",
+                             timings, max_err, "fast")
+    for kname in FORWARD + BACKWARD:
+        record("fast", kname, summed_ms(timings, kname, fm, n, t, v, "left"))
+    k_ms, p_ms = timings[("dstd_encoder_chain", "left")][:2]
+    b_ms, t_ops, t_mem = bound_of(*chain_cost(
+        n, fm["num_feature"], fm["num_layers"], True, None, t, v))
+    record("fast", "dstd_encoder_chain", dict(
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by="operations" if t_ops >= t_mem else "bytes", calls=1, n=n,
+        t=t, v=v, agg="left"))
+    kernels_s = time.perf_counter() - start
+    print(f"profiles: kernel checks {kernels_s:.1f} s; device ms at the "
+          "new shapes " + json.dumps(kernel_ms))
+
+    # (b) the two profiles, (c) the fast variant
+    report = dict(checks=checks, kernel_ms=kernel_ms, max_err=max_err,
+                  kernels_seconds=kernels_s)
+    for name in PROFILES:
+        report[name], got = profile_run(torch, np, fused, device, name,
+                                        paths[name], out)
+        launches.update(got)
+    report["fast"], got = fast_run(torch, np, fused, device, out)
+    launches.update(got)
+    # the trees are rebuilt from their seeds by every run
+    shutil.rmtree(data)
+    report["seconds"] = time.perf_counter() - start
+    print(f"profiles: phase 15 {report['seconds']:.1f} s")
+    return report, launches
+
+
 def run_smoke():
     import numpy as np
     import torch
@@ -3761,46 +4347,8 @@ def run_smoke():
                  ("dstd_chain", fused.pack_chain(blocks),
                   fused._chain_oracle, blocks))
         for name, arg, ref, given in cases:
-            kernel = getattr(fused, name)
-
-            def call(kernel=kernel, arg=arg, agg=agg):
-                with torch.no_grad():
-                    return kernel(h, arg, agg)
-
-            def plain_call(ref=ref, given=given, agg=agg):
-                with torch.no_grad():
-                    return ref(h, given, agg)
-
-            before = kernel.launches
-            got = call()
-            again = call()
-            torch.cuda.synchronize()
-            check(kernel.launches == before + 2,
-                  f"{name} did not count its launches")
-            check(bool(torch.equal(got, again)),
-                  f"{name} agg={agg}: two calls differ")
-            want = plain_call()
-            abs_err = float((got - want).abs().max())
-            norm_err = abs_err / max(float(want.abs().max()), 1.0)
-            k_call = time_ms(torch, call, 20)
-            k_ms, k_by = device_ms(torch, call, 20)
-            p_ms, p_by = device_ms(torch, plain_call, 5)
-            b_ms, t_ops, t_mem = bound_of(*chain_cost(
-                N, feat, n_layers, name == "dstd_encoder_chain"))
-            timings[(name, agg)] = (k_ms, p_ms, k_call, k_by, None)
-            max_err[name] = max(max_err[name], abs_err)
-            line = dict(kernel=name, agg=agg, n=N, c=feat, layers=n_layers,
-                        max_abs_err=abs_err, max_norm_err=norm_err,
-                        peak=float(want.abs().max()), ok=norm_err <= TOL,
-                        ms=k_ms, plain_ms=p_ms, call_ms=k_call,
-                        timed_by=[k_by, p_by], bound_ms=b_ms,
-                        bound_by="operations" if t_ops >= t_mem
-                        else "bytes")
-            chain_checks.append(line)
-            print("check " + json.dumps(line))
-            check(norm_err <= TOL, f"{name} agg={agg} disagrees with its "
-                                   f"plain version: {norm_err} of "
-                                   "max(|plain|, 1)")
+            chain_checks.append(chain_check(torch, fused, name, h, arg, ref,
+                                            given, agg, timings, max_err))
         # gradients of x and every weight: kernel path, plain path, and the
         # plain path in float64 beside them
         g = torch.randn(h.shape, device=device,
@@ -4210,7 +4758,12 @@ def run_smoke():
     report["axes"], acounts = axis_phase(torch, np, fused, plain, plain_bwd,
                                          device)
 
-    # 15. the kernels line.  One-op kernels: times summed over the 7 calls
+    # 15. the remaining configurations: the CMU and 3DPW TPU profiles at
+    # batch 128 in bf16 and the fast variant through the kernels
+    report["profiles"], pcounts = profiles_phase(torch, np, fused, plain,
+                                                 plain_bwd, device)
+
+    # 16. the kernels line.  One-op kernels: times summed over the 7 calls
     # of one forward (or of its backward) at their (Ci, Co), with the
     # model's aggregation, N=32 for the float32 kernels and N=128 (the bf16
     # slice's batch) for the bf16 variants; launches those of the training
@@ -4272,6 +4825,8 @@ def run_smoke():
             dp_launches={k: c[name] for k, c in dcounts.items()},
             axis_launches={cfg: {r: c[name] for r, c in per.items()}
                            for cfg, per in acounts.items()},
+            profile_launches={run: c[name] for run, c in pcounts.items()},
+            profile_ms=report["profiles"]["kernel_ms"].get(name, {}),
             timed_by="+".join(sorted(timed_by))))
         if name in FORWARD + BACKWARD:
             kernels[-1].update(remat_launches=ecounts[name])

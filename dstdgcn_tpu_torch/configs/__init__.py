@@ -5,8 +5,10 @@
 ``SYNTHETIC_H36M_GRAPH_TRAIN``, ``SYNTHETIC_H36M_MODEL_TRAIN``,
 ``SYNTHETIC_H36M_FAST_GRAPH_TRAIN``, ``SYNTHETIC_H36M_ENGINE_TRAIN``,
 ``SYNTHETIC_H36M_TPU_TRAIN``, ``SYNTHETIC_H36M_TPU_FUSED``,
-``REAL_H36M_TRAIN``, ``REAL_CMU_TRAIN`` and ``REAL_3DPW_TRAIN`` equal the YAML files of the same names in lower case
-as ``yaml.safe_load`` reads them (``!!python`` values unresolved); pass
+``SYNTHETIC_H36M_FAST_TRAIN``, ``REAL_H36M_TRAIN``, ``REAL_CMU_TRAIN``,
+``REAL_3DPW_TRAIN``, ``REAL_CMU_TPU_TRAIN`` and ``REAL_3DPW_TPU_TRAIN``
+equal the YAML files of the same names in lower case as
+``yaml.safe_load`` reads them (``!!python`` values unresolved); pass
 either form to :func:`dstdgcn_tpu_torch.main.run`.  The real-data configs
 read their files from each split's ``data_path``, which the caller sets
 (:func:`set_data_paths`).  The functions of the same names in lower case
@@ -25,12 +27,14 @@ __all__ = ["SYNTHETIC_H36M_SERVING", "synthetic_h36m_serving",
            "SYNTHETIC_H36M_MODEL_TRAIN", "synthetic_h36m_model_train",
            "SYNTHETIC_H36M_FAST_GRAPH_TRAIN",
            "synthetic_h36m_fast_graph_train",
+           "SYNTHETIC_H36M_FAST_TRAIN", "synthetic_h36m_fast_train",
            "SYNTHETIC_H36M_ENGINE_TRAIN", "synthetic_h36m_engine_train",
            "SYNTHETIC_H36M_TPU_TRAIN", "synthetic_h36m_tpu_train",
            "SYNTHETIC_H36M_TPU_FUSED", "synthetic_h36m_tpu_fused",
            "REAL_H36M_TRAIN", "real_h36m_train", "REAL_CMU_TRAIN",
            "real_cmu_train", "REAL_3DPW_TRAIN", "real_3dpw_train",
-           "set_data_paths"]
+           "REAL_CMU_TPU_TRAIN", "real_cmu_tpu_train",
+           "REAL_3DPW_TPU_TRAIN", "real_3dpw_tpu_train", "set_data_paths"]
 
 _SYNTHETIC = dict(layout="h36m", num_sequences=256, input_n=10, output_n=25,
                   dct_used=0, mirror=False)
@@ -178,6 +182,18 @@ SYNTHETIC_H36M_FAST_GRAPH_TRAIN["model"] = {
 
 def synthetic_h36m_fast_graph_train() -> dict:
     return copy.deepcopy(SYNTHETIC_H36M_FAST_GRAPH_TRAIN)
+
+
+#: the fast variant on one device through the CUDA kernels: the model of
+#: configs/dstdgcn_fast_multihost.yaml with use_pallas, no parallel block
+#: (every DSTD-GC op through the kernels with the left aggregation)
+SYNTHETIC_H36M_FAST_TRAIN = copy.deepcopy(SYNTHETIC_H36M_FAST_GRAPH_TRAIN)
+del SYNTHETIC_H36M_FAST_TRAIN["parallel"]
+SYNTHETIC_H36M_FAST_TRAIN["model"]["use_pallas"] = True
+
+
+def synthetic_h36m_fast_train() -> dict:
+    return copy.deepcopy(SYNTHETIC_H36M_FAST_TRAIN)
 
 
 #: the training config with the engine's remaining blocks: every DSTD-GC op
@@ -334,6 +350,35 @@ def real_cmu_train() -> dict:
 
 def real_3dpw_train() -> dict:
     return copy.deepcopy(REAL_3DPW_TRAIN)
+
+
+def _tpu_profile(real: dict) -> dict:
+    """A real-data config at the TPU profile of its dataset
+    (configs/dstdgcn_<name>_tpu.yaml): the "auto" knobs and the rbg PRNG,
+    cut to the batch of 128 where "auto" resolves to bf16 and one epoch of
+    4 steps."""
+    cfg = copy.deepcopy(real)
+    cfg.update(train_batch_size=128, test_batch_size=128, epoch=1)
+    cfg["model"]["dstdgcn"].update(compute_dtype="auto",
+                                   agg_group_spatial="auto",
+                                   agg_group_temporal="auto")
+    cfg["engine"] = dict(prng_impl="rbg", **cfg["engine"])
+    cfg["engine"]["max_iter"] = 4
+    return cfg
+
+
+#: configs/dstdgcn_cmu_tpu.yaml's blocks: T = 35, V = 25, bf16 at batch 128
+REAL_CMU_TPU_TRAIN = _tpu_profile(REAL_CMU_TRAIN)
+#: configs/dstdgcn_3dpw_tpu.yaml's blocks: T = 40, V = 23, bf16 at batch 128
+REAL_3DPW_TPU_TRAIN = _tpu_profile(REAL_3DPW_TRAIN)
+
+
+def real_cmu_tpu_train() -> dict:
+    return copy.deepcopy(REAL_CMU_TPU_TRAIN)
+
+
+def real_3dpw_tpu_train() -> dict:
+    return copy.deepcopy(REAL_3DPW_TPU_TRAIN)
 
 
 def set_data_paths(cfg: dict, train: str, test: str) -> dict:

@@ -12,7 +12,8 @@ dtype) at BF16_TOL, each check below half of its own bf16-versus-float32
 gap: two right implementations that sum in another order can round an
 intermediate to neighbouring bf16 values.  The tile cases (``TILE_CASES``,
 at bf16 and at float32) hold an output past its bound if it lies near the
-float64 run of the contract (``F64_NOISE``), and so are x's gradient in
+float64 run of the contract (``F64_NOISE``; at the profiles' shapes one
+row of a bf16 output may flip, ``_flip_rows``), and so are x's gradient in
 the bf16 autograd test and the bf16 chain cases (``chip_smoke.py::
 chain_held``, which phase 3 of ``chip_smoke.py`` holds its chain checks
 by).  The float32 chain gradient is held the same way against a wider
@@ -259,22 +260,25 @@ def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, cin, co):
 
 #: (mode, tile, N, T, V, Ci, Co, agg): ragged shapes at every tile, then
 #: the edges of the tensor-core tiles of the backward kernels (16 x 8 x 16
-#: bf16, 16 x 8 x 8 3xTF32).  Spatial: V of 7, 22 and 25 joints (the pair
-#: axis, rows and depth of the dA and dxf products; 22 H36M, 25 CMU).
+#: bf16, 16 x 8 x 8 3xTF32).  Spatial: V of 7, 22, 23 and 25 joints (the
+#: pair axis, rows and depth of the dA and dxf products; 22 H36M, 23 3DPW,
+#: 25 CMU) by T of 20, 35 and 40 frames (the mixing axis and the feature
+#: rows: the fast model's 10 + 10, H36M's and CMU's 35, 3DPW's 40).
 #: Temporal: T of 9, 35 and 40 frames (the pair axis: rows and depth of dA
-#: and dxf, and the T*T depth of dwrm, split over warps) by V of 7, 22 and
-#: 25 joints (the mixing axis: dwrm's columns, a ragged last tile of output
-#: joints).  Both: one and three samples, channel pairs below, across and
-#: at the 16-wide depth, tiles 1, 5 and 8 (the feature rows, tile x the
-#: pair axis), both aggregations.  Run at bf16 and at float32.
+#: and dxf, and the T*T depth of dwrm, split over warps) by V of 7, 22, 23
+#: and 25 joints (the mixing axis: dwrm's columns, a ragged last tile of
+#: output joints).  Both: one and three samples, channel pairs below,
+#: across and at the 16-wide depth, tiles 1, 5 and 8 (the feature rows,
+#: tile x the pair axis), both aggregations.  Run at bf16 and at float32.
 TILE_CASES = (
     [(mode, tile, 3, 9, 7, 5, 4, "right") for mode in ("spatial", "temporal")
      for tile in (1, 3, 8)]
-    + [("spatial", tile, n, 35, v, cin, co, agg) for v in (7, 22, 25)
+    + [("spatial", tile, n, t, v, cin, co, agg) for t in (20, 35, 40)
+       for v in (7, 22, 23, 25)
        for n in (1, 3) for cin, co in ((3, 3), (6, 64), (64, 3))
        for tile in (1, 5, 8) for agg in ("right", "left")]
     + [("temporal", tile, n, t, v, cin, co, agg) for t in (9, 35, 40)
-       for v in (7, 22, 25) for n in (1, 3)
+       for v in (7, 22, 23, 25) for n in (1, 3)
        for cin, co in ((3, 3), (6, 64), (64, 3)) for tile in (1, 5, 8)
        for agg in ("right", "left")])
 #: a bf16 tile case's output that lies farther than BF16_TOL from the
@@ -295,13 +299,18 @@ TILE_CASES = (
 #: Measured on the H100 over the tile cases (``bwd_profile.py --cases``,
 #: PERF.md): where a right kernel lies past the bound, its distance to the
 #: float64 run is at most 1.00 (bf16) and 0.57 (float32) times the plain
-#: contract's; a 6b whose dx misses joint 0 lies 111 times or more past
-#: this check's bound, one whose dx is 1% off 2.85 times or more.
+#: contract's, but for the one flip of F9 (``_bf16_tile_held``).  Over the
+#: 870 bf16 cases a 5b or 6b whose dx misses joint 0 lies 111 times or
+#: more past the card test's rule, one whose dx is 1% off 2.30 times or
+#: more (2.85 at the shapes before the profiles'), 0.5% off 1.15 times or
+#: more; a dx rounded to bf16 once more (at most 0.39% of an element)
+#: passes on 57 cases, all within F4's rule (the flip-row rule holds no
+#: faulty case that F4's rule refuses).
 F64_NOISE = 2.0
 
 
 def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
-               fwd=None, passes=("forward", "backward")):
+               fwd=None, passes=("forward", "backward"), rows=False):
     """One tile case (seeded inputs, seed 1; cotangent seed 2) through the
     kernels at ``dtype`` (None: float32) in ``passes``: {output: (distance
     to the plain contract, the kernel's distance to the contract's float64
@@ -309,7 +318,14 @@ def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
     CPU)} for the forward (over the peak |output|) and each of the
     backward's 11 gradients (over max(max |.|, 1)), and whether two calls
     of each pass gave the same bits.  ``bwd`` replaces the backward kernel
-    and ``fwd`` the forward launch (a broken one, say)."""
+    and ``fwd`` the forward launch (a broken one, say).  With ``rows`` (a
+    bf16 case) it returns as well {output: worst row ratio} of the
+    flip-row rule (``_flip_rows``) for the forward and dx, the outputs
+    laid out in (sample, frame, joint) rows of channels, over the plain
+    contract's runs on the card, on the CPU and on x moved by one float32
+    rounding (``chip_smoke.ROUNDING_RUNS`` runs, x + x d, d uniform in
+    +-2^-24 from ``chip_smoke.rounding_deltas``, seeded: F7's
+    population)."""
     args = _inputs(mode, n, t, v, cin, co, device, seed=1)
     g = torch.from_numpy(np.random.RandomState(2).randn(
         n, t, v, co).astype(np.float32)).to(device)
@@ -324,18 +340,28 @@ def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
         return (dist(got, want, norm), dist(got, want64, norm64),
                 dist(want, want64, norm64), dist(want_cpu, want64, norm64))
 
-    out, same = {}, True
+    # x moved by one float32 rounding, once a run of the population
+    moved = [args[0] + args[0] * d for (d,) in cs.rounding_deltas(
+        torch, args[0].shape, 1, seed=1, device=device)] if rows else []
+
+    out, ratios, same = {}, {}, True
     if "forward" in passes:
         fwd = fwd or getattr(fused, f"dstd_{mode}").launch
         got = fwd(*args, agg=agg, dtype=dtype, tile=tile)
         same = torch.equal(got, fwd(*args, agg=agg, dtype=dtype, tile=tile))
         ref = getattr(plain, f"kernel_{mode}")
         want, want64 = ref(*args, agg, dtype), ref(*wide, agg, dtype)
-        out["forward"] = held(got, want, ref(*on_cpu[1:], agg, dtype),
-                              want64, float(want.abs().max()),
-                              float(want64.abs().max()))
+        want_cpu, norm64 = ref(*on_cpu[1:], agg, dtype), float(
+            want64.abs().max())
+        out["forward"] = held(got, want, want_cpu, want64,
+                              float(want.abs().max()), norm64)
+        if rows:
+            ratios["forward"] = _flip_rows(
+                got, want, float(want.abs().max()), want64, norm64,
+                want_cpu, [ref(x, *args[1:], agg, dtype) for x in moved],
+                BF16_TOL["forward"])
     if "backward" not in passes:
-        return out, same
+        return (out, same, ratios) if rows else (out, same)
     bwd = bwd or getattr(fused, f"dstd_{mode}_bwd")
     grads = bwd(args[0], g, *args[1:], agg=agg, dtype=dtype, tile=tile)
     again = bwd(args[0], g, *args[1:], agg=agg, dtype=dtype, tile=tile)
@@ -347,28 +373,100 @@ def _tile_case(mode, tile, n, t, v, cin, co, agg, device, dtype, bwd=None,
                                     want64):
         out[name] = held(a, b, b_cpu, c, max(float(b.abs().max()), 1.0),
                          max(float(c.abs().max()), 1.0))
-    return out, same and all(torch.equal(a, b)
-                             for a, b in zip(grads, again))
+    if rows:
+        ratios["dx"] = _flip_rows(
+            grads[0], want[0], max(float(want[0].abs().max()), 1.0),
+            want64[0], max(float(want64[0].abs().max()), 1.0), want_cpu[0],
+            [ref(x, g, *args[1:], agg=agg, dtype=dtype)[0] for x in moved],
+            BF16_TOL["backward"])
+    same = same and all(torch.equal(a, b) for a, b in zip(grads, again))
+    return (out, same, ratios) if rows else (out, same)
 
 
-def _held(dtype, name, err, kernel64, *plain64):
-    """Whether a tile case holds one output: within its bound of the plain
-    contract (float32 1e-4, bf16 BF16_TOL) or, failing that, near the
-    contract's float64 run as F64_NOISE says (``plain64``: the plain
-    contract's distances to it in its two summation orders)."""
+def _f4_ratio(dtype, name, err, kernel64, *plain64):
+    """A tile case's output by F4's rule, as the smaller of two ratios (held
+    at 1 or below): its distance to the plain contract over its bound
+    (float32 1e-4, bf16 BF16_TOL), and its distance to the contract's
+    float64 run over max(bound, F64_NOISE x the plain contract's own
+    distance to that run in its two summation orders, ``plain64``)."""
     tol = 1e-4 if dtype is None else BF16_TOL[
         "forward" if name == "forward" else "backward"]
-    return err <= tol or kernel64 <= max(tol, F64_NOISE * max(plain64))
+    return min(err / tol, kernel64 / max(tol, F64_NOISE * max(plain64)))
+
+
+def _held(dtype, name, *dists):
+    """Whether a tile case holds one output by F4's rule."""
+    return _f4_ratio(dtype, name, *dists) <= 1
+
+
+def _flip_rows(got, want, norm, want64, norm64, want_cpu, runs, tol):
+    """The flip-row rule's ratio (held at 1 or below).  Over the (sample,
+    frame, joint) rows, each row by F4's rule (``_f4_ratio``: ``got``
+    against the plain contract ``want`` over ``norm``, or against its
+    float64 run ``want64`` over ``norm64`` beside the plain contract's own
+    row on the card and on the CPU, ``want_cpu``), except the worst row,
+    which may lie as far from ``want64`` as max(``tol``, F64_NOISE x the
+    farthest that any run of the plain contract lies anywhere: the two
+    summation orders and ``runs``, those on x moved by one float32
+    rounding).  One rounding flip, of the size right runs show; every
+    other row as F4 holds the whole output."""
+    def rows(a, b, scale):
+        return (a.double().to(b.device) - b.double()).abs().amax(-1) / scale
+
+    k64 = rows(got, want64, norm64)
+    orders = torch.maximum(rows(want, want64, norm64),
+                           rows(want_cpu, want64, norm64))
+    per_row = torch.minimum(rows(got, want, norm) / tol,
+                            k64 / (F64_NOISE * orders).clamp(min=tol))
+    flip = max(float(orders.max()), *(float(rows(r, want64, norm64).max())
+                                      for r in runs))
+    worst = int(per_row.argmax())
+    rest = per_row.flatten().clone()
+    rest[worst] = 0.0
+    return max(float(rest.max()), min(float(per_row.flatten()[worst]), float(
+        k64.flatten()[worst]) / max(tol, F64_NOISE * flip)))
+
+
+def _profile_shape(mode, t, v):
+    """Whether a tile case lies at a shape of the CMU, 3DPW and fast
+    profiles that the earlier cases lacked: 3DPW's 23 joints, or the
+    spatial op at the fast model's 20 frames or 3DPW's 40."""
+    return v == 23 or (mode == "spatial" and t in (20, 40))
+
+
+def _bf16_tile_held(case, device, bwd=None, fwd=None,
+                    passes=("forward", "backward")):
+    """A bf16 tile case: ({output: held}, whether two calls gave the same
+    bits, the distances, {output: flip-row ratio}).  Each output is held by
+    F4's rule (``_held``).  At a profile shape (``_profile_shape``) the
+    forward or dx past it is held, failing that, by the
+    flip-row rule (F9, ``_flip_rows``): a rounding flip of a bf16
+    intermediate in one (sample, frame, joint) row moves that row's dx
+    over all channels by a bf16 step, and at T = 40 the plain contract's
+    two summation orders do not span such flips (the kernel lay 1.79e-3
+    from float64 on one case, all in one row, the plain contract on the
+    card 6.8e-4, on x moved by one float32 rounding up to 1.87e-3 in other
+    rows), so one row may flip as far as such runs do and every other row
+    is held by F4's rule.  The cases at the earlier shapes keep F4's rule
+    alone."""
+    held, repeat = _tile_case(*case, device, torch.bfloat16, bwd, fwd, passes)
+    ok = {name: _held(torch.bfloat16, name, *d) for name, d in held.items()}
+    ratios = {}
+    if not all(ok.values()) and _profile_shape(case[0], *case[3:5]):
+        _, _, ratios = _tile_case(*case, device, torch.bfloat16, bwd, fwd,
+                                  passes, rows=True)
+        for name, ratio in ratios.items():
+            ok[name] = ok[name] or ratio <= 1
+    return ok, repeat, held, ratios
 
 
 @pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", TILE_CASES)
 def test_bf16_kernels_tiles_and_ragged_shapes(cuda, mode, tile, n, t, v, cin,
                                               co, agg):
-    held, repeat = _tile_case(mode, tile, n, t, v, cin, co, agg, cuda,
-                              torch.bfloat16)
+    ok, repeat, held, ratios = _bf16_tile_held(
+        (mode, tile, n, t, v, cin, co, agg), cuda)
     assert repeat
-    assert all(_held(torch.bfloat16, name, *d) for name, d in held.items()), \
-        held
+    assert all(ok.values()), (held, ratios)
 
 
 @pytest.mark.parametrize("mode,tile,n,t,v,cin,co,agg", TILE_CASES)
@@ -560,11 +658,11 @@ CHAIN_SHAPES = [(32, 35, 64), (1, 35, 64), (3, 35, 64), (3, 8, 64),
                 (2, 10, 6)]
 
 
-def _encoder_case(agg, n, t, v, c, device):
-    """The float32 encoder kernel (5 seeded layers; x seeded by n) at
-    (N, T, V, C): two launches, the same bits, within 1e-4 of max(|plain|,
-    1) of ``_encoder_oracle``."""
-    layers = _chain_layers(5, t, v, c, device, encoder=True)
+def _encoder_case(agg, n, t, v, c, device, count=5):
+    """The float32 encoder kernel (``count`` seeded layers; x seeded by n)
+    at (N, T, V, C): two launches, the same bits, within 1e-4 of
+    max(|plain|, 1) of ``_encoder_oracle``."""
+    layers = _chain_layers(count, t, v, c, device, encoder=True)
     x = torch.randn(n, t, v, c, device=device,
                     generator=torch.Generator(device).manual_seed(n))
     kernel = fused.dstd_encoder_chain
@@ -798,8 +896,15 @@ def test_bf16_chain_kernels_match_plain(cuda, encoder, agg, n):
 #: cluster is ceil(T / tile) = 7 blocks at T = 35, and the temporal op's
 #: tiles of ceil(V / 7) = 4 joints leave rank 6 without output joints at
 #: V = 22 and with one at V = 25 (the CMU joints), where ceil(V / tile) = 5
-#: differs from the cluster
-ENCODER_EDGES = [(3, 35, 22, 64), (3, 35, 25, 64)]
+#: differs from the cluster; at 3DPW's T = 40 the cluster reaches
+#: MAX_CLUSTER = 8 blocks of tile 5, and the temporal op's tiles of 3 of
+#: V = 23 joints leave the last rank 2
+ENCODER_EDGES = [(3, 35, 22, 64), (3, 35, 25, 64), (3, 40, 23, 64)]
+#: (N, T, V, C, layers) of the fast model's encoder (2 layers of 16
+#: features, T = 10 + 10, agg left): at T = 20 < V = 22 the joints set the
+#: cluster, 8 blocks of tile ceil(22 / 8) = 3, the last with 1 joint; the
+#: 20 frames fill 7 of them
+FAST_ENCODER_EDGE = (3, 20, 22, 16, 2)
 
 
 @pytest.mark.parametrize("n,t,v,c", ENCODER_EDGES)
@@ -825,6 +930,11 @@ def test_bf16_chain_kernel_at_cluster_edges(cuda, agg, n, t, v, c):
 def test_float32_encoder_chain_kernel_at_cluster_edges(cuda, agg, n, t, v,
                                                        c):
     _encoder_case(agg, n, t, v, c, cuda)
+
+
+def test_float32_encoder_chain_kernel_at_the_fast_models_edge(cuda):
+    n, t, v, c, count = FAST_ENCODER_EDGE
+    _encoder_case("left", n, t, v, c, cuda, count)
 
 
 @pytest.mark.parametrize("agg", ["right", "left"])

@@ -19,7 +19,11 @@ files and probe outcomes, and it kills a child past its deadline.  Phase
 epoch, the launches it expects are one a DSTD-GC op a pass on each rank
 (none on the plain path), the kernel shapes it checks first are those the
 model axis adds, and it counts a step's collectives and restores
-``torch.distributed`` after.  Phase 15 is the kernels line.
+``torch.distributed`` after.  Phase 15's launch arithmetic
+(``profile_launches``) gives the counts a run of the 2-layer fast model
+and of the 5-layer TPU profiles makes, from ``forward_shapes``, and its
+device-time sums (``summed_ms``) cover the calls of one forward.  Phase
+16 is the kernels line.
 """
 
 import os
@@ -628,3 +632,79 @@ def test_counted_collectives_counts_calls_and_restores():
     assert calls == ["all_reduce", "all_reduce", "all_gather_into_tensor",
                      "barrier"]
     assert {name: getattr(fake, name) for name in cs.COLLECTIVES} == before
+
+
+@pytest.mark.parametrize("name,per_fwd", [("synthetic_h36m_fast_train", 4),
+                                          ("real_cmu_tpu_train", 7),
+                                          ("real_3dpw_tpu_train", 7)])
+def test_profile_launches_count_one_launch_an_op_a_pass(name, per_fwd):
+    """Phase 15's expected launches: each op of ``forward_shapes`` (the
+    in-layer, the encoder layers, the out-layer) one launch a forward, a
+    train step two forwards and as many backward calls; the fused eval
+    one encoder launch a batch and, at float32, the in and out layers'
+    2 + 2 one-op launches."""
+    from dstdgcn_tpu_torch.kernels import fused
+    from dstdgcn_tpu_torch.utils.config import resolve
+    cfg = resolve(getattr(configs, name)())
+    mcfg = cfg["model"][cfg["model"]["name"]]
+    shapes = cs.forward_shapes(mcfg)
+    assert sum(m == "spatial" for m, _, _ in shapes) == per_fwd
+    assert sum(m == "temporal" for m, _, _ in shapes) == per_fwd
+    bf16 = mcfg.get("compute_dtype") == "auto"
+    fwd, bwd = ((cs.BF16_FORWARD, cs.BF16_BACKWARD) if bf16
+                else (cs.FORWARD, cs.BACKWARD))
+    got = cs.profile_launches(fused, mcfg, 4, 8, bf16)
+    assert set(got) == set(fused.launch_counts())
+    want = dict.fromkeys(got, 0)
+    want.update(dict.fromkeys(fwd, 2 * per_fwd * 4 + per_fwd * 8))
+    want.update(dict.fromkeys(bwd, fused.BWD_LAUNCHES * 2 * per_fwd * 4))
+    assert got == want
+    if per_fwd == 4:    # the fast model: 8 a step, 4 an eval batch
+        assert got["dstd_spatial"] == 8 * 4 + 4 * 8
+    else:               # the profiles: 14 a step, 7 an eval batch
+        assert got["dstd_spatial_bf16"] == 14 * 4 + 7 * 8
+    swept = cs.profile_launches(fused, mcfg, 0, 8, bf16, fused_eval=True)
+    if bf16:
+        assert swept == dict(dict.fromkeys(got, 0),
+                             dstd_encoder_chain_bf16=8)
+    else:
+        assert swept == dict(dict.fromkeys(got, 0), dstd_encoder_chain=8,
+                             dstd_spatial=16, dstd_temporal=16)
+
+
+def test_summed_ms_covers_the_calls_of_one_forward():
+    cfg = configs.synthetic_h36m_fast_train()["model"]["dstdgcn_fast"]
+    shapes = cs.forward_shapes(cfg)
+    timings = {}
+    for name in ("dstd_spatial", "dstd_spatial_bwd"):
+        for _, ci, co in shapes:
+            timings[(name, ci, co, "left")] = (ci + co, 10.0 * (ci + co),
+                                               0.0, "profiler", None)
+    for name in ("dstd_spatial", "dstd_spatial_bwd"):
+        got = cs.summed_ms(timings, name, cfg, 64, 20, 22, "left")
+        spatial = [(ci, co) for m, ci, co in shapes if m == "spatial"]
+        assert got["calls"] == len(spatial) == 4
+        assert got["ms"] == sum(ci + co for ci, co in spatial)
+        assert got["plain_ms"] == 10 * got["ms"]
+        assert got["bound_ms"] == pytest.approx(sum(
+            cs.bound_ms("spatial", 64, ci, co, name.endswith("_bwd"), None,
+                        20, 22)[0] for ci, co in spatial))
+        assert (got["n"], got["t"], got["v"]) == (64, 20, 22)
+
+
+def test_op_cost_at_a_shape_is_the_flagship_cost_rescaled():
+    """``op_cost`` and ``chain_cost`` take T and V; at the flagship's they
+    are the defaults, and bytes and operations grow with the shape."""
+    for mode in ("spatial", "temporal"):
+        assert cs.op_cost(mode, 32, 64, 64) == cs.op_cost(
+            mode, 32, 64, 64, t=cs.T, v=cs.V)
+        small = cs.op_cost(mode, 32, 64, 64, t=20, v=22)
+        big = cs.op_cost(mode, 32, 64, 64, t=40, v=23)
+        assert all(a < b for a, b in zip(small[:3], big[:3]))
+    assert cs.chain_cost(128, 64, 5, True, torch.bfloat16) == cs.chain_cost(
+        128, 64, 5, True, torch.bfloat16, cs.T, cs.V)
+    assert cs.chain_cost(64, 16, 2, True, t=20, v=22)[1] == 4 * (
+        2 * 64 * 20 * 22 * 16
+        + 2 * (cs.op_weights("spatial", 16, 16, 20, 22)
+               + cs.op_weights("temporal", 16, 16, 20, 22)
+               + 4 * 22 * 16 + 2))
