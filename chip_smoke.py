@@ -2525,8 +2525,8 @@ def write_jax_checkpoint(path, engine, payload):
 
 def trace_kernel_counts(path):
     """{kernel: events} of the four float32 DSTD-GC kernels in a Chrome
-    trace of ``torch.profiler``, and the names of its ``train_step <i>``
-    annotations."""
+    trace of ``torch.profiler``, and the names of its ``engine.step``
+    spans."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     counts = {name: 0 for name, _ in TRACE_KERNELS}
@@ -2541,7 +2541,7 @@ def trace_kernel_counts(path):
     # gpu_user_annotation, repeats the name)
     steps = sorted(e["name"] for e in events
                    if e.get("cat") == "user_annotation"
-                   and str(e.get("name", "")).startswith("train_step "))
+                   and e.get("name") == "engine.step")
     return counts, steps
 
 
@@ -2688,8 +2688,7 @@ def engine_phase(torch, np, fused, device):
           f"{tcounts}, annotations {tsteps}; expected {profile_steps} x "
           f"{per_step}")
     check(tcounts == {k: profile_steps * v for k, v in per_step.items()}
-          and tsteps == [f"train_step {i}"
-                         for i in range(1, profile_steps + 1)],
+          and tsteps == ["engine.step"] * profile_steps,
           f"the trace holds kernel events {tcounts} and steps {tsteps}")
     os.remove(trace)        # tens of MB; the counts stay in the report
     report["slice"] = dict(wall=wall, history=rows.tolist(),

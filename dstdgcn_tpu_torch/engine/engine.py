@@ -17,12 +17,24 @@ Counterpart of ``dstdgcn_tpu/engine/engine.py::PredictionEngine``:
   at ``lr * bias_lr_factor`` with its own weight decay; ``weight_decay``
   defaults to ``learn.weight_decay``) in place of Adam, StepLR driving both
   groups, the clip ahead of it;
-* the epoch loop with ``detect_anomaly`` and the step-timer summary;
-  ``callbacks`` (``log_dir``, ``name``, ``loss_freq``, ``window``): the
-  windowed loss CSV of :class:`..utils.callbacks.CallbackLogger`;
-  ``profile`` (a directory) and ``profile_steps`` (default 5): a
-  ``torch.profiler`` trace of steps ``1 .. profile_steps`` of epoch 0, each
-  step annotated ``train_step <i>`` (:func:`..utils.profiling.trace`);
+* the epoch loop with ``detect_anomaly`` and each epoch's step walls
+  (count, median, p95) in the log; ``callbacks`` (``log_dir``, ``name``,
+  ``loss_freq``, ``window``): the windowed loss CSV of
+  :class:`..utils.callbacks.CallbackLogger`; ``profile`` (a directory) and
+  ``profile_steps`` (default 5): a ``torch.profiler`` trace of steps
+  ``1 .. profile_steps`` of epoch 0 (:func:`..utils.profiling.trace`);
+* spans (:func:`..utils.profiling.span`, recorded only while a profiler
+  records, by ``profile`` or any other): ``engine.step`` around each
+  step, fetch to loss bookkeeping, holding ``engine.forward`` (inputs to
+  the device, both directions' forwards, the losses), ``engine.backward``
+  (``zero_grad``, the backward pass, the zero-fill of unreached leaves,
+  under a mesh the gradient all-reduce), ``engine.optimizer`` (the clip
+  and the optimizer step) and ``engine.sync`` (the synchronize and the
+  losses' read-back); in :meth:`test` each batch's
+  ``engine.eval_forward``, ``engine.eval_metric`` (scatter, ignored
+  joints, MPJPE) and ``engine.readback`` (under a mesh the all-reduce,
+  then the metric to the host); the model's DSTD-GC op calls add
+  ``dstd.op`` (:class:`..models.layers.DSTDGC`);
 * the eval step of ``_build_eval_step`` inside :meth:`test`, through the
   model's forward or, with ``fused_inference``, through the whole-encoder
   kernel (:func:`..models.infer.fused_eval_forward`, weights packed once
@@ -89,6 +101,14 @@ def steplr(lr0: float, gamma: float, step_size: int) -> Callable[[int], float]:
         return lr0 * (gamma ** (epoch // step_size))
 
     return schedule
+
+
+def _walls_summary(walls: List[float]) -> str:
+    """Count, median and 95th percentile of step walls (seconds), in ms."""
+    if not walls:
+        return "no timed steps"
+    med, p95 = 1e3 * np.percentile(np.asarray(walls), [50, 95])
+    return f"{len(walls)} steps | median {med:.2f} ms | p95 {p95:.2f} ms"
 
 
 class PredictionEngine:
@@ -249,30 +269,33 @@ class PredictionEngine:
     @torch.inference_mode()
     def _eval_step(self, forward, inputs, all_seqs, input_n, eval_frame,
                    dim_used, idx_ignore, idx_equal, time_tsfm, scale_tsfm):
-        out = self._serve(inputs, forward, time_tsfm, scale_tsfm)
-        all_seqs = self.to_device(all_seqs)
-        n, seq_len, _ = all_seqs.shape
-        pred = all_seqs.clone()
-        if dim_used is not None:
-            du = torch.as_tensor(dim_used, device=self.device)
-            if out.shape[1] != seq_len:
-                pred[:, input_n:, du] = out
+        with profiling.span("engine.eval_forward"):
+            out = self._serve(inputs, forward, time_tsfm, scale_tsfm)
+        with profiling.span("engine.eval_metric"):
+            all_seqs = self.to_device(all_seqs)
+            n, seq_len, _ = all_seqs.shape
+            pred = all_seqs.clone()
+            if dim_used is not None:
+                du = torch.as_tensor(dim_used, device=self.device)
+                if out.shape[1] != seq_len:
+                    pred[:, input_n:, du] = out
+                else:
+                    pred[:, :, du] = out
+            elif out.shape[1] != seq_len:
+                pred[:, input_n:] = out
             else:
-                pred[:, :, du] = out
-        elif out.shape[1] != seq_len:
-            pred[:, input_n:] = out
-        else:
-            pred = out
-        if idx_ignore is not None:
-            ii = torch.as_tensor(idx_ignore, device=self.device)
-            ie = torch.as_tensor(idx_equal, device=self.device)
-            pred[:, :, ii] = pred[:, :, ie]
-        pred_p = pred.reshape(n, seq_len, -1, 3)[:, input_n:]
-        targ_p = all_seqs.reshape(n, seq_len, -1, 3)[:, input_n:]
-        # per-eval-frame mean joint L2 (summed over the batch via * n)
-        ef = torch.as_tensor(eval_frame, device=self.device)
-        d = torch.linalg.vector_norm(pred_p[:, ef] - targ_p[:, ef], dim=-1)
-        metric = d.mean(dim=(0, 2)) * n
+                pred = out
+            if idx_ignore is not None:
+                ii = torch.as_tensor(idx_ignore, device=self.device)
+                ie = torch.as_tensor(idx_equal, device=self.device)
+                pred[:, :, ii] = pred[:, :, ie]
+            pred_p = pred.reshape(n, seq_len, -1, 3)[:, input_n:]
+            targ_p = all_seqs.reshape(n, seq_len, -1, 3)[:, input_n:]
+            # per-eval-frame mean joint L2 (summed over the batch via * n)
+            ef = torch.as_tensor(eval_frame, device=self.device)
+            d = torch.linalg.vector_norm(pred_p[:, ef] - targ_p[:, ef],
+                                         dim=-1)
+            metric = d.mean(dim=(0, 2)) * n
         return metric, pred_p
 
     # -- training ---------------------------------------------------------
@@ -317,29 +340,32 @@ class PredictionEngine:
         reach); returns the weighted losses of the forward direction and
         ``total``, the optimized objective (the halved two-direction total
         under inverse training)."""
-        self.model.train()
-        inputs, inputs_inv, targets = (self.to_device(a) for a in
-                                       (inputs, inputs_inv, targets))
-        wvec = None if weights is None else self.to_device(weights)
-        with activation_sharding_context(self.mesh):
-            losses = self._one_pass(inputs, targets, time_tsfm, scale_tsfm,
-                                    wvec)
-            total = functools.reduce(torch.add, losses.values())
-            if self.inverse_training:
-                losses_inv = self._one_pass(inputs_inv, targets.flip(1),
-                                            time_tsfm, scale_tsfm, wvec)
-                total = (total + functools.reduce(torch.add,
-                                                  losses_inv.values())) / 2
-            self.model.zero_grad(set_to_none=True)
-            split = self._split()
-            (total / split if split > 1 else total).backward()
-        for p in self.model.parameters():   # optax updates every parameter
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        out = {name: val.detach() for name, val in losses.items()}
-        out["total"] = total.detach()
-        if self.mesh is not None:
-            self._average_over_data(out)
+        with profiling.span("engine.forward"):
+            self.model.train()
+            inputs, inputs_inv, targets = (self.to_device(a) for a in
+                                           (inputs, inputs_inv, targets))
+            wvec = None if weights is None else self.to_device(weights)
+            with activation_sharding_context(self.mesh):
+                losses = self._one_pass(inputs, targets, time_tsfm,
+                                        scale_tsfm, wvec)
+                total = functools.reduce(torch.add, losses.values())
+                if self.inverse_training:
+                    losses_inv = self._one_pass(inputs_inv, targets.flip(1),
+                                                time_tsfm, scale_tsfm, wvec)
+                    total = (total + functools.reduce(
+                        torch.add, losses_inv.values())) / 2
+        with profiling.span("engine.backward"):
+            with activation_sharding_context(self.mesh):
+                self.model.zero_grad(set_to_none=True)
+                split = self._split()
+                (total / split if split > 1 else total).backward()
+            for p in self.model.parameters():   # optax updates every one
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            out = {name: val.detach() for name, val in losses.items()}
+            out["total"] = total.detach()
+            if self.mesh is not None:
+                self._average_over_data(out)
         return out
 
     def _split(self) -> int:
@@ -424,9 +450,11 @@ class PredictionEngine:
             raise RuntimeError("call init() first")
         losses = self.compute_gradients(inputs, inputs_inv, targets,
                                         time_tsfm, scale_tsfm, weights)
-        if self.clip > 0:
-            self._clip_gradients([p.grad for p in self.model.parameters()])
-        self.optimizer.step()
+        with profiling.span("engine.optimizer"):
+            if self.clip > 0:
+                self._clip_gradients([p.grad
+                                      for p in self.model.parameters()])
+            self.optimizer.step()
         return losses
 
     def set_epoch_lr(self, epoch: int) -> float:
@@ -459,7 +487,7 @@ class PredictionEngine:
         t_l = {name: L.AccumLoss() for name in self.loss_funcs}
         num_iter = (len(train_loader) if max_iter == -1
                     else min(len(train_loader), max_iter))
-        timer = profiling.StepTimer(skip_first=1)
+        first = len(self.train_step_seconds)
         # a profiler trace of steps 1 .. profile_steps of the first epoch
         # (engine.profile: the directory)
         profile_dir = (self.config.get("profile")
@@ -471,52 +499,54 @@ class PredictionEngine:
         it = iter(train_loader)
         with contextlib.ExitStack() as tracing:   # closed on a raise too
             for i in range(num_iter):
-                t0 = time.perf_counter()
-                try:
-                    inputs, inputs_inv, targets, _ = next(it)
-                except StopIteration:
-                    break
-                self.train_fetch_seconds.append(time.perf_counter() - t0)
                 if profile_dir and i == 1:
                     tracing.enter_context(profiling.trace(profile_dir))
                 elif i == 1 + profile_steps:
                     tracing.close()
-                n = inputs.shape[0] * self._data_size()
-                timer.tic()
-                with (torch.profiler.record_function(f"train_step {i}")
-                      if profile_dir and 1 <= i <= profile_steps
-                      else contextlib.nullcontext()):
+                with profiling.span("engine.step"):
+                    t0 = time.perf_counter()
+                    try:
+                        inputs, inputs_inv, targets, _ = next(it)
+                    except StopIteration:
+                        break
+                    t1 = time.perf_counter()
+                    self.train_fetch_seconds.append(t1 - t0)
+                    n = inputs.shape[0] * self._data_size()
                     losses = self.train_step(inputs, inputs_inv, targets,
                                              time_tsfm, scale_tsfm, weights)
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                self.train_step_seconds.append(timer.toc())
-                vals = dict(zip(losses, torch.stack(list(losses.values()))
-                                .tolist()))
-                if detect_anomaly:
-                    bad = [name for name, val in vals.items()
-                           if not np.isfinite(val)]
-                    if bad:
-                        raise FloatingPointError(
-                            f"non-finite loss {bad} at epoch {epoch + 1} "
-                            f"step {i + 1} (lr={self.lr:.2e}); enable "
-                            f"smaller lr or clipping")
-                for name, val in vals.items():
-                    if name == "total":   # the objective, not a loss term
-                        continue
-                    t_l[name].update(val * n, n)
-                if self._callbacks is not None:
-                    self._last_losses = vals
-                    self._callbacks.step()
-                desc = (f"epoch: {epoch + 1}|[{i + 1}/{num_iter}]|train|"
-                        + "".join("{}:{:.2f}|".format(name, t_l[name].avg)
-                                  for name in t_l))
+                    with profiling.span("engine.sync"):
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                        self.train_step_seconds.append(
+                            time.perf_counter() - t1)
+                        vals = dict(zip(losses, torch.stack(
+                            list(losses.values())).tolist()))
+                    if detect_anomaly:
+                        bad = [name for name, val in vals.items()
+                               if not np.isfinite(val)]
+                        if bad:
+                            raise FloatingPointError(
+                                f"non-finite loss {bad} at epoch {epoch + 1} "
+                                f"step {i + 1} (lr={self.lr:.2e}); enable "
+                                f"smaller lr or clipping")
+                    for name, val in vals.items():
+                        if name == "total":   # the objective, not a loss
+                            continue
+                        t_l[name].update(val * n, n)
+                    if self._callbacks is not None:
+                        self._last_losses = vals
+                        self._callbacks.step()
+                    desc = (f"epoch: {epoch + 1}|[{i + 1}/{num_iter}]|train|"
+                            + "".join("{}:{:.2f}|".format(name,
+                                                          t_l[name].avg)
+                                      for name in t_l))
         if self._callbacks is not None:
             self._callbacks.end_epoch()
         if self.logger is not None:
             self.logger.info(desc)
+            walls = self.train_step_seconds[first:]
             self.logger.info(f"epoch {epoch + 1} step timing: "
-                             f"{timer.summary()}")
+                             f"{_walls_summary(walls)}")
         return sum(acc.avg for acc in t_l.values())
 
     def test(self, test_loader, input_n: int = 10, eval_frame=None,
@@ -559,11 +589,12 @@ class PredictionEngine:
                 metric, pred_p = self._eval_step(
                     forward, inputs, all_seqs, input_n, eval_frame, dim_used,
                     idx_ignore, idx_equal, time_tsfm, scale_tsfm)
-            if self.mesh is not None:
-                summed = torch.cat([metric, metric.new_tensor([n])])
-                dist.all_reduce(summed, group=self.mesh.group("data"))
-                metric, n = summed[:-1], int(summed[-1])
-            metric = metric.cpu().numpy()
+            with profiling.span("engine.readback"):
+                if self.mesh is not None:
+                    summed = torch.cat([metric, metric.new_tensor([n])])
+                    dist.all_reduce(summed, group=self.mesh.group("data"))
+                    metric, n = summed[:-1], int(summed[-1])
+                metric = metric.cpu().numpy()
             self.test_batch_seconds.append(time.perf_counter() - t0)
             t_metric += metric
             for m in metric:

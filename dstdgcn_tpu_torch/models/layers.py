@@ -41,6 +41,7 @@ from ..parallel import mesh as pmesh
 from ..parallel import shard
 from ..parallel.collectives import (all_reduce_sum, gather_channels,
                                     gather_joints)
+from ..utils import profiling
 
 __all__ = ["Dense", "Conv", "JointBatchNorm", "PReLU", "Dropout", "DSTDGC",
            "DSTDGCB", "ConvTemporalGraphical", "STGCNNLayer", "reset_all"]
@@ -321,29 +322,31 @@ class DSTDGC(nn.Module):
             or (self.use_pallas == "serving" and not self.training))
 
     def forward(self, x, base_adj, alpha, mask=None) -> torch.Tensor:
-        dtype = (None if self.compute_dtype is None
-                 else getattr(torch, self.compute_dtype))
-        args = (x, base_adj, alpha, self.wf, self.bf, self.wm1, self.bm1,
-                self.wm2, self.bm2, self.wrm, self.brm, mask)
-        routed = self.routed()
-        if routed:
-            fn = fk.dstd_spatial if self.mode == "spatial" else \
-                fk.dstd_temporal
-        else:
-            fn = ops.dstd_spatial if self.mode == "spatial" else \
-                ops.dstd_temporal
-        mesh = pmesh.splitting_mesh()
-        if mesh is not None:
-            fn = functools.partial(_split_op, mesh, self.mode, fn, routed)
-        if not (self.remat and torch.is_grad_enabled()):
-            return fn(*args, agg=self.agg, dtype=dtype)
-        context_fn = checkpoint.noop_context_fn
-        if self.remat == "dots":
-            context_fn = functools.partial(
-                checkpoint.create_selective_checkpoint_contexts, _save_dots)
-        return checkpoint.checkpoint(fn, *args, agg=self.agg, dtype=dtype,
-                                     use_reentrant=False,
-                                     context_fn=context_fn)
+        with profiling.span("dstd.op"):
+            dtype = (None if self.compute_dtype is None
+                     else getattr(torch, self.compute_dtype))
+            args = (x, base_adj, alpha, self.wf, self.bf, self.wm1, self.bm1,
+                    self.wm2, self.bm2, self.wrm, self.brm, mask)
+            routed = self.routed()
+            if routed:
+                fn = fk.dstd_spatial if self.mode == "spatial" else \
+                    fk.dstd_temporal
+            else:
+                fn = ops.dstd_spatial if self.mode == "spatial" else \
+                    ops.dstd_temporal
+            mesh = pmesh.splitting_mesh()
+            if mesh is not None:
+                fn = functools.partial(_split_op, mesh, self.mode, fn, routed)
+            if not (self.remat and torch.is_grad_enabled()):
+                return fn(*args, agg=self.agg, dtype=dtype)
+            context_fn = checkpoint.noop_context_fn
+            if self.remat == "dots":
+                context_fn = functools.partial(
+                    checkpoint.create_selective_checkpoint_contexts,
+                    _save_dots)
+            return checkpoint.checkpoint(fn, *args, agg=self.agg, dtype=dtype,
+                                         use_reentrant=False,
+                                         context_fn=context_fn)
 
 
 def _split_op(mesh, mode, op, routed, x, base, alpha, wf, bf, wm1, bm1, wm2,

@@ -1,9 +1,14 @@
-"""Step timing and the profiler trace hook.
+"""Program spans and the profiler trace hook.
 
-Counterparts of ``StepTimer`` and ``trace`` in
-``dstdgcn_tpu/utils/profiling.py``: ``trace`` records ``torch.profiler``
-activity (host operators and, with a card, its kernels) and writes it as
-one Chrome trace into a directory (the ``engine.profile`` config key).
+``span`` names a region of the port (the engine's phases, a DSTD-GC op
+call) in whatever ``torch.profiler`` records it: a span is a
+``record_function`` while a profiler records, on the trace's own clock
+beside the host operators and the card's kernels, and one shared null
+context otherwise, so that a span costs one check when nothing records.
+``trace`` (the counterpart of ``trace`` in
+``dstdgcn_tpu/utils/profiling.py``) records ``torch.profiler`` activity
+(host operators and, with a card, its kernels) and writes it as one Chrome
+trace into a directory (the ``engine.profile`` config key).
 """
 
 from __future__ import annotations
@@ -11,58 +16,22 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Iterator, List, Optional
+from typing import ContextManager, Iterator, Optional
 
 import torch
 
-__all__ = ["StepTimer", "trace"]
+__all__ = ["span", "trace"]
+
+_NO_SPAN = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
 
 
-class StepTimer:
-    """Wall-clock timer for training steps.
-
-    Call :meth:`tic` before launching a step and :meth:`toc` once its work
-    is complete on the device (the engine synchronizes the card first).
-    The first ``skip_first`` steps (lazy set-up, kernel builds) are excluded
-    from the statistics.
-    """
-
-    def __init__(self, skip_first: int = 1):
-        self.skip_first = skip_first
-        self._times: List[float] = []
-        self._seen = 0
-        self._t0: Optional[float] = None
-
-    def tic(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def toc(self) -> float:
-        dt = time.perf_counter() - self._t0
-        self._seen += 1
-        if self._seen > self.skip_first:
-            self._times.append(dt)
-        return dt
-
-    @property
-    def steps(self) -> int:
-        return len(self._times)
-
-    @property
-    def avg_ms(self) -> float:
-        return 1e3 * sum(self._times) / max(len(self._times), 1)
-
-    @property
-    def steps_per_s(self) -> float:
-        tot = sum(self._times)
-        return len(self._times) / tot if tot > 0 else 0.0
-
-    def summary(self) -> str:
-        if not self._times:
-            return "no timed steps"
-        lo, hi = min(self._times) * 1e3, max(self._times) * 1e3
-        return (f"{self.steps} steps | avg {self.avg_ms:.2f} ms | "
-                f"min {lo:.2f} / max {hi:.2f} ms | "
-                f"{self.steps_per_s:.2f} steps/s")
+def span(name: str) -> ContextManager:
+    """A ``torch.profiler.record_function`` named ``name`` while a profiler
+    records, else a null context."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

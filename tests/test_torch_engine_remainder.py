@@ -4,7 +4,8 @@
   strings equal the JAX logger's on the same seeded loss stream;
   ``engine.callbacks`` writes the JAX engine's columns and rows;
 * ``engine.profile``: one Chrome trace, written in the first epoch, that
-  holds steps ``1 .. profile_steps`` and no other;
+  holds steps ``1 .. profile_steps`` (an ``engine.step`` span each) and no
+  other;
 * ``utils/timing.py``: ``loop_fn`` applies the op ``iters`` times;
 * the JAX checkpoint reader: the msgpack decoder equals
   ``flax.serialization.msgpack_restore`` on seeded trees (float32, int32,
@@ -172,10 +173,10 @@ def test_engine_profile_traces_steps_one_to_profile_steps(tmp_path):
     assert len(traces) == 1
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
-    steps = sorted(e["name"] for e in events
-                   if e.get("cat") == "user_annotation"
-                   and e.get("name", "").startswith("train_step"))
-    assert steps == ["train_step 1", "train_step 2"]
+    steps = [e["name"] for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") == "engine.step"]
+    assert steps == ["engine.step"] * 2
     # the optimizer of each traced step, and of no other
     assert sum(e.get("name", "").startswith("Optimizer.step")
                for e in events) == 2
