@@ -16,14 +16,16 @@ forward) kernels on one NVIDIA GPU, for the A/B of kernel versions.
 For the kernels of the port in ``--tree`` (default: this checkout; another
 checkout's kernels are built in its own tree): the registers and spills of
 every backward function (``nvcc -Xptxas -v``), its tensor-core ``HMMA``
-count and instructions (``cuobjdump -sass``), and for each op of
+count and instructions and its ``LDSM`` and ``LDS`` counts (``cuobjdump
+-sass``), and for each op of
 ``--modes`` at its training slice's batch and at each (Ci, Co) of its 7
 calls, both aggregations: with ``--dtype bfloat16`` (the default) the bf16
 kernels of ``synthetic_h36m_tpu_train`` (N = 128), with ``--dtype
 float32`` the float32 kernels of ``synthetic_h36m_train`` (N = 32); T = 35,
-V = 22.  Per call: the gradients against the plain backward of the same
-contract (the worst gradient's distance over max(|plain|, 1), as
-``chip_smoke.py`` phase 3 holds it: ``BF16_TOL`` at bf16, beside the
+V = 22, or ``--shape T,V`` (CMU's 35,25, 3DPW's 40,23).  Per call: the
+gradients against the plain backward of the same contract (the worst
+gradient's distance over max(|plain|, 1), as ``chip_smoke.py`` phase 3
+holds it: ``BF16_TOL`` at bf16, beside the
 bf16-versus-float32 gap; ``TOL`` at float32), each gradient's and the
 plain version's distance to the plain version in float64, whether two
 calls give the same bits, and (the model's aggregation, right) the
@@ -165,6 +167,28 @@ FAULTS = {"dx_joint0": _zero_joint0, "dx_1pc": lambda t: t * 1.01,
 F32_CHAIN = "f32_chain"
 
 
+def shared_loads(cs, path):
+    """{kernel: [LDSM, LDS]}: the ldmatrix and the plain shared-memory load
+    instructions of each function in the SASS of the library at ``path``
+    (``cuobjdump -sass``)."""
+    import re
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += bool(re.search(r"\bLDSM\b", line))
+            counts[name][1] += bool(re.search(r"\bLDS\b", line))
+    return dict(zip(cs.demangle(list(counts)), counts.values()))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out_dir")
@@ -176,6 +200,8 @@ def main():
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
     ap.add_argument("--tile", type=int, default=None)
+    ap.add_argument("--shape", default=None,
+                    help="T,V of the backward calls (default: H36M's)")
     ap.add_argument("--fault", default=None,
                     choices=tuple(FAULTS) + (F32_CHAIN,))
     ap.add_argument("--forward", action="store_true")
@@ -248,10 +274,12 @@ def main():
 
     for name in libs:
         sass = cs.sass_mma(build.library(name)._name)
+        lds = shared_loads(cs, build.library(name)._name)
         for kernel, regs, stores, loads in cs.ptxas_usage(logs[name]):
             emit("ptxas", dict(kernel=kernel, registers=regs,
                                spill=[stores, loads],
-                               hmma=sass.get(kernel, [None, None])))
+                               hmma=sass.get(kernel, [None, None]),
+                               ldsm_lds=lds.get(kernel, [None, None])))
 
     if args.sparse:
         run_sparse(torch, np, cs, emit)
@@ -290,6 +318,8 @@ def main():
     n = bcfg["train_batch_size"]
     calls = Counter(cs.forward_shapes(bcfg["model"]["dstdgcn"]))
     dtype, T, V = (None if f32 else torch.bfloat16), cs.T, cs.V
+    if args.shape:
+        T, V = (int(x) for x in args.shape.split(","))
     if args.forward:
         run_forward(torch, np, cs, fused, modes, dtype, n, calls, args.tile,
                     emit)
@@ -306,7 +336,7 @@ def main():
             if m != mode:
                 continue
             a = cs.op_inputs(torch, np, mode, ci, co, device, seed=ci + co,
-                             n=n)
+                             n=n, t=T, v=V)
             g = torch.randn((n, T, V, co), device=device, generator=torch
                             .Generator(device).manual_seed(ci * co))
             for agg in ("right", "left"):
@@ -330,7 +360,7 @@ def main():
                 err = max(errs.values())
                 worst = max(worst, err)
                 line = dict(mode=mode, dtype=args.dtype, ci=ci, co=co, n=n,
-                            agg=agg, tile=args.tile, norm_err=err,
+                            t=T, v=V, agg=agg, tile=args.tile, norm_err=err,
                             worst=max(errs, key=errs.get), tol=tol,
                             ok=err <= tol,
                             repeatable=all(bool(torch.equal(x, y))
@@ -351,7 +381,8 @@ def main():
                     for key, t in split.items():
                         total[key] += count * t
                 emit("check", line)
-        emit("sum", dict(mode=mode, dtype=args.dtype, n=n, tile=args.tile,
+        emit("sum", dict(mode=mode, dtype=args.dtype, n=n, t=T, v=V,
+                         tile=args.tile,
                          calls=sum(c for (m, _, _), c in calls.items()
                                    if m == mode),
                          launch_ms=total, ms=sum(total.values()),
@@ -379,7 +410,7 @@ def run_forward(torch, np, cs, fused, modes, dtype, n, calls, tile, emit):
             if m != mode:
                 continue
             a = cs.op_inputs(torch, np, mode, ci, co, device, seed=ci + co,
-                             n=n)
+                             n=n, t=T, v=V)
             for agg in ("right", "left"):
                 with torch.no_grad():
                     got = op.launch(*a, agg=agg, dtype=dtype, tile=tile)

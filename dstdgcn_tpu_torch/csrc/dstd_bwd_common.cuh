@@ -26,14 +26,18 @@
 //      ds = sum_o wrm ddyn, du = ds (1 - S^2), dq/dk, adds dqk wqk^T to dx,
 //      and writes partial sums of dwrm, dwqk, dbqk.
 // The five products of pass 2 (features, dA, dxf, dx, dwf) and pass 3's
-// dwrm run on the tensor cores (block_mma, dstd_mma.cuh; MmaKind below): in
-// the bf16 kernels as bf16 mma.sync products with float32 accumulators, in
-// the float32 ones as 3xTF32 products (float32 accuracy from three TF32
+// dwrm run on the tensor cores (dstd_mma.cuh; MmaKind below): in the bf16
+// kernels as bf16 mma.sync products with float32 accumulators, in the
+// float32 ones as 3xTF32 products (float32 accuracy from three TF32
 // mma.sync a step), where pass 3's ds is a product too; the same function
-// in another summation order.  The mixing loop (tanh of every pair, times
-// wrm) stays on the CUDA cores: it is bound by its tanhf, which the
-// contract rounds, and on the tensor cores it measured no faster
-// (PERF.md).
+// in another summation order.  Pass 2 of the float32 kernels and pass 3 of
+// both build their fragments from float32 shared memory one element a
+// loader call (block_mma, LayoutOut); pass 2 of the bf16 kernels stores
+// the operands of its products as bf16 and reads the fragments by
+// ldmatrix (block_mma_ldsm, LayoutOutBf16, out_bf16).  The mixing loop
+// (tanh of every pair, times wrm) stays on the CUDA cores: it is bound by
+// its tanhf, which the contract rounds, and on the tensor cores it
+// measured no faster (PERF.md).
 //   4. reduce_kernel: sums each partial array in a fixed order, one thread
 //      per weight-gradient element.  No atomics: the result is the same from
 //      run to run.
@@ -51,8 +55,10 @@
 // from dxf, dA, dwrm, ds, dwqk and dx from dq/dk) and keeps everything else
 // float32.  An operand that feeds products alone is rounded once where it is
 // stored (x, g, wf, wrm, wqk, the features, the adjacency, ddyn); one that
-// also feeds a float32 sum is rounded where a product loads it (dxf, whose
-// sum is dbf; the scores, which du reads; dq/dk, whose sum is dbqk).
+// also feeds a float32 sum is rounded where a product loads it (the
+// scores, which du reads; dq/dk, whose sum is dbqk), or, where it is
+// stored as bf16, after the sum has read it in float32 (dxf, whose sum is
+// dbf: out_bf16 sums it from the product's accumulators).
 #pragma once
 
 #include <type_traits>
@@ -122,7 +128,7 @@ struct Scratch {
   }
 };
 
-// Shared memory of a pass-2 block (floats): wmix [K][R][REF][tile] (the
+// Shared memory of a float32 pass-2 block (floats): wmix [K][R][REF][tile] (the
 // tile's columns of wrm), qk [J][REF][P], dyn [K][tile][P*P] (then the
 // adjacency), dd [K][tile][P*P] (dA), xf [K][tile*P][CS] (then dxf), gs
 // [tile*P][CS] (the tile's rows of g), wfs [K][Ci][CS], xs [tile*P][XS]
@@ -144,6 +150,56 @@ struct LayoutOut {
     xs = wfs + round4((long long)K * Ci * CS);
     red = xs + round4((long long)tile * P * XS);
     total = red + 32;
+  }
+};
+
+// Shared memory of a bf16 pass-2 block (bytes).  The operands of its five
+// products are bf16 for ldmatrix (dstd_mma::block_mma_ldsm): row strides
+// of 16 n + 8 elements (an odd number of 16-byte chunks, so the 8 rows of
+// one ldmatrix phase hit 8 distinct bank groups), zeros from the last
+// channel to the stride, and rows up to the 16-row tile that reads them.
+// Regions, each reused once its first array is dead:
+//   mix  wmix [K][R][REF][tile] and qk [J][REF][P] (float32) for the mixing
+//        loop; then adj, the tile's adjacency (bf16), one (P, PS) slab per
+//        (k, output index), [i][j] at agg right and [j][i] at left: dxf's A
+//        operand, its depth along the rows either way
+//   dyn  dyn [K][tile][P*P] (float32), then dA in its place
+//   xf   the features [K][FR][CS], then dxf
+//   gs   the tile's rows of g [GR][CS]
+//   xs   the tile's rows of x [XR][XS]
+//   wfs  wf [K][CIP][CS]
+//   pbf  dbf's partial sums [K][tile][P16 / 16][Co] (float32)
+//   red  dalpha's partial sum of each warp
+__host__ __device__ inline long long r16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+struct LayoutOutBf16 {
+  int P16, CS, XS, PS, CIP, XR, GR, FR;
+  long long mix, dyn, xf, gs, xs, wfs, pbf, red, total;
+  __host__ __device__ LayoutOutBf16(int T, int V, int Ci, int Co, int K,
+                                    int R, int tile, bool temporal) {
+    const int REF = temporal ? V : T, P = temporal ? T : V, J = 2 * K * R;
+    P16 = (P + 15) & ~15;
+    CS = ((Co + 15) & ~15) + 8;
+    XS = ((Ci + 15) & ~15) + 8;
+    PS = P16 + 8;
+    CIP = (Ci + 15) & ~15;
+    XR = (tile * P + 15) & ~15;
+    GR = (tile - 1) * P + P16;
+    FR = XR > GR ? XR : GR;
+    const long long mixing =
+        4 * (round4((long long)K * R * REF * tile) + (long long)J * REF * P);
+    const long long adj = 2LL * ((K * tile - 1) * P + P16) * PS;
+    mix = 0;
+    dyn = r16(mixing > adj ? mixing : adj);
+    xf = dyn + r16(4LL * K * tile * P * P);
+    gs = xf + r16(2LL * K * FR * CS);
+    xs = gs + r16(2LL * GR * CS);
+    wfs = xs + r16(2LL * XR * XS);
+    pbf = wfs + r16(2LL * K * CIP * CS);
+    red = pbf + r16(4LL * K * tile * (P16 / 16) * Co);
+    total = red + 4 * kWarps;
   }
 };
 
@@ -189,6 +245,59 @@ __device__ inline int xrow(int s, int i, int V) {
   return TEMPORAL ? i * V + s : s * V + i;
 }
 
+using bf16 = __nv_bfloat16;
+
+// rows [0, rows) of a bf16 array at dst, row stride ld (a multiple of 8):
+// row r holds src(r)[0 .. C) rounded to bf16 and zeros up to the stride, or
+// zeros where src(r) is null; 16 bytes a store.  src(r) points into device
+// memory, 16-byte aligned where C is a multiple of 4.
+template <typename Src>
+__device__ inline void stage_rows(bf16* dst, int rows, int ld, int C,
+                                  Src src) {
+  const int chunks = ld >> 3;
+  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+    const int r = i / chunks, c0 = (i - r * chunks) << 3;
+    const float* row = src(r);
+    float v[8];
+    if (row && (C & 3) == 0 && c0 + 8 <= C) {
+      const float4* p = reinterpret_cast<const float4*>(row + c0);
+      const float4 lo = __ldg(p), hi = __ldg(p + 1);
+      v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+      v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = row && c0 + e < C ? __ldg(row + c0 + e) : 0.f;
+    }
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c0) =
+        make_uint4(dstd_mma::pack_bf16(v[0], v[1]),
+                   dstd_mma::pack_bf16(v[2], v[3]),
+                   dstd_mma::pack_bf16(v[4], v[5]),
+                   dstd_mma::pack_bf16(v[6], v[7]));
+  }
+}
+
+// zeros in rows [rows, total) and in columns [C, ld) of rows < rows of a
+// bf16 array (row stride ld, a multiple of 8)
+__device__ inline void zero_pad(bf16* p, int rows, int total, int C, int ld) {
+  uint4* full = reinterpret_cast<uint4*>(p + (size_t)rows * ld);
+  for (int i = threadIdx.x; i < (total - rows) * (ld >> 3); i += kThreads)
+    full[i] = make_uint4(0u, 0u, 0u, 0u);
+  const int w = ld - C;
+  for (int i = threadIdx.x; i < rows * w; i += kThreads) {
+    const int r = i / w;
+    p[(size_t)r * ld + C + (i - r * w)] = __float2bfloat16_rn(0.f);
+  }
+}
+
+// channels c, c + 1 of a bf16 row (c even, c + 1 may lie past C)
+__device__ inline void put2(bf16* row, int c, int C, float v0, float v1) {
+  if (c + 1 < C)
+    *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(v0, v1);
+  else if (c < C)
+    row[c] = __float2bfloat16_rn(v0);
+}
+
 // Pass 1: q/k of every row, qk[n][j][s][i], column j = k*2R + r (query) or
 // k*2R + R + r (key).
 template <bool TEMPORAL, typename Rnd>
@@ -219,11 +328,273 @@ __global__ void __launch_bounds__(kSmallThreads) qk_kernel(const BwdArgs a) {
   }
 }
 
-// Pass 2: one block per (tile of output indices o, sample n).
-template <bool TEMPORAL, int TILE, typename Rnd>
-__global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+// Pass 2 of the bf16 kernels, one block per (tile of output indices o,
+// sample n): the steps of out_f32 below, its five products on bf16
+// operands in shared memory (LayoutOutBf16) read by ldmatrix
+// (dstd_mma::block_mma_ldsm), rounded where the float32 kernels' order
+// rounds them, every float32 sum read from float32.  The adjacency is
+// formed in dA's epilogue, which reads dyn and writes dA in its place; dbf
+// is summed from dxf's float32 accumulators in its epilogue (each tile's
+// column sums, then the tiles in a fixed order) before dxf is stored as
+// bf16.
+template <bool TEMPORAL, int TILE>
+__device__ __forceinline__ void out_bf16(const BwdArgs& a, char* smb) {
+  using dstd_mma::Smem16;
+  using Acc = float[4][4];
+  const int T = a.T, V = a.V, K = a.K, R = a.R, Ci = a.Ci, Co = a.Co;
+  const int REF = TEMPORAL ? V : T, P = TEMPORAL ? T : V;
+  const int J = 2 * K * R, PP = P * P;
+  const int n = blockIdx.y, o0 = blockIdx.x * TILE;
+  const int tn = min(TILE, REF - o0), rows = tn * P;
+  const int blk = n * gridDim.x + blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const LayoutOutBf16 L(T, V, Ci, Co, K, R, TILE, TEMPORAL);
+  const Scratch S(a.N, T, V, Ci, Co, K, R, TILE, TEMPORAL);
+  const int CS = L.CS, XS = L.XS, PS = L.PS, CIP = L.CIP, FR = L.FR;
+  const int MP = L.P16 >> 4;
+  float* wmix = reinterpret_cast<float*>(smb + L.mix);
+  float* qk = wmix + round4((long long)K * R * REF * TILE);
+  bf16* adj = reinterpret_cast<bf16*>(smb + L.mix);
+  float* dyn = reinterpret_cast<float*>(smb + L.dyn);
+  bf16* xf = reinterpret_cast<bf16*>(smb + L.xf);
+  bf16* gs = reinterpret_cast<bf16*>(smb + L.gs);
+  bf16* xs = reinterpret_cast<bf16*>(smb + L.xs);
+  bf16* wfs = reinterpret_cast<bf16*>(smb + L.wfs);
+  float* pbfs = reinterpret_cast<float*>(smb + L.pbf);
+  float* red = reinterpret_cast<float*>(smb + L.red);
+  const float alpha = __ldg(a.alpha);
+  const size_t TV = (size_t)T * V;
+  const float* xn = a.x + n * TV * Ci;
+  const float* gn = a.g + n * TV * Co;
+  float* dxn = a.dx + n * TV * Ci;
+
+  // stage the tile's mixing columns, the sample's q/k, the tile's rows of
+  // x and g and the feature weights, zeros in every operand's padding
+  for (int i = tid; i < K * R * REF * TILE; i += kThreads) {
+    const int tt = i % TILE, krs = i / TILE;  // krs = (k*R + r)*REF + s
+    wmix[i] =
+        tt < tn ? Bf16::r(__ldg(a.wrm + (size_t)krs * REF + o0 + tt)) : 0.f;
+  }
+  const float* qkn = a.scratch + S.qk + (size_t)n * J * REF * P;
+  for (int i = tid; i < J * REF * P; i += kThreads) qk[i] = qkn[i];
+  auto tile_row = [&](const float* base, int C, int lr) -> const float* {
+    if (lr >= rows) return nullptr;
+    const int tt = lr / P, b = lr - tt * P;
+    return base + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * C;
+  };
+  stage_rows(xs, L.XR, XS, Ci,
+             [&](int lr) { return tile_row(xn, Ci, lr); });
+  stage_rows(gs, L.GR, CS, Co,
+             [&](int lr) { return tile_row(gn, Co, lr); });
+  stage_rows(wfs, K * CIP, CS, Co, [&](int r) -> const float* {
+    const int k = r / CIP, ci = r - k * CIP;
+    return ci < Ci ? a.wf + ((size_t)k * Ci + ci) * Co : nullptr;
+  });
+  for (int k = 0; k < K; ++k)
+    zero_pad(xf + (size_t)k * FR * CS, rows, FR, Co, CS);
+  __syncthreads();
+  // the tile's features: xf[k] = x wf[k] + bf[k]
+  dstd_mma::block_mma_ldsm<false, false>(
+      K, rows, Co, 1, Ci, [&](int, int) { return Smem16{xs, XS}; },
+      [&](int k, int) { return Smem16{wfs + (size_t)k * CIP * CS, CS}; },
+      [&](int k, int m0, int n0, int live, const Acc& acc) {
+        bf16* d = xf + (size_t)k * FR * CS;
+        const float* bk = a.bf + k * Co;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + 8 * j + 2 * t;
+          if (j < live && c < Co) {
+            const float b0 = __ldg(bk + c);
+            const float b1 = c + 1 < Co ? __ldg(bk + c + 1) : 0.f;
+            if (m0 + g < rows)
+              put2(d + (size_t)(m0 + g) * CS, c, Co, acc[j][0] + b0,
+                   acc[j][1] + b1);
+            if (m0 + g + 8 < rows)
+              put2(d + (size_t)(m0 + g + 8) * CS, c, Co, acc[j][2] + b0,
+                   acc[j][3] + b1);
+          }
+        }
+      });
+
+  // dyn (brm included) of the tile's outputs: one thread per (k, i, j)
+  for (int p = tid; p < K * PP; p += kThreads) {
+    const int k = p / PP, ij = p - k * PP, i = ij / P, j = ij - i * P;
+    float acc[TILE];
+#pragma unroll
+    for (int tt = 0; tt < TILE; ++tt) acc[tt] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const float* qr = qk + (size_t)(k * 2 * R + r) * REF * P + i;
+      const float* kr = qk + (size_t)(k * 2 * R + R + r) * REF * P + j;
+      const float* wm = wmix + (k * R + r) * REF * TILE;
+      for (int s = 0; s < REF; ++s) {
+        const float sc = Bf16::r(tanhf(qr[s * P] - kr[s * P]));
+#pragma unroll
+        for (int tt = 0; tt < TILE; ++tt)
+          acc[tt] = fmaf(sc, wm[s * TILE + tt], acc[tt]);
+      }
+    }
+#pragma unroll
+    for (int tt = 0; tt < TILE; ++tt)
+      if (tt < tn)
+        dyn[(k * TILE + tt) * PP + ij] =
+            acc[tt] + __ldg(a.brm + k * REF + o0 + tt);
+  }
+  __syncthreads();
+
+  // dA = the adjacency's cotangent, per (k, output index) a (P, P) product
+  // over channels, into dyn's place; dalpha = sum dA * dyn; the adjacency
+  // (the q/k are dead) and zeros in its padding
+  float dal = 0.f;
+  const bool left = a.agg_left;
+  for (int i = tid; i < K * tn * P * (PS - P); i += kThreads) {
+    const int row = i / (PS - P), c = P + (i - row * (PS - P));
+    const int kt = row / P, k = kt / tn, tt = kt - k * tn;
+    adj[((size_t)(k * TILE + tt) * P + row - kt * P) * PS + c] =
+        __float2bfloat16_rn(0.f);
+  }
+  auto slab_of = [&](bf16* base, int bt) {
+    const int k = bt / tn, tt = bt - k * tn;
+    return base + ((size_t)k * FR + tt * P) * CS;
+  };
+  dstd_mma::block_mma_ldsm<false, true>(
+      K * tn, P, P, 1, Co,
+      [&](int bt, int) {
+        return Smem16{left ? gs + (size_t)(bt % tn) * P * CS
+                           : slab_of(xf, bt), CS};
+      },
+      [&](int bt, int) {
+        return Smem16{left ? slab_of(xf, bt)
+                           : gs + (size_t)(bt % tn) * P * CS, CS};
+      },
+      [&](int bt, int m0, int n0, int live, const Acc& acc) {
+        const int k = bt / tn, tt = bt - k * tn, slab = k * TILE + tt;
+        float* dk = dyn + (size_t)slab * PP;
+        const float* bk = a.base + k * PP;
+        bf16* ak = adj + (size_t)slab * P * PS;
+        dstd_mma::tile_each(P, P, m0, n0, live, acc,
+                            [&](int i, int j, float v) {
+          const int ij = i * P + j;
+          const float d = dk[ij];
+          dal = fmaf(v, d, dal);
+          dk[ij] = v;
+          ak[left ? j * PS + i : i * PS + j] =
+              __float2bfloat16_rn(d * alpha + __ldg(bk + ij));
+        });
+      });
+  dal = warp_sum(dal);
+  if (lane == 0) red[warp] = dal;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[w];
+    a.scratch[S.palpha + blk] = s;
+  }
+
+  // dbase partial (sum over the tile), ddyn = alpha dA to scratch, dbrm
+  // (one warp per (k, o))
+  const float* dd = dyn;
+  float* pbase = a.scratch + S.pbase + (size_t)blk * K * PP;
+  for (int p = tid; p < K * PP; p += kThreads) {
+    const int k = p / PP, ij = p - k * PP;
+    float s = 0.f;
+    for (int tt = 0; tt < tn; ++tt) s += dd[(k * TILE + tt) * PP + ij];
+    pbase[p] = s;
+  }
+  float* ddyn = a.scratch + S.ddyn + (size_t)n * K * REF * PP;
+  for (int idx = tid; idx < K * tn * PP; idx += kThreads) {
+    const int k = idx / (tn * PP), rem = idx - k * tn * PP;
+    const int tt = rem / PP, ij = rem - tt * PP;
+    ddyn[((size_t)k * REF + o0 + tt) * PP + ij] =
+        Bf16::r(alpha * dd[(k * TILE + tt) * PP + ij]);
+  }
+  float* pbrm = a.scratch + S.pbrm + (size_t)n * K * REF;
+  for (int kt = warp; kt < K * tn; kt += kWarps) {
+    const int k = kt / tn, tt = kt - k * tn;
+    const float* d = dd + (k * TILE + tt) * PP;
+    float s = 0.f;
+    for (int ij = lane; ij < PP; ij += 32) s += d[ij];
+    s = warp_sum(s);
+    if (lane == 0) pbrm[k * REF + o0 + tt] = alpha * s;
+  }
+  __syncthreads();
+
+  // dxf through the aggregation, into xf's place: right dxf[o,b] =
+  // sum_m adj[o,b,m] g[o,m]; left dxf[o,b] = sum_m adj[o,m,b] g[o,m] (adj
+  // stored transposed); each tile's column sums of the float32 dxf for dbf
+  dstd_mma::block_mma_ldsm<false, false>(
+      K * tn, P, Co, 1, P,
+      [&](int bt, int) {
+        const int k = bt / tn, tt = bt - k * tn;
+        return Smem16{adj + (size_t)(k * TILE + tt) * P * PS, PS};
+      },
+      [&](int bt, int) { return Smem16{gs + (size_t)(bt % tn) * P * CS, CS}; },
+      [&](int bt, int m0, int n0, int live, const Acc& acc) {
+        const int k = bt / tn, tt = bt - k * tn;
+        bf16* d = slab_of(xf, bt);
+        float* pb = pbfs + ((size_t)(k * TILE + tt) * MP + (m0 >> 4)) * Co;
+        const bool in0 = m0 + g < P, in1 = m0 + g + 8 < P;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < live) {
+            const int c = n0 + 8 * j + 2 * t;
+            if (in0)
+              put2(d + (size_t)(m0 + g) * CS, c, Co, acc[j][0], acc[j][1]);
+            if (in1)
+              put2(d + (size_t)(m0 + g + 8) * CS, c, Co, acc[j][2], acc[j][3]);
+            float s0 = (in0 ? acc[j][0] : 0.f) + (in1 ? acc[j][2] : 0.f);
+            float s1 = (in0 ? acc[j][1] : 0.f) + (in1 ? acc[j][3] : 0.f);
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {
+              s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+              s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+            }
+            if (g == 0 && c < Co) pb[c] = s0;
+            if (g == 0 && c + 1 < Co) pb[c + 1] = s1;
+          }
+        }
+      });
+  __syncthreads();
+
+  // dx of the tile's rows = sum_k dxf[k] wf[k]^T (the first contribution)
+  dstd_mma::block_mma_ldsm<false, true>(
+      1, rows, Ci, K, Co,
+      [&](int, int k) { return Smem16{xf + (size_t)k * FR * CS, CS}; },
+      [&](int, int k) { return Smem16{wfs + (size_t)k * CIP * CS, CS}; },
+      [&](int, int m0, int n0, int live, const Acc& acc) {
+        dstd_mma::tile_each(rows, Ci, m0, n0, live, acc,
+                            [&](int m, int ci, float v) {
+          const int tt = m / P, b = m - tt * P;
+          dxn[(size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Ci + ci] = v;
+        });
+      });
+  // dwf / dbf partials over the tile's rows
+  float* pwf = a.scratch + S.pwf + (size_t)blk * K * Ci * Co;
+  dstd_mma::block_mma_ldsm<true, false>(
+      K, Ci, Co, 1, rows, [&](int, int) { return Smem16{xs, XS}; },
+      [&](int k, int) { return Smem16{xf + (size_t)k * FR * CS, CS}; },
+      [&](int k, int m0, int n0, int live, const Acc& acc) {
+        float* pk = pwf + (size_t)k * Ci * Co;
+        dstd_mma::tile_each(
+            Ci, Co, m0, n0, live, acc,
+            [&](int ci, int c, float v) { pk[ci * Co + c] = v; });
+      });
+  float* pbf = a.scratch + S.pbf + (size_t)blk * K * Co;
+  for (int i = tid; i < K * Co; i += kThreads) {
+    const int k = i / Co, c = i - k * Co;
+    float acc = 0.f;
+    for (int tt = 0; tt < tn; ++tt)
+      for (int mt = 0; mt < MP; ++mt)
+        acc += pbfs[((size_t)(k * TILE + tt) * MP + mt) * Co + c];
+    pbf[i] = acc;
+  }
+}
+
+// Pass 2 of the float32 kernels, one block per (tile of output indices o,
+// sample n): float32 operands in shared memory (LayoutOut), the products'
+// fragments built by their loaders (dstd_mma::block_mma, 3xTF32).
+template <bool TEMPORAL, int TILE>
+__device__ __forceinline__ void out_f32(const BwdArgs& a, float* sm) {
   const int T = a.T, V = a.V, K = a.K, R = a.R, Ci = a.Ci, Co = a.Co;
   const int REF = TEMPORAL ? V : T, P = TEMPORAL ? T : V;
   const int J = 2 * K * R, PP = P * P, CS = Co | 1;
@@ -242,12 +613,10 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   float* wfs = sm + L.wfs;
   float* xs = sm + L.xs;
   float* red = sm + L.red;
-  // the five products on the tensor cores, 16 x 32 a warp (bf16 16 x 16 and
-  // 16 x 8 tiles measured no faster at the temporal op's P = 35 frames);
-  // dA, dxf and dwf in 3xTF32 at 16 x 16 (faster there than 16 x 32,
-  // PERF.md)
-  using Kind = MmaKind<Rnd>;
-  constexpr int kNarrow = std::is_same_v<Rnd, Bf16> ? 4 : 2;
+  // the five products on the tensor cores, 16 x 32 a warp; dA, dxf and dwf
+  // in 3xTF32 at 16 x 16 (faster there than 16 x 32, PERF.md)
+  using Kind = dstd_mma::Tf32x3Mma;
+  constexpr int kNarrow = 2;
   const float alpha = __ldg(a.alpha);
   const size_t TV = (size_t)T * V;
   const float* xn = a.x + n * TV * Ci;
@@ -259,7 +628,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   for (int i = tid; i < K * R * REF * TILE; i += kThreads) {
     const int tt = i % TILE, krs = i / TILE;  // krs = (k*R + r)*REF + s
     wmix[i] =
-        tt < tn ? Rnd::r(__ldg(a.wrm + (size_t)krs * REF + o0 + tt)) : 0.f;
+        tt < tn ? __ldg(a.wrm + (size_t)krs * REF + o0 + tt) : 0.f;
   }
   const float* qkn = a.scratch + S.qk + (size_t)n * J * REF * P;
   for (int i = tid; i < J * REF * P; i += kThreads) qk[i] = qkn[i];
@@ -267,16 +636,16 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   for (int i = tid; i < rows * Co; i += kThreads) {
     const int lr = i / Co, c = i - lr * Co, tt = lr / P, b = lr - tt * P;
     gs[lr * CS + c] =
-        Rnd::r(__ldg(gn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Co + c));
+        __ldg(gn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Co + c);
   }
   for (int i = tid; i < rows * Ci; i += kThreads) {
     const int lr = i / Ci, ci = i - lr * Ci, tt = lr / P, b = lr - tt * P;
     xs[lr * XS + ci] =
-        Rnd::r(__ldg(xn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Ci + ci));
+        __ldg(xn + (size_t)xrow<TEMPORAL>(o0 + tt, b, V) * Ci + ci);
   }
   for (int i = tid; i < K * Ci * Co; i += kThreads) {
     const int kc = i / Co, c = i - kc * Co;
-    wfs[kc * CS + c] = Rnd::r(__ldg(a.wf + i));
+    wfs[kc * CS + c] = __ldg(a.wf + i);
   }
   __syncthreads();
   // the tile's features: xf[k] = x wf[k] + bf[k]
@@ -286,7 +655,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       [&](int k, int, int q, int n) { return wfs[(k * Ci + q) * CS + n]; },
       [&](int k, int m, int n, float v) {
         xf[(k * TILE * P + m) * CS + n] =
-            Rnd::r(v + __ldg(a.bf + k * Co + n));
+            v + __ldg(a.bf + k * Co + n);
       });
 
   // dyn (brm included) of the tile's outputs: one thread per (k, i, j)
@@ -300,7 +669,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       const float* kr = qk + (size_t)(k * 2 * R + R + r) * REF * P + j;
       const float* wm = wmix + (k * R + r) * REF * TILE;
       for (int s = 0; s < REF; ++s) {
-        const float sc = Rnd::r(tanhf(qr[s * P] - kr[s * P]));
+        const float sc = tanhf(qr[s * P] - kr[s * P]);
 #pragma unroll
         for (int tt = 0; tt < TILE; ++tt)
           acc[tt] = fmaf(sc, wm[s * TILE + tt], acc[tt]);
@@ -359,8 +728,8 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
     const int k = idx / (tn * PP), rem = idx - k * tn * PP;
     const int tt = rem / PP, ij = rem - tt * PP;
     const int e = (k * TILE + tt) * PP + ij;
-    ddyn[((size_t)k * REF + o0 + tt) * PP + ij] = Rnd::r(alpha * dd[e]);
-    dyn[e] = Rnd::r(dyn[e] * alpha + __ldg(a.base + k * PP + ij));
+    ddyn[((size_t)k * REF + o0 + tt) * PP + ij] = alpha * dd[e];
+    dyn[e] = dyn[e] * alpha + __ldg(a.base + k * PP + ij);
   }
   float* pbrm = a.scratch + S.pbrm + (size_t)n * K * REF;
   for (int kt = warp; kt < K * tn; kt += kWarps) {
@@ -396,7 +765,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
   dstd_mma::block_mma<Kind>(
       1, rows, Ci, K, Co,
       [&](int, int m, int k, int c) {
-        return Rnd::r(xf[(k * TILE * P + m) * CS + c]);
+        return xf[(k * TILE * P + m) * CS + c];
       },
       [&](int, int k, int c, int ci) { return wfs[(k * Ci + ci) * CS + c]; },
       [&](int, int m, int ci, float v) {
@@ -409,7 +778,7 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
       K, Ci, Co, 1, rows,
       [&](int, int ci, int, int m) { return xs[m * XS + ci]; },
       [&](int k, int, int m, int c) {
-        return Rnd::r(xf[(k * TILE * P + m) * CS + c]);
+        return xf[(k * TILE * P + m) * CS + c];
       },
       [&](int k, int ci, int c, float v) { pwf[(k * Ci + ci) * Co + c] = v; });
   float* pbf = a.scratch + S.pbf + (size_t)blk * K * Co;
@@ -419,6 +788,16 @@ __global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
     for (int lr = 0; lr < rows; ++lr) acc += xf[(k * TILE * P + lr) * CS + c];
     pbf[i] = acc;
   }
+}
+
+// Pass 2: out_bf16 in the bf16 kernels, out_f32 in the float32 ones.
+template <bool TEMPORAL, int TILE, typename Rnd>
+__global__ void __launch_bounds__(kThreads) out_kernel(const BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  if constexpr (std::is_same_v<Rnd, Bf16>)
+    out_bf16<TEMPORAL, TILE>(a, reinterpret_cast<char*>(smem4));
+  else
+    out_f32<TEMPORAL, TILE>(a, reinterpret_cast<float*>(smem4));
 }
 
 // Pass 3: one block per (tile of source indices s, sample n).  The
@@ -682,26 +1061,37 @@ __global__ void __launch_bounds__(kSmallThreads)
   }
 }
 
-template <bool TEMPORAL>
+// Shared memory of a pass-2 block (bytes) under rounding policy Rnd
+template <bool TEMPORAL, typename Rnd>
+long long out_bytes(int T, int V, int Ci, int Co, int K, int R, int tile) {
+  if constexpr (std::is_same_v<Rnd, Bf16>)
+    return LayoutOutBf16(T, V, Ci, Co, K, R, tile, TEMPORAL).total;
+  else
+    return LayoutOut(T, V, Ci, Co, K, R, tile, TEMPORAL).total *
+           (long long)sizeof(float);
+}
+
+// The larger of a pass-2 and a pass-3 block's shared memory (bytes)
+template <bool TEMPORAL, typename Rnd>
 long long smem_bytes(int T, int V, int Ci, int Co, int K, int R, int tile) {
-  const long long out = LayoutOut(T, V, Ci, Co, K, R, tile, TEMPORAL).total;
-  const long long src = LayoutSrc(T, V, Ci, K, R, tile, TEMPORAL).total;
-  return (out > src ? out : src) * (long long)sizeof(float);
+  const long long out = out_bytes<TEMPORAL, Rnd>(T, V, Ci, Co, K, R, tile);
+  const long long src = LayoutSrc(T, V, Ci, K, R, tile, TEMPORAL).total *
+                        (long long)sizeof(float);
+  return out > src ? out : src;
 }
 
 template <bool TEMPORAL, int TILE, typename Rnd>
 cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   const int REF = TEMPORAL ? a.V : a.T;
   const dim3 grid((REF + TILE - 1) / TILE, a.N);
-  const size_t out_bytes =
-      LayoutOut(a.T, a.V, a.Ci, a.Co, a.K, a.R, TILE, TEMPORAL).total *
-      sizeof(float);
+  const size_t out_size = (size_t)out_bytes<TEMPORAL, Rnd>(
+      a.T, a.V, a.Ci, a.Co, a.K, a.R, TILE);
   const size_t src_bytes =
       LayoutSrc(a.T, a.V, a.Ci, a.K, a.R, TILE, TEMPORAL).total *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       out_kernel<TEMPORAL, TILE, Rnd>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out_bytes);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out_size);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(src_kernel<TEMPORAL, TILE, Rnd>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -714,7 +1104,7 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   qk_kernel<TEMPORAL, Rnd><<<qk_blocks, kSmallThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  out_kernel<TEMPORAL, TILE, Rnd><<<grid, kThreads, out_bytes, stream>>>(a);
+  out_kernel<TEMPORAL, TILE, Rnd><<<grid, kThreads, out_size, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   src_kernel<TEMPORAL, TILE, Rnd><<<grid, kThreads, src_bytes, stream>>>(a);
@@ -752,8 +1142,9 @@ int run(const BwdArgs& a, int device, void* stream) {
 }  // namespace dstd_bwd
 
 // The C interface of one op's backward library: scratch and shared-memory
-// sizes, error strings, and the launches (NAME_f32 float32, NAME_bf16 bf16
-// contraction operands).  Argument order: x, g, base, alpha, wf, bf, wm1,
+// sizes (NAME_smem_bytes float32, NAME_bf16_smem_bytes bf16), error
+// strings, and the launches (NAME_f32 float32, NAME_bf16 bf16 contraction
+// operands).  Argument order: x, g, base, alpha, wf, bf, wm1,
 // bm1, wm2, bm2, wrm, brm, then the 11 gradients dx, dbase, dalpha, dwf,
 // dbf, dwm1, dbm1, dwm2, dbm2, dwrm, dbrm, the scratch buffer, N, T, V, Ci,
 // Co, K, R, agg_left, tile, device, stream.
@@ -778,7 +1169,13 @@ int run(const BwdArgs& a, int device, void* stream) {
   extern "C" {                                                                \
   long long NAME##_smem_bytes(int T, int V, int Ci, int Co, int K, int R,     \
                               int tile) {                                     \
-    return dstd_bwd::smem_bytes<TEMPORAL>(T, V, Ci, Co, K, R, tile);          \
+    return dstd_bwd::smem_bytes<TEMPORAL, dstd_bwd::Exact>(T, V, Ci, Co, K,   \
+                                                           R, tile);          \
+  }                                                                           \
+  long long NAME##_bf16_smem_bytes(int T, int V, int Ci, int Co, int K,       \
+                                   int R, int tile) {                         \
+    return dstd_bwd::smem_bytes<TEMPORAL, dstd_bwd::Bf16>(T, V, Ci, Co, K, R, \
+                                                          tile);              \
   }                                                                           \
   long long NAME##_scratch_floats(int N, int T, int V, int Ci, int Co, int K, \
                                   int R, int tile) {                          \

@@ -303,46 +303,11 @@ __device__ inline void store4(float* p, const float4& v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ inline uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ldmatrix: four 8x8 matrices of 16-bit elements (lanes 8m..8m+7 give the
-// rows of matrix m, 16 bytes each), as the A fragment of m16n8k16 bf16
-// from a row-major 16x16 tile, of m16n8k8 tf32 from a row-major 16x8 tile
-// of floats, or the B fragments of two n8 tiles of tf32 from an (n x
-// depth) 16x8 tile of floats
-__device__ inline void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// the same transposed: B fragments of two n8 tiles from a row-major
-// (depth x n) 16x16 tile of bf16
-__device__ inline void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// two matrices (lanes 0-15 give the rows): the B fragment of one n8 tile,
-// transposed (bf16) or not (tf32)
-__device__ inline void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-__device__ inline void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
+// ldmatrix (dstd_mma.cuh)
+using dstd_mma::ldsm_x2;
+using dstd_mma::ldsm_x2_t;
+using dstd_mma::ldsm_x4;
+using dstd_mma::ldsm_x4_t;
 
 __device__ inline void barrier_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");

@@ -32,13 +32,21 @@
 // then q in chunks of 32 (two bf16 steps of 16, four TF32 steps of 8),
 // zeros past the edge of M, N and Q: no atomics, and the order of each sum
 // is fixed, so two calls give the same bits.  The fragments are built from
-// the loaders; ldmatrix and staging in shared memory are not used.  At the
+// the loaders, one element a call (pass 3 of both backward kernels and
+// pass 2 of the float32 ones).  At the
 // edge every loader call still runs (indices clamped, the value zeroed
 // after): a loader's own index arithmetic (a division of the batch index,
 // say) is then loop-invariant code the compiler hoists, where a call under
 // a condition would repeat it on every load.  block_mma_split is block_mma
 // for a product with few output tiles and a long depth: it splits the
 // depth over the warps of each tile.
+//
+// block_mma_ldsm is the bf16 product on operands already stored as bf16 in
+// shared memory (pass 2 of the bf16 backward kernels): each A fragment and
+// each pair of B fragments is one ldmatrix.x4, .trans where the operand is
+// stored with its depth down the rows (A) or along them (B); no loader
+// call, conversion or edge test inside the depth loop, zeros in the
+// padding of the operands instead, as in the forward body.
 //
 // Which depth index fills which slot of a product is free, as long as A
 // and B agree.  In a chunk of 32, lane (g, t) of step h holds the kPer
@@ -85,6 +93,48 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ldmatrix: four 8x8 matrices of 16-bit elements (lanes 8m..8m+7 give the
+// rows of matrix m, 16 bytes each), as the A fragment of m16n8k16 bf16
+// from a row-major 16x16 tile, of m16n8k8 tf32 from a row-major 16x8 tile
+// of floats, or the B fragments of two n8 tiles of tf32 from an (n x
+// depth) 16x8 tile of floats (or of bf16 from an (n x depth) 16x16 tile)
+__device__ inline void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// the same transposed: B fragments of two n8 tiles from a row-major
+// (depth x n) 16x16 tile of bf16, or the A fragment of a 16x16 tile
+// stored (depth x m)
+__device__ inline void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// two matrices (lanes 0-15 give the rows): the B fragment of one n8 tile,
+// transposed (bf16) or not (tf32)
+__device__ inline void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+__device__ inline void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
 }
 
 // x rounded to TF32 (nearest, ties away from zero), as a float's bits: the
@@ -366,6 +416,107 @@ __device__ inline void block_mma_split(float* part, int batch, int M, int Nn,
     float v = 0.f;
     for (int p = 0; p < parts; ++p) v += in[p * kTile];
     st(b, m, n, v);
+  }
+}
+
+// One bf16 operand of block_mma_ldsm in shared memory: element (row, col)
+// of the stored matrix at p[row * ld + col]; rows start on 16 bytes (ld a
+// multiple of 8).
+struct Smem16 {
+  const __nv_bfloat16* p;
+  int ld;
+};
+
+// block_mma for bf16 operands staged in shared memory, each fragment one
+// ldmatrix.x4 (A, and the B fragments of two n8 tiles): for every batch
+// entry b < batch, C[b] (M x N) = sum_{s < S, d < D} A[b,s](m, d)
+// B[b,s](d, n).  a(b, s) / bm(b, s) give the stored operands: A stored
+// (m x depth), or with A_T (depth x m) and read by ldmatrix .trans; B
+// stored (depth x n) and read by .trans, or with B_N (n x depth) and read
+// as it is.  The depth runs in steps of 16 up to D rounded up: past D, one
+// operand must hold zeros and the other finite values there.  Rows and
+// columns past M and N are read (their outputs are dropped), so every
+// operand's storage reaches the 16-row, 16-column tile that holds its last
+// element.  The warps walk over (b, 16-row tile, 8 TILES_N columns) as
+// block_mma does; the order of every sum is fixed.  epi(b, m0, n0, live,
+// acc) takes a warp's tile: its C fragments acc[j] at rows m0 + g, m0 + g +
+// 8 and columns n0 + 8j + 2t, + 1, for j < live (the n8 tiles that reach
+// into N), called by all 32 lanes.
+template <bool A_T, bool B_N, int TILES_N = 4, typename AOp, typename BOp,
+          typename Epi>
+__device__ inline void block_mma_ldsm(int batch, int M, int N, int S, int D,
+                                      AOp a, BOp bm, Epi epi) {
+  static_assert(TILES_N % 2 == 0, "B fragments come two n8 tiles at a time");
+  constexpr int kWarpN = 8 * TILES_N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  // lanes 8q..8q+7 give the rows of matrix q
+  const int lr = lane & 7, q = lane >> 3;
+  const int mt = (M + 15) >> 4, nt = (N + kWarpN - 1) / kWarpN;
+  const int per = mt * nt, ksteps = (D + 15) >> 4;
+  for (int task = warp; task < batch * per; task += warps) {
+    const int b = task / per, rem = task - b * per;
+    const int m_t = rem / nt;
+    const int m0 = m_t << 4, n0 = (rem - m_t * nt) * kWarpN;
+    const int live = min(TILES_N, (N - n0 + 7) >> 3);
+    float acc[TILES_N][4];
+#pragma unroll
+    for (int j = 0; j < TILES_N; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const Smem16 A = a(b, s), B = bm(b, s);
+      // this lane's row address at depth 0 and its step per 16 of depth:
+      // matrix q of A is (rows 8 (q & 1), depths 8 (q >> 1)) of the 16 x 16
+      // tile; of B (depths 8 (q & 1), columns 8 (q >> 1)), two n8 tiles
+      const __nv_bfloat16* pa =
+          A_T ? A.p + (size_t)(lr + 8 * (q >> 1)) * A.ld + m0 + 8 * (q & 1)
+              : A.p + (size_t)(m0 + lr + 8 * (q & 1)) * A.ld + 8 * (q >> 1);
+      const __nv_bfloat16* pb =
+          B_N ? B.p + (size_t)(n0 + lr + 8 * (q >> 1)) * B.ld + 8 * (q & 1)
+              : B.p + (size_t)(lr + 8 * (q & 1)) * B.ld + n0 + 8 * (q >> 1);
+      const int da = A_T ? 16 * A.ld : 16, db = B_N ? 16 : 16 * B.ld;
+      const int dj = B_N ? 16 * B.ld : 16;  // the next two n8 tiles
+      for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t af[4];
+        if constexpr (A_T)
+          ldsm_x4_t(af, pa + ks * da);
+        else
+          ldsm_x4(af, pa + ks * da);
+#pragma unroll
+        for (int j = 0; j < TILES_N; j += 2) {
+          if (j < live) {
+            uint32_t bq[4];
+            const __nv_bfloat16* p = pb + ks * db + (j >> 1) * dj;
+            if constexpr (B_N)
+              ldsm_x4(bq, p);
+            else
+              ldsm_x4_t(bq, p);
+            const uint32_t b0[2] = {bq[0], bq[1]}, b1[2] = {bq[2], bq[3]};
+            mma_bf16(acc[j], af, b0);
+            if (j + 1 < live) mma_bf16(acc[j + 1], af, b1);
+          }
+        }
+      }
+    }
+    epi(b, m0, n0, live, acc);
+  }
+}
+
+// st(m, n, v) for each element of a warp's block_mma_ldsm tile inside M x N
+template <int TILES_N, typename ST>
+__device__ inline void tile_each(int M, int N, int m0, int n0, int live,
+                                 const float (&acc)[TILES_N][4], ST st) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = m0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < TILES_N; ++j) {
+    if (j < live) {
+      const int c0 = n0 + 8 * j + 2 * t;
+      if (r0 < M && c0 < N) st(r0, c0, acc[j][0]);
+      if (r0 < M && c0 + 1 < N) st(r0, c0 + 1, acc[j][1]);
+      if (r1 < M && c0 < N) st(r1, c0, acc[j][2]);
+      if (r1 < M && c0 + 1 < N) st(r1, c0 + 1, acc[j][3]);
+    }
   }
 }
 

@@ -30,9 +30,13 @@
 // scratch, resident in L2 between them.  The five block products of pass 2
 // (features, dA, dxf, dx, dwf) and pass 3's dwrm run as mma.sync tiles with
 // float32 accumulators on the tensor cores (dstd_mma.cuh): in the float32
-// entry as 3xTF32 products (float32-accurate), where pass 3's ds is one
-// such product too; in the bf16 entry (the TPU kernel's bf16 dtype: the
-// operands of the 11 contractions rounded to bf16) as bf16 products.  The
+// entry as 3xTF32 products (float32-accurate), their fragments built from
+// float32 shared memory, where pass 3's ds is one such product too; in the
+// bf16 entry (the TPU kernel's bf16 dtype: the operands of the 11
+// contractions rounded to bf16) as bf16 products, pass 2's on operands
+// stored as bf16 in shared memory and read by ldmatrix (138,384 B a block
+// at 64->64 and tile 5, where the float32 layout takes 213,984 B, so the
+// bf16 wrapper's tile is 7: 175,216 B).  The
 // mixing loop, the bf16 ds, the q/k products and every float32 sum stay on
 // the CUDA cores.
 #include "dstd_bwd_common.cuh"

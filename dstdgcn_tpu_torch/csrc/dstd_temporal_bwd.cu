@@ -34,7 +34,8 @@
 // (r, source joint), its columns the frame pairs, each ddyn element read
 // once a block) and the wrapper's tile is 4; in the bf16 entry (the TPU
 // kernel's bf16 dtype: the operands of the 11 contractions rounded to
-// bf16) as bf16 products.  The mixing loop (2*22 tanhf a frame pair), the
+// bf16) as bf16 products, pass 2's on operands stored as bf16 in shared
+// memory and read by ldmatrix.  The mixing loop (2*22 tanhf a frame pair), the
 // bf16 ds, the q/k products and every float32 sum stay on the CUDA cores.
 #include "dstd_bwd_common.cuh"
 

@@ -65,7 +65,10 @@ _FORWARD = {
 _BACKWARD = {
     "f32": _BWD_LAUNCH,
     "bf16": _BWD_LAUNCH,
+    # (T, V, Ci, Co, K, R, tile): the float32 variant's, and the bf16 one's
+    # (its pass 2 stages bf16 operands, LayoutOutBf16)
     "smem_bytes": ([_INT] * 7, _SIZE),
+    "bf16_smem_bytes": ([_INT] * 7, _SIZE),
     # (N, T, V, Ci, Co, K, R, tile)
     "scratch_floats": ([_INT] * 8, _SIZE),
 }
@@ -121,9 +124,8 @@ SMEM_BYTES = {
        for op in ("dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
                   "dstd_temporal_bwd")},
     **{(op, "bf16"): f"{op}_bf16_smem_bytes"
-       for op in ("dstd_spatial", "dstd_temporal")},
-    **{(op, "bf16"): f"{op}_smem_bytes"
-       for op in ("dstd_spatial_bwd", "dstd_temporal_bwd")},
+       for op in ("dstd_spatial", "dstd_temporal", "dstd_spatial_bwd",
+                  "dstd_temporal_bwd")},
     ("dstd_chain", "f32"): "dstd_chain_smem_bytes",
     ("dstd_chain", "bf16"): "dstd_chain_bf16_smem_bytes",
     **{("dstd_encoder_chain", v): f"dstd_encoder_chain_{v}_smem_bytes"

@@ -231,6 +231,18 @@ class FusedBwd(_Kernel):
         self.plain = plain_fn
         self.f32_tile = f32_tile or default_tile
 
+    def _tile(self, lib, variant, t, v, ci, co, k, r, tile):
+        """The largest tile that fits (``_Kernel._tile``); without a tile
+        asked for, the smallest one with as few blocks a sample, so no
+        block is left nearly empty (at CMU's 25 joints the bf16 temporal
+        backward at tile 7, blocks of 7, 7, 7, 4, measured faster than at
+        tile 8, blocks of 8, 8, 8, 1; PERF.md)."""
+        size = super()._tile(lib, variant, t, v, ci, co, k, r, tile)
+        if tile is not None:
+            return size
+        extent = t if self.mode == "spatial" else v
+        return -(-extent // -(-extent // size))
+
     def __call__(self, x, g, base, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm,
                  brm, agg: str = "right", dtype=None, *,
                  tile: int | None = None):
@@ -371,12 +383,19 @@ class _DSTDFunction(torch.autograd.Function):
                                    for gr, a in zip(grads, saved))
 
 
+# the bf16 backward at up to 8 output indices a block (evened out: 7 at
+# T = 35, 8 at H36M's V = 22, 7 at CMU's 25): its bf16 pass 2 leaves room
+# for them in one block an SM (175,216 and 213,296 B at H36M's shape,
+# 64->64), and fewer blocks a sample recompute fewer scores; at H36M's
+# shape and N = 128 the spatial and temporal backward measured 1.17x and
+# 1.24x faster than at tile 5, and faster than two blocks an SM at tiles 3
+# and 4 (PERF.md); the tile search steps down where a block does not fit
 dstd_spatial_bwd = FusedBwd("spatial", plain_bwd.dstd_spatial_bwd,
-                            default_tile=5)
+                            default_tile=8, f32_tile=5)
 # the float32 temporal backward at tile 4: 6 blocks a sample (1.45 waves on
 # the H100's 132 SMs at N = 32) measured faster than 5 and 6 (PERF.md)
 dstd_temporal_bwd = FusedBwd("temporal", plain_bwd.dstd_temporal_bwd,
-                             default_tile=5, f32_tile=4)
+                             default_tile=8, f32_tile=4)
 dstd_spatial = FusedOp("spatial", plain.dstd_spatial, plain.kernel_spatial,
                        default_tile=5, clustered=("f32", "bf16"),
                        bwd=dstd_spatial_bwd)

@@ -229,18 +229,42 @@ def test_bf16_kernel_matches_plain(cuda, mode, agg, cin, co):
     _bf16_held("forward", got, want, want32, float(want32.abs().max()))
 
 
-@pytest.mark.parametrize("cin,co", [(6, 64), (64, 64), (64, 3)])
+#: (N, T, V, tile, Ci, Co) of the bf16 backward cases (tile None: the
+#: wrapper's): a small batch at H36M's shape; the training cells' batch
+#: 128 at H36M's (35, 22) and CMU's (35, 25), and 3DPW's (40, 23), at the
+#: model's channel pairs (6->64, 64->64, 64->3 spatial; 3->3 temporal);
+#: and a pair axis of 25 at tile 4 in both ops (past one 16-row tile and
+#: not a multiple of 8, with a last tile of one output index)
+BF16_BWD_CASES = (
+    [(4, 35, 22, None, cin, co) for cin, co in ((6, 64), (64, 64), (64, 3))]
+    + [(n, t, v, tile, cin, co)
+       for n, t, v, tile in ((128, 35, 22, None), (128, 35, 25, None),
+                             (128, 40, 23, None), (3, 25, 25, 4))
+       for cin, co in ((6, 64), (64, 64), (64, 3), (3, 3))])
+
+
+@pytest.mark.parametrize("n,t,v,tile,cin,co", BF16_BWD_CASES)
 @pytest.mark.parametrize("agg", ["right", "left"])
 @pytest.mark.parametrize("mode", ["spatial", "temporal"])
-def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, cin, co):
-    args = _inputs(mode, 4, 35, 22, cin, co, cuda)
+def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, n, t, v, tile,
+                                            cin, co):
+    """The bf16 backward against the plain contract: bf16 x and g give the
+    same bits, BF16_TOL lies below half the bf16-versus-float32 gap, and at
+    H36M's small batch every gradient lies within BF16_TOL.  The other
+    shapes are held as the tile cases are (``_bf16_tile_held``: BF16_TOL,
+    or F4's rule, at a profile shape the flip-row rule): there one rounding
+    flip of a bf16 intermediate moves a dx element up to 2.6e-3 of
+    max(|dx|, 1) from the plain contract, in the loaders' pass 2 and in
+    the ldmatrix one alike (PERF.md)."""
+    args = _inputs(mode, n, t, v, cin, co, cuda)
     g = torch.from_numpy(np.random.RandomState(9).randn(
-        4, 35, 22, co).astype(np.float32)).to(cuda)
+        n, t, v, co).astype(np.float32)).to(cuda)
     kernel = getattr(fused, f"dstd_{mode}_bwd")
     fused.reset_launch_counts()
-    got = kernel(args[0], g, *args[1:], agg=agg, dtype=torch.bfloat16)
+    got = kernel(args[0], g, *args[1:], agg=agg, dtype=torch.bfloat16,
+                 tile=tile)
     again = kernel(args[0].to(torch.bfloat16), g.to(torch.bfloat16),
-                   *args[1:], agg=agg, dtype=torch.bfloat16)
+                   *args[1:], agg=agg, dtype=torch.bfloat16, tile=tile)
     torch.cuda.synchronize()
     assert fused.launch_counts()[f"dstd_{mode}_bwd_bf16"] == \
         2 * fused.BWD_LAUNCHES
@@ -251,11 +275,17 @@ def test_bf16_backward_kernel_matches_plain(cuda, mode, agg, cin, co):
     want = ref(args[0], g, *args[1:], agg=agg, dtype=torch.bfloat16)
     want32 = ref(args[0], g, *args[1:], agg=agg)
     norms = [max(float(b.abs().max()), 1.0) for b in want]
-    errs = [float((a - b).abs().max()) / n
-            for a, b, n in zip(got, want, norms)]
-    gap = max(float((b - c).abs().max()) / n
-              for b, c, n in zip(want, want32, norms))
-    assert max(errs) <= BF16_TOL["backward"] < gap / 2, (errs, gap)
+    errs = [float((a - b).abs().max()) / nrm
+            for a, b, nrm in zip(got, want, norms)]
+    gap = max(float((b - c).abs().max()) / nrm
+              for b, c, nrm in zip(want, want32, norms))
+    assert BF16_TOL["backward"] < gap / 2, gap
+    if (n, t, v) == (4, 35, 22):
+        assert max(errs) <= BF16_TOL["backward"], errs
+    else:
+        ok, repeat, held, ratios = _bf16_tile_held(
+            (mode, tile, n, t, v, cin, co, agg), cuda, passes=("backward",))
+        assert repeat and all(ok.values()), (held, ratios)
 
 
 #: (mode, tile, N, T, V, Ci, Co, agg): ragged shapes at every tile, then

@@ -167,6 +167,34 @@ def test_bad_agg_raises():
         tops.dstd_spatial(*_torch_args(x, base, alpha, w), None, "middle")
 
 
+def test_backward_default_tile_evens_out_the_blocks_of_a_sample():
+    """Without a tile asked for, the backward wrappers take the largest
+    tile that fits, then the smallest with as few blocks a sample: the
+    bf16 default of 8 output indices a block gives 7 at T = 35, 8 at V =
+    22 and 7 at V = 25 (blocks of 7, 7, 7, 4); where tile 8 does not fit,
+    7 at V = 23 gives 6 (6, 6, 6, 5).  A tile asked for stays as the
+    search leaves it."""
+    from dstdgcn_tpu_torch.kernels import build
+
+    class Lib:  # a block of tile k takes 30,000 k bytes: k <= 7 fits
+        pass
+
+    lib = Lib()
+    for op in ("dstd_spatial_bwd", "dstd_temporal_bwd"):
+        setattr(lib, build.SMEM_BYTES[op, "bf16"],
+                lambda t, v, ci, co, k, r, tile: 30000 * tile)
+    sp, te = tfused.dstd_spatial_bwd, tfused.dstd_temporal_bwd
+    assert sp._tile(lib, "bf16", 35, 22, 64, 64, 2, 2, None) == 7
+    assert te._tile(lib, "bf16", 35, 25, 64, 64, 1, 2, None) == 7
+    assert te._tile(lib, "bf16", 40, 23, 64, 64, 1, 2, None) == 6
+    assert te._tile(lib, "bf16", 35, 25, 64, 64, 1, 2, 6) == 6
+    assert sp._tile(lib, "bf16", 35, 25, 64, 64, 2, 2, 4) == 4
+    # every tile fits: H36M's 22 joints in blocks of 8, 8, 6
+    setattr(lib, build.SMEM_BYTES["dstd_temporal_bwd", "bf16"],
+            lambda *shape: 0)
+    assert te._tile(lib, "bf16", 35, 22, 64, 64, 1, 2, None) == 8
+
+
 @pytest.mark.parametrize("variant", ["f32", "bf16"])
 @pytest.mark.parametrize("kernel", [op.name for op in tfused._KERNELS])
 def test_every_kernel_variant_names_its_shared_memory_function(kernel,
