@@ -1,4 +1,5 @@
-from . import datasets, kinematics, loader, native, pose_norm, transforms
+from . import (datasets, kinematics, loader, native, pose_norm, traffic,
+               transforms)
 from .datasets import (CMUMocap, Human36M, MotionDataset, PW3D, Synthetic,
                        define_actions, get_dataset)
 from .loader import Loader
@@ -6,7 +7,8 @@ from .transforms import (MeanStdNorm, MinMaxNorm, TimeTransform,
                          get_transform, mirror_sequences, padding_indices)
 
 __all__ = [
-    "datasets", "kinematics", "loader", "native", "pose_norm", "transforms",
+    "datasets", "kinematics", "loader", "native", "pose_norm", "traffic",
+    "transforms",
     "CMUMocap", "Human36M", "MotionDataset", "PW3D", "Synthetic",
     "define_actions", "get_dataset", "Loader", "MeanStdNorm", "MinMaxNorm",
     "TimeTransform", "get_transform", "mirror_sequences", "padding_indices",

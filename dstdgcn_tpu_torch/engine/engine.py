@@ -45,7 +45,14 @@ Counterpart of ``dstdgcn_tpu/engine/engine.py::PredictionEngine``:
 Dropout draws from a ``torch.Generator`` on the engine's device seeded
 ``seed + 1`` (the JAX engine's ``dropout_key``) plus the rank's index on
 the data axis, so that ranks draw distinct masks; its stream cannot match
-JAX's.
+JAX's.  Every dropout module of the model (:class:`..models.layers.Dropout`)
+draws from that one generator, in the order the forward reaches them.
+
+``precision: float32`` in the engine block means float32 throughout:
+building the engine turns TF32 off for cuBLAS products and cuDNN
+convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``, process-wide flags), which cuDNN
+otherwise allows for convolutions.
 
 Under a ``mesh`` (:mod:`..parallel.mesh`: each rank holds its data
 index's share of every global batch) the engine keeps the JAX engine's
@@ -82,7 +89,7 @@ import torch.distributed as dist
 
 from ..data import transforms as tfm
 from ..models import infer
-from ..models.layers import JointBatchNorm
+from ..models.layers import Dropout, JointBatchNorm
 from ..parallel.mesh import activation_sharding_context
 from ..utils import profiling
 from ..utils.bridge import load_flax_variables
@@ -117,7 +124,8 @@ class PredictionEngine:
     ``config`` is the ``engine`` block of the experiment config:
     learn{opt, lr, weight_decay, gamma, step_size}, loss{name: [type,
     weight(, out_idx)]}, n_out, transform, inverse, max_iter, and optionally
-    clip, detect_anomaly, solver, callbacks, profile and profile_steps.
+    clip, detect_anomaly, solver, callbacks, profile, profile_steps and
+    precision.
     ``prng_impl`` names a JAX PRNG and has no meaning here; it is accepted
     and ignored.  ``mesh`` (a :class:`..parallel.mesh.Mesh`, or None for
     one process) makes the engine data parallel over the mesh's data group
@@ -138,7 +146,7 @@ class PredictionEngine:
         self.transform_fn, self.inverse_fn = tfm.get_transform(
             config.get("transform", "tsc"))
 
-        reg = L.registry(bone_incidence)
+        reg = dict(L.registry(bone_incidence), **L.FORECAST)
         self.n_out = int(config.get("n_out", 1))
         self.loss_funcs: Dict[str, Tuple[Callable, float, int]] = {}
         for name, spec in config["loss"].items():
@@ -148,6 +156,10 @@ class PredictionEngine:
                     f"loss {name!r} binds output {out_idx} but n_out="
                     f"{self.n_out}")
             self.loss_funcs[name] = (reg[spec[0]], float(spec[1]), out_idx)
+
+        if config.get("precision") == "float32":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
 
         learn = config["learn"]
         self.lr_schedule = steplr(float(learn["lr"]), float(learn["gamma"]),
@@ -195,9 +207,9 @@ class PredictionEngine:
                     dist.broadcast(t, src=0, group=self.mesh.all_group)
         self.generator = torch.Generator(self.device).manual_seed(
             seed + 1 + rank)
-        dropout = getattr(self.model, "do_in", None)
-        if dropout is not None:
-            dropout.generator = self.generator
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.generator
         if self.solver:
             self.optimizer = make_optimizer(
                 dict(self.solver, base_lr=self.lr),
@@ -225,6 +237,10 @@ class PredictionEngine:
         return x if self.inverse_fn is None else self.inverse_fn(x)
 
     def to_device(self, a) -> torch.Tensor:
+        """``a`` (an array, or a tensor on any device) as float32 on the
+        engine's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(
             self.device)
 

@@ -7,7 +7,11 @@ tl2, cl1, cl2, gm2, with the JAX package's semantics kept exactly: the
 weighted MPJPE weights the coordinates once, ``cl2`` is a mean absolute
 error (the reference computes ``mean(sqrt(d**2))``), ``gm2`` takes its
 target Gram from the target, and ``bl2`` uses the active layout's bone
-incidence (``graphs/skeleton.py::bone_incidence``).
+incidence (``graphs/skeleton.py::bone_incidence``).  ``FORECAST`` holds
+the losses of traffic forecasting, which the JAX package has not:
+``mmae``, the masked mean absolute error (Graph WaveNet's
+``util.py::masked_mae`` with null value 0), on predictions and targets of
+any one shape.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["mpjpe_error", "mae_error", "mse_error", "transition_error",
-           "gram_matrix_loss", "make_bone_error", "registry", "AccumLoss"]
+           "gram_matrix_loss", "make_bone_error", "masked_mae_error",
+           "registry", "FORECAST", "AccumLoss"]
 
 
 def _to_joints(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
@@ -66,6 +71,20 @@ def gram_matrix_loss(pred, target, weights=None) -> torch.Tensor:
     return ((gram(pred) - gram(target)) ** 2).sum()
 
 
+def masked_mae_error(pred, target, weights=None) -> torch.Tensor:
+    """``mmae``: the mean absolute error over the targets that are not 0
+    (a missing reading), each kept term weighted by one over the kept
+    share, so that the mean runs over the kept readings; NaN terms (no
+    reading kept) count 0."""
+    del weights
+    mask = (target != 0).float()
+    mask = mask / torch.mean(mask)
+    mask = torch.where(torch.isnan(mask), torch.zeros_like(mask), mask)
+    loss = torch.abs(pred - target) * mask
+    loss = torch.where(torch.isnan(loss), torch.zeros_like(loss), loss)
+    return torch.mean(loss)
+
+
 def make_bone_error(incidence) -> Callable:
     """Bone-length L2 loss over a layout's (V, E) incidence matrix."""
     inc = torch.as_tensor(np.asarray(incidence), dtype=torch.float32)
@@ -94,6 +113,10 @@ def registry(bone_incidence=None) -> Dict[str, Callable]:
     if bone_incidence is not None:
         reg["bl2"] = make_bone_error(bone_incidence)
     return reg
+
+
+#: the forecasting losses, bound by the engine beside :func:`registry`'s
+FORECAST = {"mmae": masked_mae_error}
 
 
 class AccumLoss:

@@ -1,4 +1,4 @@
-from . import skeleton, temporal
+from . import road, skeleton, temporal
 from .skeleton import (LAYOUTS, SkeletonLayout, adjacency, bone_incidence,
                        edge_list, get_layout, hop_distance,
                        joint_bone_flattened, joint_bone_transition,
@@ -6,7 +6,7 @@ from .skeleton import (LAYOUTS, SkeletonLayout, adjacency, bone_incidence,
                        stacked_adjacency, stgcn_adjacency)
 
 __all__ = [
-    "skeleton", "temporal", "LAYOUTS", "SkeletonLayout", "adjacency",
+    "road", "skeleton", "temporal", "LAYOUTS", "SkeletonLayout", "adjacency",
     "bone_incidence", "edge_list", "get_layout", "stacked_adjacency",
     "hop_distance", "normalize_digraph", "normalize_undigraph",
     "stgcn_adjacency", "joint_bone_transition", "joint_bone_flattened",

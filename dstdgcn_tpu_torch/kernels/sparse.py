@@ -20,12 +20,19 @@ raises; on a CPU tensor it runs its plain version, the masked dense form
 ``block_sddmm_spmm`` are differentiable, with the JAX package's backward:
 the masked dense products for ``block_spmm``, autograd through the masked
 dense oracle for ``block_sddmm_spmm`` (exact gradients, O(V^2) memory).
+Where the adjacency of ``block_spmm`` needs no gradient (a constant
+support), its ``d_x = (adj * m)^T g`` is one more ``block_spmm`` call on
+the transposed pattern (:meth:`BlockPattern.transposed`), against the
+masked transposed adjacency ``adj_t``: a caller with a constant adjacency
+builds it once and passes it, else the backward builds it.
 ``block_sddmm`` has no gradient in the JAX package and raises on inputs that
 need one.  The per-pattern state (the checked block list, its CSR row
 pointer, the device copies of rows / cols and the element mask) is built
 once per ``(rows, cols, block, V, Vj)`` and cached; a call copies nothing
 from the host to the card.  Every op counts its kernel launches in
 ``.launches`` (:func:`launch_counts`, :func:`reset_launch_counts`).
+Each ``block_spmm`` launch, of either direction, runs inside the program
+span ``sparse.spmm`` (:func:`..utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import build
 from .fused import MAX_SAMPLES, _check_arrays
 
@@ -119,10 +127,23 @@ class BlockPattern:
         self.row_ptr = np.searchsorted(rows, np.arange(bi + 1)).astype(
             np.int32)
         self._device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._t = None
 
     @property
     def num_blocks(self) -> int:
+        """The count of active blocks."""
         return len(self.rows)
+
+    def transposed(self) -> "BlockPattern":
+        """The cached pattern of the transposed blocks (Vj x V), every
+        block row given a block as :func:`active_blocks` gives it."""
+        if self._t is None:
+            mask = np.zeros((self.vj // self.block, self.v // self.block),
+                            bool)
+            mask[self.cols, self.rows] = True
+            rows, cols = active_blocks(mask)
+            self._t = pattern(rows, cols, self.block, self.vj, self.v)
+        return self._t
 
     def _state(self, device: torch.device) -> Dict[str, torch.Tensor]:
         state = self._device.get(device)
@@ -232,10 +253,13 @@ def _check_samples(name: str, n: int):
 
 
 class BlockSpmm(_SparseKernel):
-    """``block_spmm(adj, x, rows, cols, block=128)``: adj (N, V, Vj), x
-    (N, Vj, C) -> (N, V, C), summing the active blocks of adj only."""
+    """``block_spmm(adj, x, rows, cols, block=128, adj_t=None)``: adj
+    (N, V, Vj), x (N, Vj, C) -> (N, V, C), summing the active blocks of adj
+    only.  ``adj_t``, for a constant adj: ``(adj * m)^T`` (N, Vj, V),
+    contiguous, which ``d_x`` reads on the transposed pattern (built by
+    the backward where it is not given)."""
 
-    def __call__(self, adj, x, rows, cols, block: int = 128):
+    def __call__(self, adj, x, rows, cols, block: int = 128, adj_t=None):
         if adj.dim() != 3 or x.dim() != 3 or adj.shape[0] != x.shape[0] \
                 or adj.shape[2] != x.shape[1]:
             raise ValueError(f"{self.name}: adj (N,V,Vj) and x (N,Vj,C) "
@@ -244,11 +268,15 @@ class BlockSpmm(_SparseKernel):
         pat = pattern(rows, cols, block, adj.shape[1], adj.shape[2])
         _device_of(self.name, adj, x)
         if _wants_grad(adj, x):
-            return _SpmmFunction.apply(self, pat, adj, x)
+            return _SpmmFunction.apply(self, pat, adj, x, adj_t)
         return self.forward(pat, adj, x)
 
     def forward(self, pat: BlockPattern, adj, x) -> torch.Tensor:
-        """One forward call, outside autograd."""
+        """One call, outside autograd (either direction's)."""
+        with profiling.span("sparse.spmm"):
+            return self._call(pat, adj, x)
+
+    def _call(self, pat: BlockPattern, adj, x) -> torch.Tensor:
         if adj.device.type == "cpu":
             return spmm_dense(adj * pat.mask(adj.device), x)
         _check_cuda(self.name, dict(adj=adj, x=x))
@@ -270,25 +298,33 @@ class BlockSpmm(_SparseKernel):
 
 
 class _SpmmFunction(torch.autograd.Function):
-    """Kernel forward; the masked dense backward of the JAX package:
-    d_adj = (g x^T) * m, d_x = (adj * m)^T g."""
+    """Kernel forward; the backward d_adj = (g x^T) * m, d_x = (adj * m)^T
+    g: where adj needs a gradient both as the JAX package's masked dense
+    products, else d_x as the kernel on the transposed pattern against
+    ``adj_t`` (the caller's, or built here)."""
 
     @staticmethod
-    def forward(ctx, op, pat, adj, x):
-        ctx.pat = pat
-        ctx.save_for_backward(adj, x)
+    def forward(ctx, op, pat, adj, x, adj_t):
+        ctx.op, ctx.pat = op, pat
+        ctx.save_for_backward(adj, x, adj_t)
         return op.forward(pat, adj, x)
 
     @staticmethod
     def backward(ctx, g):
-        adj, x = ctx.saved_tensors
-        m = ctx.pat.mask(adj.device)
+        adj, x, adj_t = ctx.saved_tensors
+        pat = ctx.pat
         d_adj = d_x = None
         if ctx.needs_input_grad[2]:
+            m = pat.mask(adj.device)
             d_adj = torch.bmm(g, x.transpose(1, 2)) * m
-        if ctx.needs_input_grad[3]:
-            d_x = torch.bmm((adj * m).transpose(1, 2), g)
-        return None, None, d_adj, d_x
+            if ctx.needs_input_grad[3]:
+                d_x = torch.bmm((adj * m).transpose(1, 2), g)
+        elif ctx.needs_input_grad[3]:
+            if adj_t is None:
+                adj_t = (adj * pat.mask(adj.device)).transpose(1, 2) \
+                    .contiguous()
+            d_x = ctx.op.forward(pat.transposed(), adj_t, g.contiguous())
+        return None, None, d_adj, d_x, None
 
 
 def _check_qkw(name: str, q, k, w):

@@ -2,6 +2,7 @@
 
 from .action_runner import ActionRunner, CMURunner, H36MRunner
 from .base import BaseRunner
+from .forecast_runner import ForecastRunner
 from .simple_runner import PW3DRunner, SimpleRunner, SyntheticRunner
 
 _RUNNERS = {
@@ -9,6 +10,7 @@ _RUNNERS = {
     "cmu": CMURunner,
     "3dpw": PW3DRunner,
     "synthetic": SyntheticRunner,
+    "forecast": ForecastRunner,
 }
 
 
@@ -18,5 +20,6 @@ def get_runner(name: str, config, device="cuda"):
     return _RUNNERS[name](config, device=device)
 
 
-__all__ = ["get_runner", "BaseRunner", "ActionRunner", "H36MRunner",
-           "CMURunner", "PW3DRunner", "SimpleRunner", "SyntheticRunner"]
+__all__ = ["get_runner", "BaseRunner", "ActionRunner", "ForecastRunner",
+           "H36MRunner", "CMURunner", "PW3DRunner", "SimpleRunner",
+           "SyntheticRunner"]

@@ -5,6 +5,10 @@ call) in whatever ``torch.profiler`` records it: a span is a
 ``record_function`` while a profiler records, on the trace's own clock
 beside the host operators and the card's kernels, and one shared null
 context otherwise, so that a span costs one check when nothing records.
+``spanned`` names a computation in both directions: its forward inside
+the span, and its backward pass, which autograd runs later and maybe on
+another thread, inside a span of the same name opened when the gradient
+reaches the computation's output and closed when it has left its inputs.
 ``trace`` (the counterpart of ``trace`` in
 ``dstdgcn_tpu/utils/profiling.py``) records ``torch.profiler`` activity
 (host operators and, with a card, its kernels) and writes it as one Chrome
@@ -16,11 +20,11 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import ContextManager, Iterator, Optional
+from typing import Callable, ContextManager, Iterator, Optional
 
 import torch
 
-__all__ = ["span", "trace"]
+__all__ = ["span", "spanned", "trace"]
 
 _NO_SPAN = contextlib.nullcontext()
 _recording = torch.autograd._profiler_enabled
@@ -32,6 +36,49 @@ def span(name: str) -> ContextManager:
     if _recording():
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+class _Bracket(torch.autograd.Function):
+    """Identity forward; its backward opens the span of ``box`` (at a
+    computation's output) or closes it once every bracketed input has been
+    reached (at its inputs)."""
+
+    @staticmethod
+    def forward(ctx, x, box, opens):
+        ctx.box, ctx.opens = box, opens
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        box = ctx.box
+        if ctx.opens:
+            box["span"] = torch.profiler.record_function(box["name"])
+            box["span"].__enter__()
+        else:
+            box["open"] -= 1
+            if box["open"] == 0 and "span" in box:
+                box.pop("span").__exit__(None, None, None)
+        return g, None, None
+
+
+def spanned(name: str, fn: Callable[..., torch.Tensor],
+            *inputs: torch.Tensor) -> torch.Tensor:
+    """``fn(*inputs)`` inside the span ``name``, whose backward pass runs
+    inside a span of the same name too, while a profiler records; else
+    just ``fn(*inputs)``.  Every input that needs a gradient must reach
+    the output."""
+    if not _recording():
+        return fn(*inputs)
+    box = dict(name=name, open=0)
+    with torch.profiler.record_function(name):
+        if torch.is_grad_enabled():
+            inputs = tuple(_Bracket.apply(x, box, False) if x.requires_grad
+                           else x for x in inputs)
+            box["open"] = sum(x.requires_grad for x in inputs)
+        out = fn(*inputs)
+        if box["open"] and out.requires_grad:
+            out = _Bracket.apply(out, box, True)
+    return out
 
 
 @contextlib.contextmanager
