@@ -112,6 +112,15 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    gradients of q, k, w, x and adj against autograd through the masked
    dense oracle (1e-4 of max(|plain|, 1)); times, bounds, and for the SpMM
    the dense ``torch.bmm`` of the pre-masked adjacency as ``library_ms``;
+8b. Graph WaveNet's dense adaptive hop (``kernels/dense.py``): the
+   forward and both gradients at V 3,834 and 200, F 2,048 and 24,576,
+   against float64 within twice the plain float32 product's distance (or
+   1e-6 of the peak), exact launches; device ms beside the bound and
+   ``torch.mm``; then, counts from zero, one Graph WaveNet training step
+   at the forecast configuration's graph and widths (batch 2, dropout 0):
+   44 launches, the loss and each gradient against the same step on the
+   plain products (``dense_phase``, alone after the build: about a
+   minute);
 9. the bf16 slice: ``main.run`` on ``synthetic_h36m_tpu_train`` (the
    flagship TPU configuration's model and engine blocks, "auto" knobs,
    batch 128, 2 epochs of 4 steps and an eval batch after each): the
@@ -252,11 +261,12 @@ Phases, each of which must pass (exit code 1 and no result line otherwise):
    ``dstd_encoder_chain`` and 2 + 2 one-op launches a batch) within 1e-4
    relative of the standard one; printed: each run's step wall and device
    ms, an eval batch's wall, a batch's fused and standard forward times;
-16. a ``{"kernels": [...]}`` line with each of the 15 kernels' launches on
+16. a ``{"kernels": [...]}`` line with each of the 16 kernels' launches on
    its main path (the training slice for the float32 one-op kernels, the
    bf16 slice for their bf16 variants, the fused slices for the encoder
    kernels, phase 6 and its bf16 pass for ``dstd_chain``, phase 8 for the
-   sparse kernels), max error, times and bound (contractions at the
+   sparse kernels, phase 8b's Graph WaveNet step for the dense hop), max
+   error, times and bound (contractions at the
    tensor cores' rate for the dtype: dense bf16, or for float32 3xTF32,
    the dense TF32 rate over 3; the rest at the float32 rate), the float32
    one-op kernels' launches in phase 11's training runs beside them
@@ -427,6 +437,9 @@ KERNELS = {
     "block_sddmm_spmm": dict(
         source="dstdgcn_tpu_torch/csrc/block_sparse.cu",
         replaces="dstdgcn_tpu/kernels/sparse.py:199"),
+    "dense_hop": dict(
+        source="dstdgcn_tpu_torch/csrc/dense_hop.cu",
+        replaces="none"),
 }
 FORWARD = ("dstd_spatial", "dstd_temporal")
 BACKWARD = ("dstd_spatial_bwd", "dstd_temporal_bwd")
@@ -530,25 +543,25 @@ def demangle(names):
             .removeprefix("void ") for f in full]
 
 
-def sass_mma(path):
-    """{kernel: (number of tensor-core ``HMMA`` and ``DMMA``
-    instructions, of all instructions)} of each function in the SASS of
-    the built library at ``path`` (``cuobjdump -sass``); fails where the
-    toolkit has no cuobjdump, since the tensor-core check cannot run
-    without it."""
+def sass_mma(path, pattern=r"\b[HD]MMA\b"):
+    """{kernel: (number of tensor-core instructions, ``HMMA`` and
+    ``DMMA`` or those ``pattern`` matches, of all instructions)} of each
+    function in the SASS of the built library at ``path`` (``cuobjdump
+    -sass``); fails where the toolkit has no cuobjdump, since the
+    tensor-core check cannot run without it."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.access(tool, os.X_OK), "no cuobjdump: the SASS of the "
                                     "kernels cannot be read")
     proc = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, timeout=300)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
-    counts = sass_counts(proc.stdout)
+    counts = sass_counts(proc.stdout, pattern)
     return dict(zip(demangle(list(counts)), counts.values()))
 
 
-def sass_counts(text):
-    """{mangled kernel: (tensor-core instructions, HMMA or DMMA;
-    instructions)} of a
+def sass_counts(text, pattern=r"\b[HD]MMA\b"):
+    """{mangled kernel: (tensor-core instructions, those ``pattern``
+    matches, HMMA or DMMA by default; instructions)} of a
     ``cuobjdump -sass`` listing: an instruction is a line with an address
     comment (``/*0a70*/``), a function starts at ``Function : name``."""
     import re
@@ -560,7 +573,7 @@ def sass_counts(text):
             counts[name] = (0, 0)
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             hmma, total = counts[name]
-            counts[name] = (hmma + bool(re.search(r"\b[HD]MMA\b", line)),
+            counts[name] = (hmma + bool(re.search(pattern, line)),
                             total + 1)
     return counts
 
@@ -859,6 +872,221 @@ def sparse_phase(torch, np, sparse, fused, device):
             print("sparse: " + json.dumps(entries[name]))
     report["kernels"] = entries
     return report, entries
+
+
+# -- the dense adaptive hop ---------------------------------------------------
+
+#: the dense hop's checks: Graph WaveNet's V at the forecast configuration
+#: and a small ragged V, at the F of its shortest and its longest layer (L
+#: 1 and 12 at batch 64 and 32 channels); its timings at V 3,834
+DENSE_V = (3834, 200)
+DENSE_F = (2048, 24576)
+#: the products of a hop: the forward and its two gradients
+DENSE_PRODUCTS = ("out", "d_x", "d_adp")
+
+
+def dense_cost(v, f):
+    """(least ms, ms of the products, ms of the bytes) of one dense-hop
+    product: 2 V^2 F products at the 3xTF32 rate, 4 (V^2 + 2 V F) bytes."""
+    return bound_of(0.0, 4.0 * (v * v + 2 * v * f), 2.0 * v * v * f)
+
+
+def dense_inputs(torch, v, f, device, seed):
+    """The model's adaptive support softmax(relu(E1 E2)) of seeded
+    standard-normal embeddings, and x and g standard normal."""
+    gen = torch.Generator().manual_seed(seed)
+    e1, e2 = torch.randn(v, 10, generator=gen), torch.randn(10, v,
+                                                             generator=gen)
+    adp = torch.softmax(torch.relu(e1 @ e2), 1)
+    x, g = (torch.randn(v, f, generator=gen) for _ in range(2))
+    return adp.to(device), x.to(device), g.to(device)
+
+
+def dense_plain(adp, x, g):
+    """{product: plain value} of the hop adp^T x and its gradients."""
+    return dict(out=adp.t().mm(x), d_x=adp.mm(g), d_adp=x.mm(g.t()))
+
+
+def dense_phase(torch, np, device):
+    """The dense adaptive hop (``kernels/dense.py``, ``csrc/dense_hop.cu``):
+    its build (ptxas, ``HGMMA`` in the SASS of both product kernels); the
+    forward and both gradients through the
+    autograd Function at every (V, F) of DENSE_V x DENSE_F against the
+    float64 product, each within twice the plain float32 product's
+    distance or 1e-6 of the largest element, with one launch of each
+    product a case; then at V 3,834 each product's
+    device ms beside its bound and ``torch.mm``'s (the plain version, TF32
+    off: cuBLAS on the CUDA cores); last, counts from zero, one training
+    step of Graph WaveNet at the forecast configuration (``dense_step``).
+    Returns the phase's report and the kernel's entry of the kernels line
+    (its launches those of the step, its times the three products' sum at
+    F 24,576, the layer of 12 steps at batch 64)."""
+    from dstdgcn_tpu_torch.kernels import build, dense
+    t_start = time.perf_counter()
+    secs = build.build_all(["dense_hop"])
+    report = dict(build_seconds=secs["dense_hop"],
+                  ptxas=ptxas_usage(build.build_log("dense_hop")),
+                  hgmma=sass_mma(build.library("dense_hop")._name,
+                                 r"\bHGMMA\b"))
+    for row in report["ptxas"]:
+        print(f"  ptxas dense_hop: {row[0]}: {row[1]} registers, spill "
+              f"{row[2]} bytes stored / {row[3]} loaded")
+    for kernel, (count, size) in report["hgmma"].items():
+        print(f"  sass dense_hop: {kernel}: {count} HGMMA of {size} "
+              "instructions")
+        check(count > 0, f"{kernel}: {count} HGMMA instructions")
+    op = dense.dense_hop
+    checks = []
+    for v in DENSE_V:
+        for f in DENSE_F:
+            adp, x, g = dense_inputs(torch, v, f, device, seed=v + f)
+            before = dense.launch_counts()
+            a = adp.clone().requires_grad_(True)
+            xr = x.clone().requires_grad_(True)
+            out = op(a, xr)
+            d_adp, d_x = torch.autograd.grad(out, (a, xr), g)
+            torch.cuda.synchronize()
+            after = dense.launch_counts()
+            got = dict(out=out.detach(), d_x=d_x, d_adp=d_adp)
+            want = dense_plain(adp.double(), x.double(), g.double())
+            plain = dense_plain(adp, x, g)
+            line = dict(v=v, f=f, launches=after["dense_hop"]
+                        - before["dense_hop"])
+            for name in DENSE_PRODUCTS:
+                err = float((got[name].double() - want[name]).abs().max())
+                floor = float((plain[name].double() - want[name]).abs()
+                              .max())
+                peak = float(want[name].abs().max())
+                line[name] = dict(err=err, plain_err=floor, peak=peak,
+                                  ok=err <= max(2 * floor, 1e-6 * peak))
+            print("dense: " + json.dumps(line))
+            checks.append(line)
+            check(line["launches"] == 3,
+                  f"dense hop launches at V {v}, F {f}: {line}")
+            for name in DENSE_PRODUCTS:
+                check(line[name]["ok"], f"dense hop {name} at V {v}, F {f}: "
+                      f"{line[name]}")
+            del adp, x, g, a, xr, out, d_adp, d_x, got, want, plain
+    report["checks"] = checks
+    timings = []
+    v = DENSE_V[0]
+    with torch.no_grad():
+        for f in DENSE_F:
+            adp, x, g = dense_inputs(torch, v, f, device, seed=f)
+            ops = dense.Operands(adp)
+            ops.get(True), ops.get(False)
+            calls = dict(out=lambda: op.forward(ops, x),
+                         d_x=lambda: op.d_x(ops, g),
+                         d_adp=lambda: op.d_adp(x, g))
+            plains = dict(out=lambda: torch.mm(adp.t(), x),
+                          d_x=lambda: torch.mm(adp, g),
+                          d_adp=lambda: torch.mm(x, g.t()))
+            for name in DENSE_PRODUCTS:
+                prof = device_profile(torch, calls[name], 10)
+                k_ms = sum(prof.values())
+                p_ms, p_by = device_ms(torch, plains[name], 5)
+                b_ms, t_ops, t_mem = dense_cost(v, f)
+                line = dict(product=name, v=v, f=f, ms=k_ms,
+                            plain_ms=p_ms, library_ms=p_ms, bound_ms=b_ms,
+                            bound_by="operations" if t_ops >= t_mem
+                            else "bytes",
+                            tflops=2.0 * v * v * f / k_ms / 1e9,
+                            roofline=100.0 * b_ms / k_ms,
+                            timed_by="profiler" if prof else "none")
+                print("dense: " + json.dumps(line))
+                timings.append(line)
+            copies = device_profile(
+                torch, lambda: dense.Operands(adp).get(True), 10)
+            timings.append(dict(product="adp_t_padded_copy", v=v,
+                                ms=sum(copies.values())))
+            print("dense: " + json.dumps(timings[-1]))
+            del adp, x, g, ops
+    report["timings"] = timings
+    report["step"] = dense_step(torch, np, device)
+    longest = [t for t in timings
+               if t.get("f") == DENSE_F[-1] and "ms" in t and "plain_ms" in t]
+    entry = dict(
+        name="dense_hop", route="cuda", source=KERNELS["dense_hop"]["source"],
+        replaces=KERNELS["dense_hop"]["replaces"],
+        launches=report["step"]["launches"],
+        max_abs_err=max(c[name]["err"] for c in checks
+                        for name in DENSE_PRODUCTS),
+        ms=sum(t["ms"] for t in longest),
+        plain_ms=sum(t["plain_ms"] for t in longest),
+        bound_ms=sum(t["bound_ms"] for t in longest),
+        bound_by="operations", library_ms=sum(t["library_ms"]
+                                              for t in longest),
+        call_ms=None, timed_by="profiler")
+    print("dense: " + json.dumps(entry))
+    report["seconds"] = time.perf_counter() - t_start
+    print(f"dense: the phase took {report['seconds']:.1f} s")
+    return report, entry
+
+
+def dense_step(torch, np, device):
+    """One training step of Graph WaveNet at the forecast configuration's
+    graph (3,834 sensors) and published widths, batch 2, dropout 0, TF32
+    off, counts from zero: the wrapper's launches (16 forward, 14 ``d_x``, 14
+    ``d_adp``: 44) and the loss and each gradient against the same step on
+    the plain products, by ``tests/test_torch_dense.py``'s rule (loss
+    within 1e-5 of max(|plain|, 1), each gradient within 1e-4 of the
+    plain gradient's norm; a plain gradient under 1e-3 of the median
+    leaf's is rounding noise and the kernel's is held under that floor)."""
+    from dstdgcn_tpu_torch.graphs import road
+    from dstdgcn_tpu_torch.kernels import dense
+    from dstdgcn_tpu_torch.models import GWNet
+    v = DENSE_V[0]
+    model = GWNet(joints_to_consider=v, dropout=0.0,
+                  adjacency=road.road_graph(v, 21)).to(device)
+    plain_model = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 12, v, 3, generator=gen).to(device)
+    y = torch.randn(2, 12, v, generator=gen).to(device)
+
+    def step(m):
+        m.train()
+        loss = (m(x) - y).abs().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad for k, p in m.named_parameters()
+                 if p.grad is not None}
+        return float(loss.detach()), grads
+
+    kernel_hop = dense.dense_hop
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dense.reset_launch_counts()
+        loss, grads = step(model)
+        launches = dense.launch_counts()["dense_hop"]
+        dense.dense_hop = lambda a, b, ops: dense.hop_dense(a, b)
+        plain_loss, plain_grads = step(plain_model)
+    finally:
+        dense.dense_hop = kernel_hop
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    check(grads.keys() == plain_grads.keys(),
+          "dense step: the two paths' gradients differ in their leaves")
+    floor = 1e-3 * float(np.median([float(w.norm())
+                                    for w in plain_grads.values()]))
+    worst = 0.0
+    for k, want in plain_grads.items():
+        scale = float(want.norm())
+        if scale < floor:
+            check(float(grads[k].norm()) < floor,
+                  f"dense step: gradient {k} above the noise floor")
+            continue
+        worst = max(worst, float((grads[k] - want).norm()) / scale)
+    out = dict(launches=launches, loss=loss, plain_loss=plain_loss,
+               grad_rel_err=worst)
+    print("dense: step " + json.dumps(out))
+    check(launches == 44, f"dense step: {launches} launches, 44 expected")
+    check(abs(loss - plain_loss) <= 1e-5 * max(abs(plain_loss), 1.0),
+          f"dense step: loss {loss} against {plain_loss}")
+    check(worst <= 1e-4, f"dense step: gradient error {worst}")
+    return out
 
 
 def time_ms(torch, fn, iters, warmup=3):
@@ -4729,6 +4957,9 @@ def run_smoke():
     report["sparse"], sparse_entries = sparse_phase(torch, np, sparse, fused,
                                                     device)
 
+    # 8b. Graph WaveNet's dense adaptive hop against float64 and torch.mm
+    report["dense"], dense_entry = dense_phase(torch, np, device)
+
     # 9. the bf16 training slice and one bf16 train step against the plain
     # path of the same contract
     report["bf16"], bcounts = bf16_phase(torch, np, fused, device)
@@ -4781,6 +5012,9 @@ def run_smoke():
     for name, meta in KERNELS.items():
         if name in SPARSE:
             kernels.append(sparse_entries[name])
+            continue
+        if name == "dense_hop":
+            kernels.append(dense_entry)
             continue
         if name in CHAINS + BF16_CHAINS:
             ms, plain_ms, call_ms, k_by, _ = timings[(name, agg_main)]

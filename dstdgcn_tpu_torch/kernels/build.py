@@ -35,6 +35,7 @@ SOURCES = {
     "dstd_temporal_bwd": "dstd_temporal_bwd.cu",
     "dstd_chain": "dstd_chain.cu",
     "block_sparse": "block_sparse.cu",
+    "dense_hop": "dense_hop.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -113,6 +114,12 @@ SIGNATURES = {
         #  stream)
         "block_sddmm_spmm_f32": ([_PTR] * 7 + [_INT] * 6 + [_PTR],
                                  ctypes.c_int),
+    },
+    "dense_hop": {
+        # (x, b, out, V, F, ldb, device, stream)
+        "dense_hop_f32": ([_PTR] * 3 + [_INT] * 4 + [_PTR], ctypes.c_int),
+        # (x, g, out, V, F, device, stream)
+        "dense_outer_f32": ([_PTR] * 3 + [_INT] * 3 + [_PTR], ctypes.c_int),
     },
 }
 

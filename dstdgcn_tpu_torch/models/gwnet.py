@@ -26,8 +26,9 @@ What differs from ``model.py`` in form (not in result):
   in that order, padded to a multiple of the block, on the node-major
   ``(V, N*C*L)`` activation; its ``d_x`` is the same kernel on the
   transposed pattern, against the support's transpose, which the model
-  holds beside it.  The adaptive hop is one dense product.  The node
-  embeddings stay in the caller's order.
+  holds beside it.  The adaptive hop is one dense product,
+  ``kernels/dense.py::dense_hop`` (``adp^T x`` and its gradients on
+  3xTF32 ``wgmma``).  The node embeddings stay in the caller's order.
 * The gate convolution is a ``Conv2d`` (``model.py`` builds an
   ``nn.Conv1d`` with the kernel ``(1, 2)``, which computes the same);
   ``residual_convs``, which ``model.py`` builds but does not call when the
@@ -57,7 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graphs import road
-from ..kernels import sparse
+from ..kernels import dense, sparse
 from ..utils import profiling
 from .layers import Dropout
 
@@ -214,9 +215,10 @@ class GWNet(nn.Module):
         return torch.tanh(self.filter_convs[i](x)) * torch.sigmoid(
             self.gate_convs[i](x))
 
-    def _gcn(self, i: int, h: torch.Tensor, adp: torch.Tensor) \
-            -> torch.Tensor:
-        """``model.py``'s ``gcn`` of layer ``i`` on ``h`` (N, C, V, L)."""
+    def _gcn(self, i: int, h: torch.Tensor, adp: torch.Tensor,
+             ops: dense.Operands) -> torch.Tensor:
+        """``model.py``'s ``gcn`` of layer ``i`` on ``h`` (N, C, V, L);
+        ``ops``: adp as the dense hop's kernels read it."""
         n, c, v, length = h.shape
         # node-major (Vp, N*C*L), the padded rows zero
         hp = F.pad(h.permute(2, 0, 1, 3),
@@ -232,7 +234,7 @@ class GWNet(nn.Module):
                 hops.append(z[0, :v])
         z = hp[0, :v]
         for _ in range(self.order_hops):
-            z = torch.mm(adp.t(), z)
+            z = dense.dense_hop(adp, z, ops)
             hops.append(z)
         cat = torch.cat([h] + [z.view(v, n, c, length).permute(1, 2, 0, 3)
                                for z in hops], dim=1)
@@ -247,6 +249,7 @@ class GWNet(nn.Module):
         x = self.start_conv(x)
         adp = profiling.spanned("gwnet.adaptive", self._adaptive,
                                 self.nodevec1, self.nodevec2)
+        ops = dense.Operands(adp)
         skip = None
         for i in range(self.layer_count):
             residual = x
@@ -255,8 +258,8 @@ class GWNet(nn.Module):
             s = self.skip_convs[i](h)
             skip = s if skip is None else s + skip[..., -s.shape[3]:]
             h = profiling.spanned("gwnet.diffusion",
-                                  lambda a, b, i=i: self._gcn(i, a, b), h,
-                                  adp)
+                                  lambda a, b, i=i: self._gcn(i, a, b, ops),
+                                  h, adp)
             x = self.bn[i](h + residual[..., -h.shape[3]:])
         x = F.relu(self.end_conv_1(F.relu(skip)))
         x = self.end_conv_2(x)[..., -1]

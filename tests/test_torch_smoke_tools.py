@@ -84,6 +84,20 @@ def test_sass_counts_the_float64_tensor_core_products():
     assert list(cs.sass_counts(sass).values()) == [(1, 4)]
 
 
+def test_sass_counts_the_warpgroup_products_by_their_pattern():
+    """The dense hop's phase counts ``HGMMA`` (wgmma), which the default
+    pattern of the ``mma.sync`` kernels does not count."""
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_111gemm_kernelILb1EEEv14CUtensorMap_stS1_Pfiiii
+        /*0000*/          LDC R1, c[0x0][0x28] ;
+        /*0010*/          HGMMA.64x192x8.F32.TF32 R24, R8, gdesc[UR4], R24 ;
+        /*0020*/          HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0030*/          EXIT ;
+"""
+    assert list(cs.sass_counts(sass, r"\bHGMMA\b").values()) == [(1, 4)]
+    assert list(cs.sass_counts(sass).values()) == [(1, 4)]
+
+
 @pytest.mark.parametrize("function,mma", [
     ("dstd_bwd::out_kernel<false, 5, dstd::Bf16>", True),
     ("dstd_bwd::out_kernel<false, 1, dstd::Bf16>", True),
